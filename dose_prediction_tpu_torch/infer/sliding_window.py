@@ -1,0 +1,86 @@
+"""Sliding-window inference (counterpart of
+dose_prediction_tpu/infer/sliding_window.py::sliding_window_inference,
+constant blend).
+
+MONAI dense-grid spacing: interval = roi·(1−overlap), the last window
+clamped flush to the edge; a volume smaller than the ROI is zero-padded and
+the output cropped back. Windows run through the predictor ``sw_batch_size``
+at a time; predictions are summed in float32 and divided by the number of
+windows covering each voxel. When ``sw_batch_size`` does not divide the
+number of windows the last batch is shorter, as in MONAI. (The JAX version
+pads that batch by repeating the last window; its count channel then counts
+the repeats too, so the repeated window weighs more than the others in the
+blend. On the main path, 8 windows in one batch of 8, nothing is padded.)
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _scan_starts(image: int, roi: int, overlap: float) -> List[int]:
+    """MONAI dense_patch_slices grid along one axis."""
+    if roi >= image:
+        return [0]
+    interval = max(int(roi * (1.0 - overlap)), 1)
+    num = int(np.ceil((image - roi) / interval)) + 1
+    starts: List[int] = []
+    for i in range(num):
+        start = min(i * interval, image - roi)
+        if not starts or start != starts[-1]:
+            starts.append(start)
+    return starts
+
+
+def window_grid(image_size: Sequence[int], roi_size: Sequence[int],
+                overlap: float = 0.25) -> List[Tuple[int, int, int]]:
+    zs, ys, xs = (_scan_starts(image_size[i], roi_size[i], overlap) for i in range(3))
+    return [(z, y, x) for z in zs for y in ys for x in xs]
+
+
+def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
+                             roi_size: Sequence[int] = (96, 96, 96), sw_batch_size: int = 4,
+                             overlap: float = 0.25, mode: str = "constant",
+                             out_channels: int | None = None) -> torch.Tensor:
+    """Run ``predictor`` over overlapping ROI windows of ``volume``.
+
+    Args:
+        volume: ``(1, C, D, H, W)``.
+        predictor: maps ``(n, C, *roi) -> (n, C_out, *roi)``.
+        out_channels: C_out (defaults to C).
+
+    Returns:
+        ``(1, C_out, D, H, W)`` float32 blend.
+    """
+    if mode != "constant":
+        raise ValueError(f"blend mode {mode!r} is not ported; only 'constant' is")
+    if volume.shape[0] != 1:
+        raise ValueError("sliding_window_inference expects batch size 1")
+    _, c, d, h, w = volume.shape
+    roi = tuple(int(r) for r in roi_size)
+    pads = [max(0, roi[i] - volume.shape[2 + i]) for i in range(3)]
+    if any(pads):
+        volume = F.pad(volume, (0, pads[2], 0, pads[1], 0, pads[0]))
+    full = tuple(volume.shape[2:])
+    grid = window_grid(full, roi, overlap)
+    c_out = int(out_channels) if out_channels is not None else c
+    acc = torch.zeros((1, c_out, *full), dtype=torch.float32, device=volume.device)
+    count = torch.zeros((1, 1, *full), dtype=torch.float32, device=volume.device)
+
+    def region(start):
+        z, y, x = start
+        return (slice(None), slice(None), slice(z, z + roi[0]), slice(y, y + roi[1]),
+                slice(x, x + roi[2]))
+
+    for b in range(0, len(grid), sw_batch_size):
+        starts = grid[b:b + sw_batch_size]
+        preds = predictor(torch.cat([volume[region(s)] for s in starts])).float()
+        for i, s in enumerate(starts):
+            acc[region(s)] += preds[i:i + 1]
+            count[region(s)] += 1.0
+    out = acc / count
+    return out[:, :, :d, :h, :w]
