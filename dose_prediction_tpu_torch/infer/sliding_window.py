@@ -7,10 +7,13 @@ clamped flush to the edge; a volume smaller than the ROI is zero-padded and
 the output cropped back. Windows run through the predictor ``sw_batch_size``
 at a time; predictions are summed in float32 and divided by the number of
 windows covering each voxel. When ``sw_batch_size`` does not divide the
-number of windows the last batch is shorter, as in MONAI. (The JAX version
-pads that batch by repeating the last window; its count channel then counts
-the repeats too, so the repeated window weighs more than the others in the
-blend. On the main path, 8 windows in one batch of 8, nothing is padded.)
+number of windows, the last batch is padded by repeating the last window
+and the count counts the repeats, as the JAX version does
+(dose_prediction_tpu/infer/sliding_window.py:110-115): every batch has
+``sw_batch_size`` windows, and the repeated window weighs more than the
+others in the blend. MONAI runs a shorter last batch instead; that
+difference is a fault of both packages (ROADMAP queue 3), kept here so the
+two agree. On the main path, 8 windows in one batch of 8, nothing is padded.
 """
 
 from __future__ import annotations
@@ -67,6 +70,9 @@ def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
         volume = F.pad(volume, (0, pads[2], 0, pads[1], 0, pads[0]))
     full = tuple(volume.shape[2:])
     grid = window_grid(full, roi, overlap)
+    n_batches = -(-len(grid) // sw_batch_size)
+    # pad the last batch by repeating the last window; the count counts it
+    grid = grid + [grid[-1]] * (n_batches * sw_batch_size - len(grid))
     c_out = int(out_channels) if out_channels is not None else c
     acc = torch.zeros((1, c_out, *full), dtype=torch.float32, device=volume.device)
     count = torch.zeros((1, 1, *full), dtype=torch.float32, device=volume.device)

@@ -175,19 +175,31 @@ def test_sliding_window_matches_jax(rng, shape, sw):
 
 @pytest.mark.parametrize("sw", [1, 3, 5, 8])
 def test_sliding_window_is_the_monai_blend(rng, sw):
-    """The port's blend is the plain mean over the windows covering each
-    voxel for every sw_batch_size, as MONAI's."""
+    """48³ in 32³ windows gives 8 windows. Where sw_batch_size divides 8
+    (1, 8), the blend is the plain mean over the windows covering each
+    voxel, as MONAI's, and the two packages agree. Where it does not (3, 5),
+    both pad the last batch by repeating the last window and count the
+    repeats (a fault of both, ROADMAP queue 3): the port must give the JAX
+    package's blend."""
     v = rng.standard_normal((1, 1, 48, 48, 48)).astype(np.float32)
     roi = (32, 32, 32)
-    acc = np.zeros((1, 1, 48, 48, 48))
-    cnt = np.zeros_like(acc)
-    for z, y, x in tsw.window_grid((48, 48, 48), roi, 0.25):
-        sl = (slice(None), slice(None), slice(z, z + 32), slice(y, y + 32), slice(x, x + 32))
-        acc[sl] += _window_dependent(v[sl])
-        cnt[sl] += 1
     got = tsw.sliding_window_inference(torch.from_numpy(v), _window_dependent, roi_size=roi,
                                        sw_batch_size=sw)
-    close(got, acc / cnt, 1e-4)
+    if 8 % sw == 0:
+        acc = np.zeros((1, 1, 48, 48, 48))
+        cnt = np.zeros_like(acc)
+        for z, y, x in tsw.window_grid((48, 48, 48), roi, 0.25):
+            sl = (slice(None), slice(None), slice(z, z + 32), slice(y, y + 32),
+                  slice(x, x + 32))
+            acc[sl] += _window_dependent(v[sl])
+            cnt[sl] += 1
+        close(got, acc / cnt, 1e-4)
+    else:
+        want = jsw.sliding_window_inference(
+            jnp.asarray(v.transpose(0, 2, 3, 4, 1)),
+            lambda w: jnp.moveaxis(_window_dependent(jnp.moveaxis(w, -1, 1)), 1, -1),
+            roi_size=roi, sw_batch_size=sw, overlap=0.25)
+        close(to_ndhwc(got), want, 1e-4)
 
 
 def test_sliding_window_rejects_gaussian_blend():
