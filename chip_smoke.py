@@ -20,8 +20,23 @@ Phases, each printing its seconds on a line of its own:
             entry points, with the kernels' launch counts read around them;
 6. profile  one more bfloat16 request under torch.profiler: device time by
             kernel group and the device's idle share;
+7. serve_k3 the same three requests with the K3 routing on
+            (DPT_PALLAS_CONV=1: same-size 3x3x3 convs with C in {16, 32,
+            64} go to K3), and one more under the profiler;
+8. train    the full-width DOSE-PYFER train step at 128³, batch 1, bfloat16
+            compute, float32 parameters, AdamW, net_A frozen, routing on,
+            PyTorch's TF32 defaults (cuDNN float32 convolutions in TF32):
+            one warm-up and five timed steps on a fixed batch, each step's
+            launches and backward recomputes of K1, K2 and K3, peak memory,
+            one step under the profiler; then the p50 with the routing off;
+9. train_parity  one float32 step (TF32 off) from identical weights and batch
+            through the kernels and through their plain versions: the loss
+            and every gradient leaf;
 
-then a ``kernels`` JSON line, the card's name and power limit, and the
+The kernels phase holds K3 too, at the six shapes of the C3D, DOSE-PYFER
+and TranSeg convolutions it takes, and the parity phase runs the cascade a
+second time with the routing on and all three plain versions swapped in.
+Then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
 from seeds on the card. Any failed phase exits non-zero without a result.
 """
@@ -30,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -49,6 +65,15 @@ LABEL_AGREEMENT_MIN = 0.999
 
 K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128)]          # TranSeg windows, DOSE-PYFER
 K2_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96)]  # C3D level 1, TranSeg decoder2
+# C3D / DOSE-PYFER levels 1-3 at 128³, then the TranSeg windows' levels at 96³
+K3_SHAPES = [(1, 16, 128, 128, 128), (1, 32, 64, 64, 64), (1, 64, 32, 32, 32),
+             (8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24)]
+TRAIN_LR, TRAIN_WD = 6.130697604327541e-4, 1.6303111017674179e-4   # train/trainers.py:56-57
+TRAIN_STEPS = 5
+TRAIN_PARITY_NOISE = 1e-6
+# train_parity: conv biases of the Conv31 blocks feed a norm, so their exact
+# gradient is 0 and both sides give rounding noise there
+ZERO_GRAD_BIAS = r"conv_block\.cov_\.(conv_[37]\.0\.conv\.[03]|conv\.0)\.bias$"
 ACTS = ["identity", "relu", "leakyrelu", "mish", "gelu"]
 
 
@@ -94,11 +119,42 @@ def nvidia_smi() -> str:
 
 
 @contextlib.contextmanager
-def plain_kernels(k1, k2):
+def plain_kernels(k1, k2, k3=None):
     """Swap the plain versions in where the model calls the kernels."""
-    with mock.patch.object(k1, "fused_attention", k1.plain_attention), \
-            mock.patch.object(k2, "instance_norm_act", k2.plain_instance_norm_act):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(k1, "fused_attention", k1.plain_attention))
+        stack.enter_context(mock.patch.object(k2, "instance_norm_act",
+                                              k2.plain_instance_norm_act))
+        if k3 is not None:
+            stack.enter_context(mock.patch.object(k3, "conv3d_k3", k3.plain_conv3d_k3))
         yield
+
+
+@contextlib.contextmanager
+def k3_routing(on: bool):
+    """DPT_PALLAS_CONV=1 (on) or 0 (off) for the models' convolutions."""
+    from dose_prediction_tpu_torch.core.config import FLAGS
+
+    with mock.patch.object(FLAGS, "use_k3_conv3d", "1" if on else "0"):
+        yield
+
+
+def kernel_wrappers():
+    from dose_prediction_tpu_torch.kernels import attention as k1
+    from dose_prediction_tpu_torch.kernels import conv3d as k3
+    from dose_prediction_tpu_torch.kernels import instance_norm as k2
+
+    return {"attention": k1.fused_attention, "instance_norm": k2.instance_norm_act,
+            "conv3d_k3": k3.conv3d_k3}
+
+
+def zero_counts() -> None:
+    for f in kernel_wrappers().values():
+        f.launches = f.recomputes = 0
+
+
+def read_counts(field: str = "launches") -> dict:
+    return {name: getattr(f, field) for name, f in kernel_wrappers().items()}
 
 
 def check_kernel(name, kernel, plain, library, args, dtype, nbytes, ops, iters):
@@ -127,6 +183,7 @@ def phase_kernels(dev):
     import torch.nn.functional as F
 
     from dose_prediction_tpu_torch.kernels import attention as k1
+    from dose_prediction_tpu_torch.kernels import conv3d as k3
     from dose_prediction_tpu_torch.kernels import instance_norm as k2
 
     g = torch.Generator(dev).manual_seed(SEED)
@@ -151,6 +208,18 @@ def phase_kernels(dev):
                 (x, scale, bias), dtype, nbytes=2 * x.numel() * x.element_size(),
                 ops=8 * x.numel(), iters=10)
             del x
+    for shape in K3_SHAPES:
+        n, c, d, h, w = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            wt = (torch.rand((c, c, 3, 3, 3), generator=g, device=dev) * 2 - 1) / (27 * c) ** 0.5
+            b = torch.randn(c, generator=g, device=dev) * 0.1
+            rows[("conv3d_k3", shape, dtype)] = check_kernel(
+                f"K3 conv3d_k3 {shape}", k3.conv3d_k3, k3.plain_conv3d_k3,
+                lambda x, wt, b: F.conv3d(x, wt.to(x.dtype), b.to(x.dtype), padding=1),
+                (x, wt, b), dtype, nbytes=2 * x.numel() * x.element_size(),
+                ops=2 * n * d * h * w * 27 * c * c, iters=10)
+            del x
     for dtype in (torch.float32, torch.bfloat16):        # every activation K2 fuses
         x = (torch.randn((2, 16, 24, 20, 36), generator=g, device=dev) * 2 + 1).to(dtype)
         for act in ACTS:
@@ -172,8 +241,13 @@ def seeded_models(dev):
     g = torch.Generator(dev).manual_seed(SEED + 1)
     seg = init_params(TranSeg(out_ch=8, device=dev), g)
     dose = init_params(DosePyfer(device=dev), g)
+    return perturb_norms([seg, dose], g)
+
+
+def perturb_norms(models, g):
+    """Draw norm affines and BatchNorm statistics off 1/0 so those paths count."""
     with torch.no_grad():
-        for m in list(seg.modules()) + list(dose.modules()):
+        for m in (m for model in models for m in model.modules()):
             if isinstance(m, torch.nn.BatchNorm3d):
                 m.running_mean.uniform_(-0.2, 0.2, generator=g)
                 m.running_var.uniform_(0.8, 1.3, generator=g)
@@ -181,7 +255,7 @@ def seeded_models(dev):
                               torch.nn.LayerNorm)) and m.weight is not None:
                 m.weight.uniform_(0.7, 1.3, generator=g)
                 m.bias.uniform_(-0.2, 0.2, generator=g)
-    return seg, dose
+    return models
 
 
 def seeded_volumes(dev, dtype):
@@ -194,35 +268,45 @@ def seeded_volumes(dev, dtype):
     return ct.to(dtype), ptv.to(dtype), mask.to(dtype)
 
 
-def phase_parity(dev, seg, dose, stage1, stage2, k1, k2):
+def cascade_parity(dev, seg, dose, stage1, stage2, kernels, route_k3):
+    """The f32 cascade through the kernels and with their plain versions
+    swapped in; with ``route_k3`` the K3 routing is on for both."""
     ct, ptv, mask = seeded_volumes(dev, torch.float32)
     seg_vars, dose_vars = seg.state_dict(), dose.state_dict()
-    k1.fused_attention.launches = k2.instance_norm_act.launches = 0
-    struct_k = stage1(seg_vars, ct, ptv)
-    dose_k = stage2(dose_vars, struct_k, mask)
-    torch.cuda.synchronize()
-    launches = (k1.fused_attention.launches, k2.instance_norm_act.launches)
-    with plain_kernels(k1, k2):
-        struct_p = stage1(seg_vars, ct, ptv)
-        dose_p = stage2(dose_vars, struct_k, mask)      # the same structures as dose_k
-    torch.cuda.synchronize()
+    with k3_routing(route_k3):
+        zero_counts()
+        struct_k = stage1(seg_vars, ct, ptv)
+        dose_k = stage2(dose_vars, struct_k, mask)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        with plain_kernels(*kernels):
+            struct_p = stage1(seg_vars, ct, ptv)
+            dose_p = stage2(dose_vars, struct_k, mask)      # the same structures as dose_k
+        torch.cuda.synchronize()
     agree = torch.all(struct_k[..., 1:8] == struct_p[..., 1:8], dim=-1).float().mean().item()
     diff = (dose_k - dose_p).abs().max().item()
     tol = DOSE_TOL_OF_SCALE * 70.0
     oars = struct_k[..., 1:8]
     labels = torch.unique(torch.where(oars.amax(-1) > 0, oars.argmax(-1) + 1, 0))
-    log(f"cascade f32 (TF32 off): dose max abs diff kernels vs plain {diff:.4g} Gy "
+    route = "K3 routing on" if route_k3 else "K3 routing off"
+    log(f"cascade f32 (TF32 off, {route}): dose max abs diff kernels vs plain {diff:.4g} Gy "
         f"(tol {tol:.3g} Gy), dose max {dose_k.max().item():.4g} Gy; seg labels agree "
         f"{agree * 100:.4f}% (min {LABEL_AGREEMENT_MIN * 100:.1f}%), {labels.numel()} labels "
-        f"present; launches K1 {launches[0]} K2 {launches[1]}")
-    if not (diff <= tol and agree >= LABEL_AGREEMENT_MIN and min(launches) > 0
+        f"present; launches {launches}")
+    routed = launches["conv3d_k3"] > 0 if route_k3 else launches["conv3d_k3"] == 0
+    if not (diff <= tol and agree >= LABEL_AGREEMENT_MIN and routed
+            and launches["attention"] > 0 and launches["instance_norm"] > 0
             and bool(torch.isfinite(dose_k).all())):
-        raise AssertionError("f32 cascade parity failed")
-    return {"dose_max_abs_diff_gy": diff, "label_agreement": agree,
-            "launches": dict(zip(("attention", "instance_norm"), launches))}
+        raise AssertionError(f"f32 cascade parity failed ({route})")
+    return {"dose_max_abs_diff_gy": diff, "label_agreement": agree, "launches": launches}
 
 
-def phase_serve(dev, seg, dose, stage1, stage2, k1, k2):
+def phase_parity(dev, seg, dose, stage1, stage2, kernels):
+    return {"cudnn": cascade_parity(dev, seg, dose, stage1, stage2, kernels, False),
+            "k3": cascade_parity(dev, seg, dose, stage1, stage2, kernels, True)}
+
+
+def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
     ct, ptv, mask = seeded_volumes(dev, torch.bfloat16)
     seg_vars, dose_vars = seg.state_dict(), dose.state_dict()
 
@@ -231,47 +315,48 @@ def phase_serve(dev, seg, dose, stage1, stage2, k1, k2):
         torch.cuda.synchronize()
         return out
 
-    request()                                           # warm-up
-    k1.fused_attention.launches = k2.instance_norm_act.launches = 0
-    times, out = [], None
-    for _ in range(3):
-        t0 = time.perf_counter()
-        out = request()
-        times.append(time.perf_counter() - t0)
-    launches = {"attention": k1.fused_attention.launches,
-                "instance_norm": k2.instance_norm_act.launches}
+    with k3_routing(route_k3):
+        request()                                       # warm-up
+        zero_counts()
+        times, out = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = request()
+            times.append(time.perf_counter() - t0)
+        launches = read_counts()
     ok = (out.shape == (1, 128, 128, 128, 1) and bool(torch.isfinite(out).all())
           and bool((out[mask < 1] == 0).all()) and bool((out >= 0).all()))
     p50 = sorted(times)[1]
-    log(f"serve bf16: request seconds {times}, p50 {p50} s; output shape {tuple(out.shape)}, "
-        f"finite, 0 outside the mask, >= 0: {ok}; peak memory "
-        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-    if not ok or min(launches.values()) == 0:
-        raise AssertionError(f"serve check failed (launches {launches})")
+    name = "serve_k3" if route_k3 else "serve"
+    log(f"{name} bf16: request seconds {times}, p50 {p50} s; output shape {tuple(out.shape)}, "
+        f"finite, 0 outside the mask, >= 0: {ok}; launches over the 3 requests {launches}; "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    routed = launches["conv3d_k3"] > 0 if route_k3 else launches["conv3d_k3"] == 0
+    if not (ok and routed and launches["attention"] > 0 and launches["instance_norm"] > 0):
+        raise AssertionError(f"{name} check failed (launches {launches})")
     return {"p50_s": p50, "times_s": times, "launches": launches}
 
 
 # kernel-name fragments by group, first match wins (cuDNN's convolutions are
 # implicit GEMMs, so they are matched before the matmul fragments)
-KERNEL_GROUPS = (("K1 attention", ("attention_fwd_kernel",)),
+KERNEL_GROUPS = (("K3 conv3d_k3", ("conv3d_k3",)),
+                 ("K1 attention", ("attention_fwd_kernel",)),
                  ("K2 instance norm", ("stats_kernel", "apply_kernel")),
                  ("cuDNN layout transform", ("nchwtonhwc", "nhwctonchw")),
                  ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "implicit")),
                  ("matmul", ("gemm", "nvjet", "cublas", "cutlass")))
 
 
-def phase_profile(dev, seg, dose, stage1, stage2):
-    """One more bf16 request under torch.profiler: device time by kernel
-    group and the device's idle share of the request's wall time."""
+def profiled(fn, label: str):
+    """Run ``fn`` once under torch.profiler: device time by kernel group and
+    the device's idle share of its wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ct, ptv, mask = seeded_volumes(dev, torch.bfloat16)
-    seg_vars, dose_vars = seg.state_dict(), dose.state_dict()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stage2(dose_vars, stage1(seg_vars, ct, ptv), mask)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = []
@@ -283,7 +368,7 @@ def phase_profile(dev, seg, dose, stage1, stage2):
             kernels.append((us, evt.count, evt.key))
     busy_us = sum(us for us, _, _ in kernels)
     if busy_us <= 0:
-        log("profile: the profiler reported no device time; not measured")
+        log(f"profile {label}: the profiler reported no device time; not measured")
         return None
     groups = {}
     for us, count, name in kernels:
@@ -292,15 +377,219 @@ def phase_profile(dev, seg, dose, stage1, stage2):
         tot = groups.setdefault(group, [0.0, 0])
         tot[0] += us
         tot[1] += count
-    log(f"profile bf16 request: wall {wall_us / 1e3:.2f} ms under the profiler, device busy "
+    log(f"profile {label}: wall {wall_us / 1e3:.2f} ms under the profiler, device busy "
         f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}")
     for group, (us, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"profile group {group}: {us / 1e3:.3f} ms in {count} launches "
+        log(f"profile {label} group {group}: {us / 1e3:.3f} ms in {count} launches "
             f"({us / busy_us * 100:.1f}% of device time)")
     for us, count, name in sorted(kernels, reverse=True)[:12]:
-        log(f"profile kernel {us / 1e3:.3f} ms x{count}: {name[:110]}")
+        log(f"profile {label} kernel {us / 1e3:.3f} ms x{count}: {name[:110]}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
             "groups_ms": {g: v[0] / 1e3 for g, v in groups.items()}}
+
+
+def phase_profile(dev, seg, dose, stage1, stage2, route_k3=False):
+    """One more bf16 request under torch.profiler."""
+    ct, ptv, mask = seeded_volumes(dev, torch.bfloat16)
+    seg_vars, dose_vars = seg.state_dict(), dose.state_dict()
+    with k3_routing(route_k3):
+        return profiled(lambda: stage2(dose_vars, stage1(seg_vars, ct, ptv), mask),
+                        "bf16 request" + (" (K3 routing on)" if route_k3 else ""))
+
+
+def seeded_pyfer(dev):
+    """A full-width DOSE-PYFER drawn from one seed: two calls give identical
+    weights."""
+    from dose_prediction_tpu_torch.models import DosePyfer
+    from dose_prediction_tpu_torch.nn.init import init_params
+
+    g = torch.Generator(dev).manual_seed(SEED + 3)
+    return perturb_norms([init_params(DosePyfer(device=dev), g)], g)[0]
+
+
+def seeded_batch(dev, dtype):
+    """A fixed 128³ training batch, NDHWC: input (PTV, 7 one-hot OARs, CT) in
+    ``dtype``, gt (dose ÷ 70, possible-dose mask) in float32."""
+    g = torch.Generator(dev).manual_seed(SEED + 4)
+    shape = (1, 128, 128, 128)
+    ptv = (torch.rand(shape, generator=g, device=dev) < 0.05).float()
+    labels = torch.randint(0, 8, shape, generator=g, device=dev)
+    oars = torch.nn.functional.one_hot(labels, 8)[..., 1:].float()
+    ct = torch.randn(shape, generator=g, device=dev)
+    mask = (torch.rand(shape, generator=g, device=dev) < 0.6).float()
+    dose = torch.rand(shape, generator=g, device=dev) * mask
+    return {"input": torch.cat([ptv[..., None], oars, ct[..., None]], dim=-1).to(dtype),
+            "gt": torch.stack([dose, mask], dim=-1)}
+
+
+def make_trainer(dev):
+    from dose_prediction_tpu_torch.train import state as S
+    from dose_prediction_tpu_torch.train import steps
+
+    model = seeded_pyfer(dev)
+    opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD,
+                           freeze_labels=S.cascade_freeze_labels(model), kind="adamw")
+    step = steps.make_pyfer_train_step(model, opt, delta1=10.0, delta2=8.0, freeze=True)
+    return model, step, S.TrainState(model, opt)
+
+
+def timed_steps(dev, step, state, batch, n):
+    """One warm-up step, then ``n`` timed steps with the counts read around
+    each; returns the state, the warm-up loss and one row per step."""
+    state, loss0 = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    for _ in range(n):
+        zero_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        rows.append({"s": time.perf_counter() - t0, "loss": float(loss),
+                     "launches": read_counts(), "recomputes": read_counts("recomputes")})
+    return state, float(loss0), rows
+
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """PyTorch's defaults, which a training user runs with: TF32 for cuDNN's
+    float32 convolutions (here the backward recomputes of K3's plain
+    version), not for float32 matmuls."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_train(dev):
+    """Full-width DOSE-PYFER steps at 128³, bf16 compute, routing on, then
+    the same with the routing off, at PyTorch's TF32 defaults."""
+    with torch_default_tf32():
+        return train_steps_both_routes(dev)
+
+
+def train_steps_both_routes(dev):
+    batch = seeded_batch(dev, torch.bfloat16)
+    model, step, state = make_trainer(dev)
+    with k3_routing(True):
+        state, loss0, rows = timed_steps(dev, step, state, batch, TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = profiled(lambda: step(state, batch), "bf16 train step (K3 routing on)")
+    times = [r["s"] for r in rows]
+    losses = [loss0] + [r["loss"] for r in rows]
+    p50 = sorted(times)[len(times) // 2]
+    for i, r in enumerate(rows):
+        log(f"train bf16 step {i + 1}: {r['s']} s, loss {r['loss']}, forward launches "
+            f"{r['launches']}, backward recomputes {r['recomputes']}")
+    falls = losses[-1] < losses[0]
+    log(f"train bf16 (K3 routing on): step seconds {times}, p50 {p50} s; losses (warm-up "
+        f"first) {losses}, {'falling' if falls else 'NOT falling'}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    ok = all(math.isfinite(x) for x in losses) and all(
+        min(r["launches"].values()) > 0 and min(r["recomputes"].values()) > 0 for r in rows)
+    with k3_routing(False):
+        state, _, rows_off = timed_steps(dev, step, state, batch, TRAIN_STEPS)
+    times_off = [r["s"] for r in rows_off]
+    p50_off = sorted(times_off)[len(times_off) // 2]
+    log(f"train bf16 (K3 routing off, cuDNN): step seconds {times_off}, p50 {p50_off} s; "
+        f"K3 launches {[r['launches']['conv3d_k3'] for r in rows_off]}")
+    ok = ok and all(r["launches"]["conv3d_k3"] == 0 and math.isfinite(r["loss"])
+                    for r in rows_off)
+    if not ok:
+        raise AssertionError("train check failed: a loss is not finite or a kernel of the "
+                             "path was not launched / recomputed in a step")
+    del model, step, state
+    return {"p50_s": p50, "times_s": times, "losses": losses, "peak_gib": peak / 2 ** 30,
+            "launches_per_step": rows[-1]["launches"],
+            "recomputes_per_step": rows[-1]["recomputes"], "profile": prof,
+            "p50_s_routing_off": p50_off, "times_s_routing_off": times_off}
+
+
+@contextlib.contextmanager
+def noisy_plain_kernels(k1, k2, k3, rel: float, seed: int, dev):
+    """The plain versions with each output multiplied by 1 + rel·u, u uniform
+    in [-1, 1] (the noise is kept out of the gradient): a float32 run that
+    differs from the plain one by rounding-sized noise only."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def noisy(plain):
+        def fn(*args, **kwargs):
+            out = plain(*args, **kwargs)
+            u = torch.rand(out.shape, generator=g, device=out.device) * 2 - 1
+            return out + (out * (rel * u)).detach()
+        return fn
+
+    with mock.patch.object(k1, "fused_attention", noisy(k1.plain_attention)), \
+            mock.patch.object(k2, "instance_norm_act", noisy(k2.plain_instance_norm_act)), \
+            mock.patch.object(k3, "conv3d_k3", noisy(k3.plain_conv3d_k3)):
+        yield
+
+
+def phase_train_parity(dev, kernels):
+    """One float32 step (TF32 off, routing on) from identical weights and
+    batch: through the kernels, through their plain versions, and through
+    the plain versions with TRAIN_PARITY_NOISE relative noise on their
+    outputs (the order of the kernels' own float32 deviation from their
+    plain versions in the kernels phase). The loss must agree to a relative 1e-5.
+    A gradient leaf must agree to a max abs of 1e-3 × its max |g|, or, where
+    the step itself amplifies rounding noise past that, to 2 × the worst
+    leaf-relative deviation that the noise run shows (the model's
+    normalisations turn 1e-6 forward differences into percent-level
+    differences of some leaves, kernels or not), with a floor of 2e-6 × the
+    model's largest |g|. Conv biases that feed a norm have a zero gradient
+    in exact arithmetic and must be below 1e-5 × the largest on both sides
+    (tests/test_torch_port_train.py states the first and last limits on
+    the CPU)."""
+    import re
+
+    k1, k2, k3 = kernels
+    batch = seeded_batch(dev, torch.float32)
+    runs = {}
+    for name, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels(*kernels)),
+                      ("noise", noisy_plain_kernels(k1, k2, k3, TRAIN_PARITY_NOISE, SEED, dev))):
+        model, step, state = make_trainer(dev)
+        with k3_routing(True), ctx:
+            zero_counts()
+            _, loss = step(state, batch)
+            torch.cuda.synchronize()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        runs[name] = (float(loss), grads, read_counts())
+        del model, step, state
+    (loss_k, grads_k, launches_k), (loss_p, grads_p, _), (_, grads_n, _) = (
+        runs["kernels"], runs["plain"], runs["noise"])
+    g_max = max(g.abs().max().item() for g in grads_p.values())
+    zero = re.compile(ZERO_GRAD_BIAS)
+    leaves = [n for n in grads_p if not zero.search(n)]
+    zeros = [n for n in grads_p if zero.search(n)]
+    scale = {n: grads_p[n].abs().max().item() for n in leaves}
+
+    def rel_err(grads, n):
+        return (grads[n] - grads_p[n]).abs().max().item() / max(scale[n], 1e-30)
+
+    worst_k = max(leaves, key=lambda n: rel_err(grads_k, n))
+    worst_n = max(leaves, key=lambda n: rel_err(grads_n, n))
+    noise_level = rel_err(grads_n, worst_n)
+    failed = [n for n in leaves if rel_err(grads_k, n) * scale[n]
+              > max(1e-3 * scale[n], 2 * noise_level * scale[n], 2e-6 * g_max)]
+    over_1e3 = sum(rel_err(grads_k, n) > 1e-3 for n in leaves)
+    failed += [n for n in zeros if max(grads_k[n].abs().max().item(),
+                                       grads_p[n].abs().max().item()) > 1e-5 * g_max]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"train_parity f32 (TF32 off, K3 routing on): loss kernels {loss_k} plain {loss_p}, "
+        f"relative diff {rel:.3g} (limit 1e-5); {len(grads_p)} gradient leaves, largest |g| "
+        f"{g_max:.4g}; worst leaf err / its max|g|: kernels vs plain "
+        f"{rel_err(grads_k, worst_k):.3g} ({worst_k}), noise run vs plain {noise_level:.3g} "
+        f"({worst_n}); {over_1e3} of {len(leaves)} leaves over 1e-3, limit "
+        f"max(1e-3, {2 * noise_level:.3g}); {len(zeros)} zero-gradient biases; leaves over "
+        f"their limit: {failed[:5]}; kernel-run launches {launches_k}")
+    if set(grads_k) != set(grads_p) or rel > 1e-5 or failed or min(launches_k.values()) == 0:
+        raise AssertionError("train_parity failed")
+    return {"loss_rel_diff": rel, "worst_leaf_rel_err": rel_err(grads_k, worst_k),
+            "noise_worst_leaf_rel_err": noise_level, "leaves_over_1e-3": over_1e3,
+            "leaves": len(grads_p)}
 
 
 def main() -> int:
@@ -312,6 +601,7 @@ def main() -> int:
     try:
         from dose_prediction_tpu_torch.infer.cascade import make_cascade_stages
         from dose_prediction_tpu_torch.kernels import attention as k1
+        from dose_prediction_tpu_torch.kernels import conv3d as k3
         from dose_prediction_tpu_torch.kernels import cuda_lib
         from dose_prediction_tpu_torch.kernels import instance_norm as k2
     except ImportError as e:
@@ -345,28 +635,39 @@ def main() -> int:
         stage1, stage2 = make_cascade_stages(models["seg"], models["dose"],
                                              roi_size=(96, 96, 96), sw_batch_size=8,
                                              overlap=0.25, dose_scale=70.0)
-        args = (dev, models["seg"], models["dose"], stage1, stage2, k1, k2)
-        run("parity", lambda: phase_parity(*args))
+        args = (dev, models["seg"], models["dose"], stage1, stage2)
+        run("parity", lambda: phase_parity(*args, (k1, k2, k3)))
         run("serve", lambda: phase_serve(*args))
-        run("profile", lambda: phase_profile(*args[:5]))
+        run("profile", lambda: phase_profile(*args))
+        run("serve_k3", lambda: {**phase_serve(*args, route_k3=True),
+                                 "profile": phase_profile(*args, route_k3=True)})
+        del models, stage1, stage2, args
+        torch.cuda.empty_cache()
+        run("train", lambda: phase_train(dev))
+        torch.cuda.empty_cache()
+        run("train_parity", lambda: phase_train_parity(dev, (k1, k2, k3)))
     except Exception:
         return 1
 
     smi = results["device"]["smi"]
-    log(f"serve p50 {results['serve']['p50_s']} s on {smi}")
+    log(f"serve p50 {results['serve']['p50_s']} s, serve_k3 p50 {results['serve_k3']['p50_s']} "
+        f"s; train step p50 {results['train']['p50_s']} s with K3 routing, "
+        f"{results['train']['p50_s_routing_off']} s without; on {smi}")
     kernels = []
-    for name, source, replaces, shape in (
+    for name, source, replaces, shape, phase in (
             ("attention", "dose_prediction_tpu_torch/csrc/attention.cu",
-             "dose_prediction_tpu/kernels/attention.py:26", K1_SHAPES[0]),
+             "dose_prediction_tpu/kernels/attention.py:26", K1_SHAPES[0], "serve"),
             ("instance_norm", "dose_prediction_tpu_torch/csrc/instance_norm.cu",
-             "dose_prediction_tpu/kernels/instance_norm.py:32", K2_SHAPES[1])):
+             "dose_prediction_tpu/kernels/instance_norm.py:32", K2_SHAPES[1], "serve"),
+            ("conv3d_k3", "dose_prediction_tpu_torch/csrc/conv3d_k3.cu",
+             "dose_prediction_tpu/kernels/conv3d.py:60", K3_SHAPES[3], "serve_k3")):
         row = results["kernels"][(name, shape, torch.bfloat16)]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": results["serve"]["launches"][name],
+                        "launches": results[phase]["launches"][name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                        "shape": list(shape), "dtype": "bfloat16"})
+                        "shape": list(shape), "dtype": "bfloat16", "launches_in": phase})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,9 @@ memory under an online float32 softmax, is described in the source.
 ``plain_attention`` is
 the same function in PyTorch, step for step the JAX package's
 ``xla_attention`` (:41-48): float32 scores and softmax, probabilities cast
-to the input dtype, float32 accumulation.
+to the input dtype, float32 accumulation. The backward recomputes it
+(kernels/autograd.py), as the JAX custom VJP (:74-89) differentiates
+``xla_attention``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from dose_prediction_tpu_torch.kernels import cuda_lib
+from dose_prediction_tpu_torch.kernels.autograd import PlainBackward, needs_grad
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -33,7 +36,14 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """MHSA on ``(N, heads, L, Dh)``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. Differentiable (the backward recomputes
+    the plain version)."""
+    if needs_grad(q, k, v):
+        return PlainBackward.apply(_direct, plain_attention, fused_attention, {}, q, k, v)
+    return _direct(q, k, v)
+
+
+def _direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return plain_attention(q, k, v)
     cuda_lib.require_cuda(q, "fused_attention")
@@ -56,3 +66,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 fused_attention.launches = 0
+fused_attention.recomputes = 0

@@ -34,6 +34,8 @@ _SIGNATURES = {
     "dpt_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # x, y, partials, scale, bias, planes, channels, S, chunk, eps, act, dtype, stream
     "dpt_instance_norm_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # x, w, bias, y, N, C, D, H, W, dtype, stream
+    "dpt_conv3d_k3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

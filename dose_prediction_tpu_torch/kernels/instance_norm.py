@@ -8,7 +8,8 @@ operations per element); its design, each (n, c) plane cut into chunks with
 per-chunk partial moments merged before a normalize pass, is described in
 the source. ``plain_instance_norm_act`` is the same function in PyTorch:
 ``ops.instance_norm`` (two-pass float32 statistics) followed by the
-activation, which is the JAX kernel's own reference.
+activation, which is the JAX kernel's own reference; the backward
+recomputes it (kernels/autograd.py), as the JAX custom VJP (:124-144) does.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from dose_prediction_tpu_torch.kernels import cuda_lib
+from dose_prediction_tpu_torch.kernels.autograd import PlainBackward, needs_grad
 from dose_prediction_tpu_torch.ops import get_act, instance_norm
 
 ACT_CODES = {"identity": 0, "none": 0, "relu": 1, "leakyrelu": 2, "mish": 3, "gelu": 4}
@@ -33,7 +35,16 @@ def instance_norm_act(x: torch.Tensor, scale: torch.Tensor | None = None,
                       eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm3d over each (n, c) of ``(N, C, D, H, W)``, then
     ``* scale + bias`` (each optional, ``(C,)``) and ``act``: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors. Differentiable (the
+    backward recomputes the plain version)."""
+    if needs_grad(x, scale, bias):
+        return PlainBackward.apply(_direct, plain_instance_norm_act, instance_norm_act,
+                                   {"act": act, "eps": eps}, x, scale, bias)
+    return _direct(x, scale, bias, act=act, eps=eps)
+
+
+def _direct(x: torch.Tensor, scale: torch.Tensor | None, bias: torch.Tensor | None, *,
+            act: str, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain_instance_norm_act(x, scale, bias, act=act, eps=eps)
     cuda_lib.require_cuda(x, "instance_norm_act")
@@ -67,3 +78,4 @@ def instance_norm_act(x: torch.Tensor, scale: torch.Tensor | None = None,
 
 
 instance_norm_act.launches = 0
+instance_norm_act.recomputes = 0

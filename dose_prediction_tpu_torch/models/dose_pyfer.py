@@ -84,7 +84,9 @@ class MainSubsetModel(nn.Module):
 
 class DosePyfer(nn.Module):
     """The cascade model. ``forward(x)`` on ``(N, in_ch, D, H, W)`` returns
-    ``(output_A, [out_full, out_half, out_quarter, out_eighth])``.
+    ``(output_A, [out_full, out_half, out_quarter, out_eighth])``. In train
+    mode the BatchNorms of net_B's k7 branches use batch statistics and
+    update their running statistics, as the JAX ``batch_stats`` collection.
 
     Defaults are the flagship config (train_light_pyfer.py:73-83): 9 input
     channels, 128³, feature size 16, an 8-layer ViT-768 with 6 heads, Mish.
@@ -103,7 +105,16 @@ class DosePyfer(nn.Module):
                                          num_heads, act)
             self.conv_out_A = Conv3d(list_ch_A[1], out_ch, 1, bias=True)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        out_a = self.net_A(x)
+    def forward(self, x: torch.Tensor, stop_gradient_a: bool = False
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``stop_gradient_a`` runs net_A without autograd, the counterpart of
+        the JAX model's ``stop_gradient`` (dose_pyfer.py:180-185): frozen-net_A
+        training stores none of its activations and back-propagates nothing
+        through it."""
+        if stop_gradient_a:
+            with torch.no_grad():
+                out_a = self.net_A(x)
+        else:
+            out_a = self.net_A(x)
         outs_b = self.net_B(torch.cat([out_a, x], dim=1))
         return self.conv_out_A(out_a), outs_b

@@ -1,9 +1,12 @@
 """3D convolutions on NCDHW tensors (counterpart of the conv3d /
 conv_transpose3d semantics of dose_prediction_tpu/ops/conv.py).
 
-Both go to cuDNN through torch: the JAX package leaves these convolutions to
-XLA, and its TPU-only rewrites (decomposed, lanefold, depth-phase, matmul)
-have no counterpart here. Weights use torch layouts: (O, I, kD, kH, kW) for
+Both go to cuDNN through torch, as the JAX package leaves these convolutions
+to XLA; its TPU-only rewrites (decomposed, lanefold, depth-phase, matmul)
+have no counterpart here. The one exception is its ``method="pallas"``
+routing (ops/conv.py:217-234): with ``method="k3"``, or ``method="auto"``
+and ``DPT_PALLAS_CONV`` set to '1' or 'tight' (core/config.py), a same-size
+3×3×3 conv with C_in == C_out ∈ {16, 32, 64} goes to kernel K3. Weights use torch layouts: (O, I, kD, kH, kW) for
 conv3d and (I, O, kD, kH, kW) for conv_transpose3d. The weight and bias are
 cast to the input's dtype, as the JAX layers cast their float32 params to
 the compute dtype.
@@ -14,14 +17,45 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dose_prediction_tpu_torch.core.config import FLAGS, K3_ON
+from dose_prediction_tpu_torch.kernels import conv3d as k3
+
+METHODS = ("auto", "k3")
+
 
 def _cast(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
     return None if t is None else t.to(dtype)
 
 
+def _triple(v) -> tuple:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
+
+
+def k3_eligible(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0, dilation=1,
+                groups: int = 1) -> bool:
+    """The JAX package's predicate for its Pallas k3 kernel
+    (dose_prediction_tpu/ops/conv.py:224-231), in torch layouts."""
+    return (groups == 1 and tuple(w.shape[2:]) == (3, 3, 3)
+            and _triple(stride) == (1, 1, 1) and _triple(dilation) == (1, 1, 1)
+            and _triple(padding) == (1, 1, 1)
+            and x.shape[1] == w.shape[0] and x.shape[1] in k3.CHANNELS)
+
+
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
-           stride=1, padding=0, dilation=1, groups: int = 1) -> torch.Tensor:
-    """Conv3d with symmetric zero padding (PyTorch semantics)."""
+           stride=1, padding=0, dilation=1, groups: int = 1,
+           method: str = "auto") -> torch.Tensor:
+    """Conv3d with symmetric zero padding (PyTorch semantics).
+
+    ``method``: 'auto' (K3 where ``FLAGS.use_k3_conv3d`` routes it, else
+    cuDNN) or 'k3' (K3 where eligible, else cuDNN). K3 gets the
+    weight in the input's dtype and the bias as it is (added in float32),
+    as the JAX layer hands its kernel."""
+    if method not in METHODS:
+        raise ValueError(f"conv3d: method {method!r} not in {METHODS}")
+    use_k3 = method == "k3" or (method == "auto" and FLAGS.use_k3_conv3d in K3_ON)
+    if use_k3 and k3_eligible(x, w, stride=stride, padding=padding, dilation=dilation,
+                              groups=groups):
+        return k3.conv3d_k3(x, w.to(x.dtype), b)
     return F.conv3d(x, w.to(x.dtype), _cast(b, x.dtype), stride=stride,
                     padding=padding, dilation=dilation, groups=groups)
 

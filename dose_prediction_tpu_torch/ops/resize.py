@@ -4,7 +4,7 @@ version's interpolation matrices, then cast back."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,3 +29,18 @@ def upsample3d(x: torch.Tensor, scale: int = 2, *, mode: str = "trilinear",
     d, h, w = x.shape[2:]
     return resize3d(x, (d * scale, h * scale, w * scale), mode=mode,
                     align_corners=align_corners)
+
+
+def downsample_pyramid(volume: torch.Tensor, mask: torch.Tensor, *,
+                       levels: Sequence[int] = (2, 4, 8)
+                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """GenLoss.downSample parity (reference loss.py:57-67): trilinear
+    (align_corners=True) volumes and nearest-exact masks at ``size / level``
+    for each pyramid level, on NCDHW tensors."""
+    d, h, w = volume.shape[2:]
+    vols, masks = [], []
+    for f in levels:
+        size = (d // f, h // f, w // f)
+        vols.append(resize3d(volume, size, mode="trilinear", align_corners=True))
+        masks.append(resize3d(mask, size, mode="nearest-exact"))
+    return vols, masks

@@ -94,7 +94,8 @@ def test_stage2_dose_matches_jax(cascade):
 
 def test_port_runs_without_jax(tmp_path):
     """The port imports neither jax nor the JAX package: run the reduced
-    cascade in a fresh interpreter and inspect sys.modules."""
+    cascade, a K3-routed conv and one DOSE-PYFER train step in a fresh
+    interpreter and inspect sys.modules."""
     script = textwrap.dedent(f"""
         import sys
         import torch
@@ -113,6 +114,21 @@ def test_port_runs_without_jax(tmp_path):
         mask = (torch.rand((1, 48, 48, 48, 1), generator=g) < 0.6).float()
         dose_gy = s2(dose.state_dict(), s1(seg.state_dict(), ct, ptv), mask)
         assert dose_gy.shape == (1, 48, 48, 48, 1) and bool(torch.isfinite(dose_gy).all())
+        from dose_prediction_tpu_torch import ops
+        from dose_prediction_tpu_torch.core.config import FLAGS
+        from dose_prediction_tpu_torch.kernels.conv3d import conv3d_k3
+        from dose_prediction_tpu_torch.train import state as S
+        from dose_prediction_tpu_torch.train import steps
+        y = ops.conv3d(torch.zeros(1, 16, 4, 4, 4), torch.zeros(16, 16, 3, 3, 3), padding=1,
+                       method="k3")
+        assert y.shape == (1, 16, 4, 4, 4) and FLAGS.use_k3_conv3d == "0"
+        opt = S.make_optimizer(dose, learning_rate=1e-4,
+                               freeze_labels=S.cascade_freeze_labels(dose))
+        step = steps.make_pyfer_train_step(dose, opt)
+        gt = torch.cat([torch.rand((1, 48, 48, 48, 1), generator=g), mask], dim=-1)
+        state, loss = step(S.TrainState(dose, opt),
+                           dict(input=s1(seg.state_dict(), ct, ptv), gt=gt))
+        assert state.step == 1 and bool(torch.isfinite(loss))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "dose_prediction_tpu"))
         print("FORBIDDEN", bad)

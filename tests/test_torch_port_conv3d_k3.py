@@ -1,0 +1,198 @@
+"""Kernel K3 (conv3d_k3) of the PyTorch port, its routing, and the gradients
+of the three kernel wrappers, against the JAX package on the CPU.
+
+On the CPU each wrapper runs its plain PyTorch version (with autograd, the
+backward recomputes it, as on the card). The JAX Pallas kernels run as
+tests/test_kernels.py runs them (interpret=True). Inputs are made with numpy
+from a seed; NDHWC arrays go to JAX, their NCDHW transposes to the port;
+conv weights (3, 3, 3, C_in, C_out) in JAX are (C_out, C_in, 3, 3, 3) in
+torch. Tolerances: K3 forward 2e-4 (the bar of
+tests/test_kernels.py::test_pallas_conv3d_k3_matches_xla); gradients rtol
+2e-3, atol 2e-4 (the bar of test_pallas_conv3d_k3_grad); the routed C3D
+U-Net 1e-3 (the bar of test_golden_pyfer.py). The CUDA kernel itself is held
+against the plain version on a card by tests/test_torch_port_cuda.py.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+torch = pytest.importorskip("torch")
+
+from dose_prediction_tpu import ops as jops  # noqa: E402
+from dose_prediction_tpu.core import torch_import as TI  # noqa: E402
+from dose_prediction_tpu.core.config import FLAGS as JFLAGS  # noqa: E402
+from dose_prediction_tpu.kernels.attention import fused_attention as j_attention  # noqa: E402
+from dose_prediction_tpu.kernels.conv3d import conv3d_k3 as j_conv3d_k3  # noqa: E402
+from dose_prediction_tpu.kernels.instance_norm import instance_norm_act as j_in_act  # noqa: E402
+from dose_prediction_tpu.models.c3d import BaseUNet as JBaseUNet  # noqa: E402
+
+from dose_prediction_tpu_torch import ops  # noqa: E402
+from dose_prediction_tpu_torch.core.config import FLAGS  # noqa: E402
+from dose_prediction_tpu_torch.kernels import attention as k1  # noqa: E402
+from dose_prediction_tpu_torch.kernels import conv3d as k3  # noqa: E402
+from dose_prediction_tpu_torch.kernels import instance_norm as k2  # noqa: E402
+from dose_prediction_tpu_torch.models import BaseUNet  # noqa: E402
+
+import test_torch_port_models as M  # noqa: E402  (seeded init)
+
+FWD_TOL = 2e-4
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+
+
+def ncdhw(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 4, 1, 2, 3)))
+
+
+def ndhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().numpy().transpose(0, 2, 3, 4, 1)
+
+
+def torch_weight(w: np.ndarray) -> torch.Tensor:
+    """(3, 3, 3, C_in, C_out) → (C_out, C_in, 3, 3, 3)."""
+    return torch.from_numpy(np.ascontiguousarray(w.transpose(4, 3, 0, 1, 2)))
+
+
+def conv_inputs(rng, shape):
+    c = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, c, c)) * 0.2).astype(np.float32)
+    b = rng.standard_normal(c).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 8, 16, 16), (1, 8, 8, 8, 32), (2, 4, 8, 16, 16)])
+def test_conv3d_k3_matches_pallas(rng, shape):
+    """The shapes of tests/test_kernels.py, N = 2 included; the wrapper on a
+    CPU tensor and the plain version both."""
+    x, w, b = conv_inputs(rng, shape)
+    want = np.asarray(j_conv3d_k3(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                  interpret=True))
+    args = (ncdhw(x), torch_weight(w), torch.from_numpy(b))
+    for got in (k3.plain_conv3d_k3(*args), k3.conv3d_k3(*args)):
+        assert got.shape == args[0].shape and got.dtype == torch.float32
+        np.testing.assert_allclose(ndhwc(got), want, rtol=FWD_TOL, atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv3d_k3_routing_matches_jax(rng, stride, monkeypatch):
+    """ops.conv3d(method='k3') against the JAX ops.conv3d(method='pallas'):
+    stride 1 goes through K3, stride 2 (ineligible) through cuDNN's path."""
+    calls = []
+    kernel = k3.conv3d_k3
+    monkeypatch.setattr(k3, "conv3d_k3", lambda *a: calls.append(1) or kernel(*a))
+    x = rng.standard_normal((1, 8, 8, 8, 16)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, 16, 16)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(16).astype(np.float32)
+    want = np.asarray(jops.conv3d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), padding=1,
+                                  stride=stride, method="pallas"))
+    got = ops.conv3d(ncdhw(x), torch_weight(w), torch.from_numpy(b), padding=1, stride=stride,
+                     method="k3")
+    np.testing.assert_allclose(ndhwc(got), want, rtol=1e-5, atol=1e-5)
+    assert len(calls) == (1 if stride == 1 else 0)
+
+
+@pytest.mark.parametrize("flag,routed", [("0", False), ("1", True), ("tight", True)])
+def test_flag_routes_only_eligible_convs(flag, routed, monkeypatch):
+    """DPT_PALLAS_CONV's values, as the JAX package reads them; the
+    predicate of dose_prediction_tpu/ops/conv.py:224-231."""
+    calls = []
+    kernel = k3.conv3d_k3
+    monkeypatch.setattr(k3, "conv3d_k3", lambda *a: calls.append(1) or kernel(*a))
+    monkeypatch.setattr(FLAGS, "use_k3_conv3d", flag)
+    x16, x8 = torch.zeros(1, 16, 6, 6, 6), torch.zeros(1, 8, 6, 6, 6)
+    w = torch.zeros(16, 16, 3, 3, 3)
+    ops.conv3d(x16, w, padding=1)                                     # eligible
+    ops.conv3d(x16, w, padding=1, stride=2)                           # stride
+    ops.conv3d(x16, w, padding=2, dilation=2)                         # dilation
+    ops.conv3d(x16, w, padding=0)                                     # padding
+    ops.conv3d(x8, torch.zeros(8, 8, 3, 3, 3), padding=1)             # C = 8
+    ops.conv3d(x16, torch.zeros(32, 16, 3, 3, 3), padding=1)          # C_out != C_in
+    ops.conv3d(x16, torch.zeros(16, 16, 1, 1, 1))                     # 1×1×1
+    assert len(calls) == (1 if routed else 0)
+    with pytest.raises(ValueError, match="method"):
+        ops.conv3d(x16, w, padding=1, method="pallas")
+
+
+def _grads(loss, tensors):
+    return [t.numpy() for t in torch.autograd.grad(loss, tensors)]
+
+
+def test_conv3d_k3_gradients_match_jax(rng):
+    x, w, b = conv_inputs(rng, (1, 4, 8, 16, 16))
+    jg = jax.grad(lambda x_, w_, b_: jnp.sum(jnp.sin(j_conv3d_k3(x_, w_, b_, interpret=True))),
+                  argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    tx, tw, tb = (t.requires_grad_() for t in (ncdhw(x), torch_weight(w), torch.from_numpy(b)))
+    before = k3.conv3d_k3.recomputes
+    gx, gw, gb = _grads(torch.sin(k3.conv3d_k3(tx, tw, tb)).sum(), [tx, tw, tb])
+    assert k3.conv3d_k3.recomputes == before + 1
+    np.testing.assert_allclose(gx.transpose(0, 2, 3, 4, 1), np.asarray(jg[0]),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(gw.transpose(2, 3, 4, 1, 0), np.asarray(jg[1]),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(gb, np.asarray(jg[2]), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_attention_gradients_match_jax(rng):
+    q, k, v = (rng.standard_normal((1, 2, 40, 16)).astype(np.float32) for _ in range(3))
+    jg = jax.grad(lambda *a: jnp.sum(j_attention(*a, interpret=True) ** 2),
+                  argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    before = k1.fused_attention.recomputes
+    got = _grads((k1.fused_attention(tq, tk, tv) ** 2).sum(), [tq, tk, tv])
+    assert k1.fused_attention.recomputes == before + 1
+    for g, want in zip(got, jg):
+        np.testing.assert_allclose(g, np.asarray(want), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("act", ["identity", "mish"])
+def test_instance_norm_gradients_match_jax(rng, act):
+    x = (rng.standard_normal((2, 4, 4, 8, 8)) * 2 + 1).astype(np.float32)
+    scale = (rng.random(8) + 0.5).astype(np.float32)
+    bias = rng.standard_normal(8).astype(np.float32)
+    jg = jax.grad(lambda *a: jnp.sum(jnp.sin(j_in_act(*a, act=act, interpret=True))),
+                  argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (x, scale, bias)))
+    tx, ts, tb = (t.requires_grad_() for t in (ncdhw(x), torch.from_numpy(scale),
+                                                torch.from_numpy(bias)))
+    before = k2.instance_norm_act.recomputes
+    gx, gs, gb = _grads(torch.sin(k2.instance_norm_act(tx, ts, tb, act=act)).sum(), [tx, ts, tb])
+    assert k2.instance_norm_act.recomputes == before + 1
+    np.testing.assert_allclose(gx.transpose(0, 2, 3, 4, 1), np.asarray(jg[0]),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(gs, np.asarray(jg[1]), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(gb, np.asarray(jg[2]), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_wrappers_take_the_direct_route_without_grad(rng):
+    """No input requires a gradient (inference): no autograd node, no
+    recompute."""
+    x = torch.from_numpy(rng.standard_normal((1, 16, 4, 4, 4)).astype(np.float32))
+    w = torch.zeros(16, 16, 3, 3, 3, requires_grad=True)
+    assert k3.conv3d_k3(x, w.detach()).grad_fn is None
+    with torch.no_grad():
+        assert k3.conv3d_k3(x, w).grad_fn is None
+    assert k3.conv3d_k3(x, w).grad_fn is not None
+
+
+def test_routed_c3d_unet_matches_jax(rng, monkeypatch):
+    """A C3D BaseUNet with list_ch (-1, 16, 32, 64, 128, 256) at 16³ with the
+    routing on in both packages: five convs go through K3 (the second conv
+    of encoder levels 1-3 and of decoder levels 2-3)."""
+    list_ch = (-1, 16, 32, 64, 128, 256)
+    model = M.seeded(BaseUNet(2, list_ch), seed=3)
+    tree = TI.state_dict_to_tree({k: v.numpy() for k, v in model.state_dict().items()},
+                                 TI.c3d_key_map)["net_A"]
+    x = rng.standard_normal((1, 16, 16, 16, 2)).astype(np.float32)
+    monkeypatch.setattr(JFLAGS, "use_pallas_conv3d", "1")
+    want = np.asarray(jax.jit(lambda p, x: JBaseUNet(list_ch).apply({"params": p}, x))(tree, x))
+    calls = []
+    kernel = k3.conv3d_k3
+    monkeypatch.setattr(k3, "conv3d_k3", lambda *a: calls.append(1) or kernel(*a))
+    monkeypatch.setattr(FLAGS, "use_k3_conv3d", "1")
+    with torch.no_grad():
+        got = model(ncdhw(x))
+    assert len(calls) == 5
+    assert got.shape == (1, 16, 16, 16, 16)
+    np.testing.assert_allclose(ndhwc(got), want, rtol=0, atol=1e-3)

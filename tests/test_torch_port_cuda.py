@@ -10,19 +10,26 @@ package, so it also runs where only PyTorch is installed:
 Tolerances, as in chip_smoke.py: float32 1e-4 absolute (summation order);
 bfloat16 two bf16 ulps at the largest output magnitude, 2^-6 · max|want|
 (the kernels round once, the plain versions round intermediate values to
-bf16 too, as the JAX references do).
+bf16 too, as the JAX references do). Gradients: the wrappers' backward
+recomputes the plain version, so with an upstream gradient that does not
+depend on the forward they equal the plain version's own gradients up to
+float32 summation order (1e-5 relative to the largest).
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from dose_prediction_tpu_torch.core.config import FLAGS  # noqa: E402
 from dose_prediction_tpu_torch.infer.cascade import make_cascade_stages  # noqa: E402
 from dose_prediction_tpu_torch.kernels import attention as k1  # noqa: E402
+from dose_prediction_tpu_torch.kernels import conv3d as k3  # noqa: E402
 from dose_prediction_tpu_torch.kernels import cuda_lib  # noqa: E402
 from dose_prediction_tpu_torch.kernels import instance_norm as k2  # noqa: E402
 from dose_prediction_tpu_torch.models import DosePyfer, TranSeg  # noqa: E402
 from dose_prediction_tpu_torch.nn.init import init_params  # noqa: E402
+from dose_prediction_tpu_torch.train import state as S  # noqa: E402
+from dose_prediction_tpu_torch.train import steps  # noqa: E402
 
 ACTS = ["identity", "relu", "leakyrelu", "mish", "gelu"]
 DTYPES = [torch.float32, torch.bfloat16]
@@ -116,3 +123,104 @@ def test_reduced_cascade_kernels_match_plain_on_card(card, monkeypatch):
     assert torch.all(struct == struct_p, dim=-1).float().mean().item() >= 0.999
     assert (dose_gy - dose_p).abs().max().item() / 70.0 <= 1e-3
     assert bool(torch.isfinite(dose_gy).all()) and bool((dose_gy[mask < 1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,bias", [((2, 16, 5, 7, 13), True), ((1, 32, 9, 10, 20), False),
+                                        ((1, 64, 4, 8, 16), True), ((3, 16, 6, 17, 33), True)])
+def test_conv3d_k3_kernel_matches_plain_on_card(card, shape, bias, dtype, monkeypatch):
+    """Ragged H and W (7, 13, 17, 33: not multiples of the 8 x 16 tile, W
+    not a multiple of 8), N up to 3, with and without bias. The plain
+    version's float32 convolution runs with TF32 off."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    c = shape[1]
+    g = torch.Generator(card).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=card).to(dtype)
+    w = (torch.rand((c, c, 3, 3, 3), generator=g, device=card) * 2 - 1) / (27 * c) ** 0.5
+    b = torch.randn(c, generator=g, device=card) if bias else None
+    n = k3.conv3d_k3.launches
+    got = k3.conv3d_k3(x, w, b)
+    torch.cuda.synchronize()
+    assert k3.conv3d_k3.launches == n + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = k3.plain_conv3d_k3(x, w, b)
+    assert (got.float() - want.float()).abs().max().item() <= tolerance(want)
+
+
+@pytest.mark.cuda
+def test_conv3d_k3_kernel_refuses_other_widths(card):
+    with pytest.raises(ValueError, match="C in"):
+        k3.conv3d_k3(torch.zeros(1, 8, 4, 4, 4, device=card), torch.zeros(8, 8, 3, 3, 3,
+                                                                          device=card))
+
+
+def _grads_match(fn, plain, inputs, kwargs=None):
+    kwargs = kwargs or {}
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves, **kwargs)
+    r = torch.randn(out.shape, generator=torch.Generator(out.device).manual_seed(1),
+                    device=out.device)
+    got = torch.autograd.grad((out.float() * r).sum(), leaves)
+    ref_leaves = [t.detach().requires_grad_() for t in inputs]
+    want = torch.autograd.grad((plain(*ref_leaves, **kwargs).float() * r).sum(), ref_leaves)
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 1e-5 * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+def test_autograd_wrappers_match_plain_on_card(card, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(card).manual_seed(0)
+    counts = [f.launches + f.recomputes for f in
+              (k1.fused_attention, k2.instance_norm_act, k3.conv3d_k3)]
+    qkv = [torch.randn((2, 3, 70, 32), generator=g, device=card) for _ in range(3)]
+    _grads_match(k1.fused_attention, k1.plain_attention, qkv)
+    x = torch.randn((2, 16, 6, 10, 12), generator=g, device=card) * 2 + 1
+    scale, bias = torch.rand(16, generator=g, device=card) + 0.5, torch.randn(16, device=card)
+    _grads_match(k2.instance_norm_act, k2.plain_instance_norm_act, [x, scale, bias],
+                 {"act": "mish"})
+    w = torch.randn((16, 16, 3, 3, 3), generator=g, device=card) * 0.05
+    _grads_match(k3.conv3d_k3, k3.plain_conv3d_k3, [x, w, bias])
+    after = [f.launches + f.recomputes for f in
+             (k1.fused_attention, k2.instance_norm_act, k3.conv3d_k3)]
+    assert all(a == b + 2 for a, b in zip(after, counts))   # one launch, one recompute each
+
+
+@pytest.mark.cuda
+def test_train_step_on_card(card, monkeypatch):
+    """One reduced DOSE-PYFER step at 32³ with K3 routing on, float32, TF32
+    off: through the kernels it launches K1, K2 and K3 and recomputes each in
+    the backward, and its loss agrees with the same step through the plain
+    versions to a relative 1e-5."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(FLAGS, "use_k3_conv3d", "1")
+    cfg = dict(list_ch_A=(-1, 16, 32, 64, 128, 256), img_size=32, feature_size=16,
+               hidden_size=64, mlp_dim=128, num_layers=4, num_heads=2, device=card)
+    g = torch.Generator(card).manual_seed(0)
+    x = torch.randn((1, 32, 32, 32, 9), generator=g, device=card)
+    gt = torch.cat([torch.rand((1, 32, 32, 32, 1), generator=g, device=card),
+                    (torch.rand((1, 32, 32, 32, 1), generator=g, device=card) < 0.6).float()],
+                   dim=-1)
+    losses = []
+    for plain in (False, True):
+        model = init_params(DosePyfer(**cfg), torch.Generator(card).manual_seed(1))
+        opt = S.make_optimizer(model, learning_rate=1e-4, weight_decay=1e-4,
+                               freeze_labels=S.cascade_freeze_labels(model))
+        step = steps.make_pyfer_train_step(model, opt)
+        if plain:
+            monkeypatch.setattr(k1, "fused_attention", k1.plain_attention)
+            monkeypatch.setattr(k2, "instance_norm_act", k2.plain_instance_norm_act)
+            monkeypatch.setattr(k3, "conv3d_k3", k3.plain_conv3d_k3)
+        wrappers = (k1.fused_attention, k2.instance_norm_act, k3.conv3d_k3)
+        before = [(f.launches, f.recomputes) for f in wrappers] if not plain else []
+        _, loss = step(S.TrainState(model, opt), {"input": x, "gt": gt})
+        torch.cuda.synchronize()
+        for f, (launches, recomputes) in zip(wrappers, before):
+            assert f.launches > launches and f.recomputes > recomputes
+        assert bool(torch.isfinite(loss))
+        losses.append(float(loss))
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
