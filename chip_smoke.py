@@ -8,14 +8,16 @@ Phases, each printing its seconds on a line of its own:
 1. device   require CUDA (no fallback) and print the card's name and power
             limit as nvidia-smi reports them;
 2. build    build the CUDA kernels (one nvcc call over csrc/*.cu);
-3. kernels  hold K1 (attention) and K2 (instance norm) against their plain
-            PyTorch versions at the main path's shapes, in float32 and
-            bfloat16, and time kernel, plain version and one PyTorch library
-            call computing the same function (a yardstick the port never
-            calls), beside the least time the card could take;
+3. kernels  hold K1 (attention), K2 (instance norm) and K3 (same-size 3x3x3
+            conv, at the six shapes of the C3D, DOSE-PYFER and TranSeg
+            convs it takes) against their plain PyTorch versions, in float32
+            and bfloat16, and time kernel, plain version and one PyTorch
+            library call computing the same function (a yardstick the port
+            never calls), beside the least time the card could take;
 4. parity   the full-width 128³ serve cascade (12-layer ViT-768 TranSeg over
             96³ windows, then DOSE-PYFER) in float32 with TF32 off, once
-            through the kernels and once with the plain versions swapped in;
+            through the kernels and once with the plain versions swapped in,
+            with the K3 routing off and then on;
 5. serve    three bfloat16 requests after one warm-up through the same
             entry points, with the kernels' launch counts read around them;
 6. profile  one more bfloat16 request under torch.profiler: device time by
@@ -28,15 +30,12 @@ Phases, each printing its seconds on a line of its own:
             PyTorch's TF32 defaults (cuDNN float32 convolutions in TF32):
             one warm-up and five timed steps on a fixed batch, each step's
             launches and backward recomputes of K1, K2 and K3, peak memory,
-            one step under the profiler; then the p50 with the routing off;
+            one step under the profiler; then the same with the routing off;
 9. train_parity  one float32 step (TF32 off) from identical weights and batch
             through the kernels and through their plain versions: the loss
             and every gradient leaf;
 
-The kernels phase holds K3 too, at the six shapes of the C3D, DOSE-PYFER
-and TranSeg convolutions it takes, and the parity phase runs the cascade a
-second time with the routing on and all three plain versions swapped in.
-Then a ``kernels`` JSON line, the card's name and power limit, and the
+then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
 from seeds on the card. Any failed phase exits non-zero without a result.
 """
@@ -56,7 +55,7 @@ from unittest import mock
 import torch
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s; bfloat16 tensor-core and
-# float32 (non-tensor) operations/s. The kernels run float32 arithmetic.
+# float32 (non-tensor) operations/s.
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
@@ -364,7 +363,9 @@ def profiled(fn, label: str):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
-        if getattr(evt, "device_type", None) == DeviceType.CUDA and us > 0:
+        # user annotations (Optimizer.step#...) span kernels already counted
+        if (getattr(evt, "device_type", None) == DeviceType.CUDA and us > 0
+                and not getattr(evt, "is_user_annotation", False)):
             kernels.append((us, evt.count, evt.key))
     busy_us = sum(us for us, _, _ in kernels)
     if busy_us <= 0:
@@ -491,6 +492,7 @@ def train_steps_both_routes(dev):
         min(r["launches"].values()) > 0 and min(r["recomputes"].values()) > 0 for r in rows)
     with k3_routing(False):
         state, _, rows_off = timed_steps(dev, step, state, batch, TRAIN_STEPS)
+        prof_off = profiled(lambda: step(state, batch), "bf16 train step (K3 routing off)")
     times_off = [r["s"] for r in rows_off]
     p50_off = sorted(times_off)[len(times_off) // 2]
     log(f"train bf16 (K3 routing off, cuDNN): step seconds {times_off}, p50 {p50_off} s; "
@@ -504,7 +506,8 @@ def train_steps_both_routes(dev):
     return {"p50_s": p50, "times_s": times, "losses": losses, "peak_gib": peak / 2 ** 30,
             "launches_per_step": rows[-1]["launches"],
             "recomputes_per_step": rows[-1]["recomputes"], "profile": prof,
-            "p50_s_routing_off": p50_off, "times_s_routing_off": times_off}
+            "p50_s_routing_off": p50_off, "times_s_routing_off": times_off,
+            "profile_routing_off": prof_off}
 
 
 @contextlib.contextmanager

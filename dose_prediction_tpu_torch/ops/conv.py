@@ -6,8 +6,9 @@ to XLA; its TPU-only rewrites (decomposed, lanefold, depth-phase, matmul)
 have no counterpart here. The one exception is its ``method="pallas"``
 routing (ops/conv.py:217-234): with ``method="k3"``, or ``method="auto"``
 and ``DPT_PALLAS_CONV`` set to '1' or 'tight' (core/config.py), a same-size
-3×3×3 conv with C_in == C_out ∈ {16, 32, 64} goes to kernel K3. Weights use torch layouts: (O, I, kD, kH, kW) for
-conv3d and (I, O, kD, kH, kW) for conv_transpose3d. The weight and bias are
+3×3×3 conv with C_in == C_out ∈ {16, 32, 64} goes to kernel K3. Weights
+use torch layouts: (O, I, kD, kH, kW) for conv3d and (I, O, kD, kH, kW)
+for conv_transpose3d. The weight and bias are
 cast to the input's dtype, as the JAX layers cast their float32 params to
 the compute dtype.
 """

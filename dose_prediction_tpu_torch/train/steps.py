@@ -11,6 +11,7 @@ mask); the steps permute once to NCDHW. The model computes in the dtype of
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -44,8 +45,7 @@ def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
         optimizer.step()
         loss = loss.detach()
         moving = update_moving_loss(state.moving_loss, float(loss))
-        return TrainState(model=state.model, optimizer=state.optimizer,
-                          step=state.step + 1, moving_loss=moving), loss
+        return dataclasses.replace(state, step=state.step + 1, moving_loss=moving), loss
 
     return step
 
