@@ -7,7 +7,9 @@ update rule as a ``torch.optim.Optimizer``: optionally
 ``optax.adam`` or ``optax.adamw`` (weight decay added to the Adam direction
 before the learning rate scales it). Freezing sets ``requires_grad=False``,
 so a frozen parameter gets no gradient, no update and no weight decay
-(``optax.set_to_zero``). Not ported yet: ``adam8bit``, ``grad_accum``, the
+(``optax.set_to_zero``). A trainable parameter without a gradient is updated
+with a zero gradient, as optax updates every leaf it is given: its moments
+decay and weight decay still shrinks it. Not ported yet: ``adam8bit``, ``grad_accum``, the
 split learning rate, schedules and the plateau wait.
 """
 
@@ -50,48 +52,53 @@ def cascade_freeze_labels(model: nn.Module) -> Dict[str, str]:
 class Adam(torch.optim.Optimizer):
     """optax's Adam / AdamW, optionally after global-norm clipping.
 
-    Per step t, over the parameters that have a gradient:
+    Per step t, over every parameter that requires a gradient (a missing
+    ``.grad`` counts as zeros, which add nothing to the norm):
     ``g ← g · max_norm / ‖g‖`` when ``‖g‖ ≥ max_norm`` (optax's select, not
     torch's clip_grad_norm_, which adds 1e-6 to the norm); ``m ← b1·m +
     (1−b1)·g``; ``v ← b2·v + (1−b2)·g²``; ``u = m̂ / (√v̂ + eps) + wd·p``
     with ``m̂ = m / (1−b1^t)``, ``v̂ = v / (1−b2^t)`` (``1−b^t`` in float32,
-    as optax computes it); ``p ← p − lr·u``."""
+    as optax computes it); ``p ← p − lr·u``. ``t`` is one count for the whole
+    optimizer (optax's ``count``), not a count per parameter."""
 
     def __init__(self, params, *, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0,
                  grad_clip_norm: Optional[float] = None):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
         self.grad_clip_norm = grad_clip_norm
+        self.count = 0
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adam.step takes no closure")
-        params = [p for group in self.param_groups for p in group["params"]
-                  if p.grad is not None]
+        self.count += 1
+        t = self.count
+        grads = [p.grad for group in self.param_groups for p in group["params"]
+                 if p.requires_grad and p.grad is not None]
         clip = None
-        if self.grad_clip_norm is not None and params:
-            norm = torch.sqrt(sum(p.grad.float().square().sum() for p in params))
+        if self.grad_clip_norm is not None and grads:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
             clip = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),
                                self.grad_clip_norm / norm)
         for group in self.param_groups:
             b1, b2 = group["b1"], group["b2"]
+            # bias corrections in float32, as optax computes them
+            bc1, bc2 = (1 - torch.tensor(b, dtype=torch.float32) ** t for b in (b1, b2))
             for p in group["params"]:
-                if p.grad is None:
+                if not p.requires_grad:
                     continue
-                g = p.grad if clip is None else p.grad * clip
                 state = self.state[p]
                 if not state:
-                    state["step"] = 0
                     state["mu"] = torch.zeros_like(p)
                     state["nu"] = torch.zeros_like(p)
-                state["step"] += 1
-                t = state["step"]
                 mu, nu = state["mu"], state["nu"]
-                mu.mul_(b1).add_(g, alpha=1 - b1)
-                nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-                # bias corrections in float32, as optax computes them
-                bc1, bc2 = (1 - torch.tensor(b, dtype=torch.float32) ** t for b in (b1, b2))
+                mu.mul_(b1)
+                nu.mul_(b2)
+                if p.grad is not None:
+                    g = p.grad if clip is None else p.grad * clip
+                    mu.add_(g, alpha=1 - b1)
+                    nu.addcmul_(g, g, value=1 - b2)
                 u = (mu / bc1.to(mu.dtype)) / ((nu / bc2.to(nu.dtype)).sqrt() + group["eps"])
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * p

@@ -193,11 +193,17 @@ def _tree(named):
     return tree
 
 
-@pytest.mark.parametrize("kind,wd,clip", [("adamw", WD, 0.5), ("adamw", WD, 100.0),
-                                          ("adam", 0.0, None)])
-def test_optimizer_update_matches_optax(kind, wd, clip):
+@pytest.mark.parametrize("kind,wd,clip,labelled", [
+    pytest.param("adamw", WD, 0.5, True, id=f"adamw-{WD}-0.5"),
+    pytest.param("adamw", WD, 100.0, True, id=f"adamw-{WD}-100.0"),
+    pytest.param("adam", 0.0, None, True, id="adam-0.0-None"),
+    pytest.param("adamw", 0.01, 0.5, False, id="adamw-0.01-0.5-no-labels-grad-less-leaves")])
+def test_optimizer_update_matches_optax(kind, wd, clip, labelled):
     """Three updates on fixed gradients; clip 0.5 clips every step, 100 none.
-    Frozen leaves (net_A, conv_out_A) stay put in both."""
+    With freeze labels, the frozen leaves (net_A, conv_out_A) stay put in
+    both. Without them, net_A and conv_out_A get no gradient (``grad=None``)
+    in steps 1 and 3 and zeros go to optax there: both decay the leaves,
+    and the bias corrections follow one step count."""
     rng = np.random.default_rng(7)
     model = _Toy()
     with torch.no_grad():
@@ -205,23 +211,34 @@ def test_optimizer_update_matches_optax(kind, wd, clip):
             p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)))
     params = _tree((n, p.detach().numpy().copy()) for n, p in model.named_parameters())
     tx = JS.make_optimizer(learning_rate=0.05, weight_decay=wd, grad_clip_norm=clip,
-                           freeze_labels=JS.cascade_freeze_labels(params))
+                           freeze_labels=JS.cascade_freeze_labels(params) if labelled else None)
     opt_state = tx.init(params)
     opt = S.make_optimizer(model, learning_rate=0.05, weight_decay=wd, grad_clip_norm=clip,
-                           freeze_labels=S.cascade_freeze_labels(model), kind=kind)
-    for _ in range(3):
+                           freeze_labels=S.cascade_freeze_labels(model) if labelled else None,
+                           kind=kind)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for i in range(3):
         grads = {n: rng.standard_normal(p.shape).astype(np.float32)
                  for n, p in model.named_parameters()}
+        gradless = {n for n in grads if not labelled and i != 1
+                    and n.split(".")[0] in ("net_A", "conv_out_A")}
+        for n in gradless:
+            grads[n] = np.zeros_like(grads[n])
         updates, opt_state = tx.update(_tree(grads.items()), opt_state, params)
         params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
         for n, p in model.named_parameters():
-            p.grad = torch.from_numpy(grads[n]) if p.requires_grad else None
+            p.grad = (torch.from_numpy(grads[n]) if p.requires_grad and n not in gradless
+                      else None)
         opt.step()
     flat = {".".join(k.key for k in path): np.asarray(v)
             for path, v in jax.tree_util.tree_leaves_with_path(params)}
     for n, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), flat[n], rtol=0, atol=1e-6, err_msg=n)
-    assert not model.net_A.weight.requires_grad and model.net_B[0].weight.requires_grad
+    if labelled:
+        assert not model.net_A.weight.requires_grad and model.net_B[0].weight.requires_grad
+        assert torch.equal(model.net_A.weight, start["net_A.weight"])
+    else:
+        assert all(p.requires_grad for p in model.parameters())
 
 
 def test_three_steps_lower_the_loss():
