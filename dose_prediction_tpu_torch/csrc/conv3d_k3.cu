@@ -1,6 +1,8 @@
 // K3: direct 3x3x3 convolution, stride 1, dilation 1, zero padding 1, with
 // C_in == C_out = C in {16, 32, 64}, on NCDHW tensors: float32 accumulation,
-// a float32 bias added after it, one cast to the input dtype.
+// then the JAX kernel's rounding (conv3d.py:137-141): in bfloat16 the sum is
+// rounded to bf16, the float32 bias is added in float32 and the result is
+// rounded again; in float32 the bias is added to the sum.
 //
 // Replaces dose_prediction_tpu/kernels/conv3d.py::conv3d_k3 (the Pallas
 // kernel `_kernel` at :60, launched by `pl.pallas_call` at :119). That kernel
@@ -225,9 +227,11 @@ conv3d_k3_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict
       const int w = w0 + gid + (j >= 2 ? 8 : 0);
       const int co = t * 8 + tig * 2 + (j & 1);
       if (w < g.W) {
+        // round the sum, add the float32 bias, round again (a no-op without bias)
+        const float sum = __bfloat162float(__float2bfloat16(acc[t][j]));
         const float b = bias ? bias[co] : 0.f;
         y[(((size_t)n * C + co) * g.D + d) * plane + (size_t)h * g.W + w] =
-            dpt::from_f32<__nv_bfloat16>(acc[t][j] + b);
+            dpt::from_f32<__nv_bfloat16>(sum + b);
       }
     }
 }

@@ -4,17 +4,17 @@ of dose_prediction_tpu/kernels/conv3d.py::conv3d_k3).
 The kernel (csrc/conv3d_k3.cu) replaces the Pallas kernel
 dose_prediction_tpu/kernels/conv3d.py:60 (``_kernel``, launched by
 ``pl.pallas_call`` at :119): stride 1, dilation 1, zero padding 1,
-C_in == C_out = C ∈ {16, 32, 64}, float32 accumulation, a float32 bias added
-after it and one cast to the input dtype. On the H100 the operations bound
+C_in == C_out = C ∈ {16, 32, 64}, float32 accumulation, then the JAX
+kernel's rounding (:137-141): the sum is cast to the input dtype, the
+float32 bias is added to it in float32, and the result is cast again (in
+float32 both casts are exact). On the H100 the operations bound
 it (27·C per byte in bfloat16, over the card's 295 at C ≥ 32, about even at
 C = 16); bfloat16 runs on the tensor cores, float32 in full-precision FMAs.
 The TPU kernel's banded weights, 128-lane packing, ``W % (128 // C)``
 restriction and per-sample loop are not carried over: any N, D, H and W.
-The JAX kernel rounds a bfloat16 result twice (the sum, then the sum plus
-bias); this one rounds once.
 
 ``plain_conv3d_k3`` is the same function in PyTorch: a float32 convolution
-plus the float32 bias, cast to the input dtype. On a card path only the
+rounded to the input dtype, plus the float32 bias, rounded again. On a card path only the
 backward recomputes it (kernels/autograd.py), as the JAX custom VJP
 differentiates its XLA reference (:156-182).
 """
@@ -33,11 +33,12 @@ CHANNELS = (16, 32, 64)
 def plain_conv3d_k3(x: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor | None = None) -> torch.Tensor:
     """Same-size 3×3×3 conv of ``(N, C, D, H, W)`` with ``w (C, C, 3, 3, 3)``
-    and ``b (C,)``, in float32, cast to ``x.dtype``."""
-    y = F.conv3d(x.float(), w.float(), padding=1)
+    and ``b (C,)``: the float32 sum cast to ``x.dtype``, then the float32
+    bias added in float32 and the result cast to ``x.dtype`` again."""
+    y = F.conv3d(x.float(), w.float(), padding=1).to(x.dtype)
     if b is not None:
-        y = y + b.float().reshape(1, -1, 1, 1, 1)
-    return y.to(x.dtype)
+        y = (y.float() + b.float().reshape(1, -1, 1, 1, 1)).to(x.dtype)
+    return y
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:

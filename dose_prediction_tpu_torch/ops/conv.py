@@ -8,9 +8,12 @@ routing (ops/conv.py:217-234): with ``method="k3"``, or ``method="auto"``
 and ``DPT_PALLAS_CONV`` set to '1' or 'tight' (core/config.py), a same-size
 3×3×3 conv with C_in == C_out ∈ {16, 32, 64} goes to kernel K3. Weights
 use torch layouts: (O, I, kD, kH, kW) for conv3d and (I, O, kD, kH, kW)
-for conv_transpose3d. The weight and bias are
-cast to the input's dtype, as the JAX layers cast their float32 params to
-the compute dtype.
+for conv_transpose3d. The weight is cast to the input's dtype, as the JAX
+layers cast their float32 params to the compute dtype. The bias is added as
+the JAX package adds it (ops/conv.py:45-59, :307-309, :327-329): in float32
+cuDNN takes it; in bfloat16 the convolution runs without it, rounding its sum
+to bf16, and the float32 bias is then added in place, in float32 with one
+rounding (one extra pass over each biased bf16 output).
 """
 
 from __future__ import annotations
@@ -24,8 +27,13 @@ from dose_prediction_tpu_torch.kernels import conv3d as k3
 METHODS = ("auto", "k3")
 
 
-def _cast(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
-    return None if t is None else t.to(dtype)
+def _biased(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+            **kwargs) -> torch.Tensor:
+    """``conv(x, w, b)`` in float32; in other dtypes the sum rounded to
+    ``x.dtype`` plus the float32 bias, rounded again."""
+    if b is None or x.dtype == torch.float32:
+        return conv(x, w, b, **kwargs)
+    return conv(x, w, None, **kwargs).add_(b.float().view(1, -1, 1, 1, 1))
 
 
 def _triple(v) -> tuple:
@@ -57,12 +65,12 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     if use_k3 and k3_eligible(x, w, stride=stride, padding=padding, dilation=dilation,
                               groups=groups):
         return k3.conv3d_k3(x, w.to(x.dtype), b)
-    return F.conv3d(x, w.to(x.dtype), _cast(b, x.dtype), stride=stride,
-                    padding=padding, dilation=dilation, groups=groups)
+    return _biased(F.conv3d, x, w.to(x.dtype), b, stride=stride, padding=padding,
+                   dilation=dilation, groups=groups)
 
 
 def conv_transpose3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
                      stride=1, padding=0, output_padding=0) -> torch.Tensor:
     """ConvTranspose3d; ``w`` is (Cin, Cout, kD, kH, kW)."""
-    return F.conv_transpose3d(x, w.to(x.dtype), _cast(b, x.dtype), stride=stride,
-                              padding=padding, output_padding=output_padding)
+    return _biased(F.conv_transpose3d, x, w.to(x.dtype), b, stride=stride, padding=padding,
+                   output_padding=output_padding)

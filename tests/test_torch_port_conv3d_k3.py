@@ -76,6 +76,33 @@ def test_conv3d_k3_matches_pallas(rng, shape):
         np.testing.assert_allclose(ndhwc(got), want, rtol=FWD_TOL, atol=FWD_TOL)
 
 
+def _bf16_order(a: np.ndarray) -> np.ndarray:
+    """bf16 values as integers in the order of the values: neighbouring
+    bf16 numbers differ by 1, so a difference counts ulps."""
+    u = a.view(np.uint16).astype(np.int32)
+    return np.where(u & 0x8000, -(u & 0x7FFF), u)
+
+
+def test_conv3d_k3_bf16_rounds_as_pallas(rng):
+    """bfloat16 with a bias: the JAX kernel rounds the sum to bf16, adds the
+    float32 bias and rounds again; so must the port. Only the float32
+    summation order may differ: no output more than one bf16 ulp apart,
+    fewer than 1 % apart at all."""
+    x, w, b = conv_inputs(rng, (1, 16, 8, 8, 16))
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(j_conv3d_k3(xb, jnp.asarray(w, jnp.bfloat16), jnp.asarray(b),
+                                  interpret=True))
+    xt = ncdhw(np.asarray(xb.astype(jnp.float32))).bfloat16()
+    wt = torch_weight(w).bfloat16()
+    for got in (k3.plain_conv3d_k3(xt, wt, torch.from_numpy(b)),
+                k3.conv3d_k3(xt, wt, torch.from_numpy(b))):
+        assert got.dtype == torch.bfloat16
+        got = got.permute(0, 2, 3, 4, 1).contiguous().view(torch.int16).numpy()
+        ulps = np.abs(_bf16_order(got.view(np.uint16)) - _bf16_order(want.view(np.uint16)))
+        assert ulps.max() <= 1 and (ulps > 0).mean() < 0.01, (
+            f"max {ulps.max()} ulps, {(ulps > 0).sum()} of {ulps.size} outputs differ")
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_conv3d_k3_routing_matches_jax(rng, stride, monkeypatch):
     """ops.conv3d(method='k3') against the JAX ops.conv3d(method='pallas'):

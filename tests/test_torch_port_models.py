@@ -10,6 +10,16 @@ must carry the JAX variables back and load strictly. The same numpy input
 then runs through both. Reduced configurations of
 tests/test_golden_pyfer.py:37-41 and tests/test_golden_transeg.py:38-39;
 float32, max abs ≤ 1e-3 (the bar of test_golden_pyfer.py).
+
+bfloat16: the port's model on a bf16 input against the JAX model built with
+``dtype=jnp.bfloat16`` on the same input. Each output must satisfy
+max|port − JAX bf16| ≤ 2 · max|JAX bf16 − JAX f32| + one bf16 ulp at the
+largest |JAX f32| output: the packages may differ by no more than twice what
+bf16 costs the reference itself (both round at different places: the JAX
+decomposed convs round each depth tap, its Dense adds a float32 bias before
+its one rounding), and the ulp floor is bf16's own resolution at the
+output's scale, for an output where the reference's bf16 error happens to be
+small.
 """
 
 import numpy as np
@@ -57,12 +67,12 @@ def port_seg(out_ch=8, img=SIZE, seed=0):
     return seeded(TranSeg(out_ch=out_ch, img_size=img, device="cpu", **CFG), seed)
 
 
-def jax_dose():
-    return jmodels.DosePyfer(out_ch=1, list_ch_A=LIST_CH, **CFG)
+def jax_dose(dtype=jnp.float32):
+    return jmodels.DosePyfer(out_ch=1, list_ch_A=LIST_CH, dtype=dtype, **CFG)
 
 
-def jax_seg(out_ch=8):
-    return jmodels.TranSeg(out_ch=out_ch, **CFG)
+def jax_seg(out_ch=8, dtype=jnp.float32):
+    return jmodels.TranSeg(out_ch=out_ch, dtype=dtype, **CFG)
 
 
 def to_jax(port_model, jax_model, importer, in_shape):
@@ -150,6 +160,49 @@ def test_transeg_forward_matches_jax(seg_pair):
         tl = model(ncdhw(x))
     assert tl.shape == (2, 5, SIZE, SIZE, SIZE)
     assert max_err(jl, tl) <= TOL
+
+
+def _flat(out):
+    return [out] if not isinstance(out, (tuple, list)) else [a for o in out for a in _flat(o)]
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def assert_bf16_forward_matches_jax(model, jax_model, variables, x):
+    """``jax_model(dtype)`` builds the JAX model; ``x`` is NDHWC float32."""
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = {}
+    for name, dtype, xin in (("f32", jnp.float32, xb.astype(jnp.float32)),
+                             ("bf16", jnp.bfloat16, xb)):
+        out, _ = jax.jit(lambda v, x: jax_model(dtype).apply(
+            v, x, train=False, mutable=["batch_stats"]))(variables, xin)
+        want[name] = [np.asarray(o.astype(jnp.float32)) for o in _flat(out)]
+    with torch.no_grad():
+        got = _flat(model(ncdhw(np.asarray(xb.astype(jnp.float32))).bfloat16()))
+    assert len(got) == len(want["bf16"])
+    for i, (g, jb, jf) in enumerate(zip(got, want["bf16"], want["f32"])):
+        assert g.dtype == torch.bfloat16
+        port = g.float().numpy().transpose(0, 2, 3, 4, 1)
+        ref_err = float(np.abs(jb - jf).max())
+        err = float(np.abs(port - jb).max())
+        tol = 2 * ref_err + _bf16_ulp(float(np.abs(jf).max()))
+        assert np.isfinite(port).all() and err <= tol, (
+            f"output {i}: max|port - JAX bf16| {err} > {tol} (JAX bf16 - f32: {ref_err})")
+
+
+def test_dose_pyfer_bf16_forward_matches_jax(dose_pair):
+    """net_A's head and the four deep-supervision outputs, in bfloat16."""
+    model, variables, _ = dose_pair
+    x = np.random.default_rng(0).standard_normal((1, SIZE, SIZE, SIZE, 9)).astype(np.float32)
+    assert_bf16_forward_matches_jax(model, jax_dose, variables, x)
+
+
+def test_transeg_bf16_forward_matches_jax(seg_pair):
+    model, variables, _ = seg_pair
+    x = np.random.default_rng(1).standard_normal((2, SIZE, SIZE, SIZE, 1)).astype(np.float32)
+    assert_bf16_forward_matches_jax(model, lambda dtype: jax_seg(5, dtype), variables, x)
 
 
 def test_models_default_to_the_card():
