@@ -5,9 +5,15 @@ The kernel (csrc/attention.cu) replaces the Pallas kernel
 dose_prediction_tpu/kernels/attention.py:26 (``_kernel``, launched by
 ``pl.pallas_call`` at :59). On the H100 the bytes bound it in bfloat16
 (L/2 operations per byte, under the card's 295) and the operations in
-float32; as written, its float32 FMAs limit it in both. Its design, one
-block per (batch·head, 64-query tile) with K/V streamed through shared
-memory under an online float32 softmax, is described in the source.
+float32. bfloat16 runs in the flash-attention-2 pattern on the tensor
+cores (mma.sync m16n8k16): Q held in registers, K and V streamed in
+64-key tiles through a 2-stage cp.async ring, scores, online softmax and
+probabilities in registers, probabilities rounded to bf16 before P·V as
+the JAX reference rounds them, the row sum in float32. ``bf16_tiling``
+chooses a block's warps by shape: query-row warps where the grid already
+covers the card, key-split warps (combined at the end) where it would
+not. float32 keeps FMAs in full float32, the exact-order path the float32
+parity checks rely on. The source describes both.
 ``plain_attention`` is
 the same function in PyTorch, step for step the JAX package's
 ``xla_attention`` (:41-48): float32 scores and softmax, probabilities cast
@@ -24,6 +30,20 @@ from dose_prediction_tpu_torch.kernels import cuda_lib
 from dose_prediction_tpu_torch.kernels.autograd import PlainBackward, needs_grad
 
 HEAD_DIMS = (32, 64, 128)
+# bfloat16 block shapes (query-row warps, key-split warps), fewest key splits
+# first; every one has four warps and 16 · query-row warps rows
+TILINGS = ((4, 1), (2, 2), (1, 4))
+
+
+def bf16_tiling(bh: int, length: int, sms: int) -> tuple[int, int]:
+    """The bfloat16 kernel's (query-row warps, key-split warps) for ``bh``
+    (batch · heads) sequences of ``length`` on a card with ``sms`` SMs: the
+    fewest key splits whose grid has at least one block per SM, else the
+    most."""
+    for wm, wn in TILINGS:
+        if bh * -(-length // (16 * wm)) >= sms:
+            return wm, wn
+    return TILINGS[-1]
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -55,11 +75,15 @@ def _direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     n, h, l, dh = q.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"fused_attention: head dim {dh} not in {HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # contiguous and 16-byte aligned (the bf16 kernel copies 16 bytes at a time)
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
+    wm, wn = bf16_tiling(n * h, l, torch.cuda.get_device_properties(q.device)
+                         .multi_processor_count)
     status = cuda_lib.library().dpt_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n * h, l, dh,
-        cuda_lib.DTYPE_CODES[q.dtype], dh ** -0.5, cuda_lib.stream_of(q))
+        cuda_lib.DTYPE_CODES[q.dtype], wm, wn, dh ** -0.5, cuda_lib.stream_of(q))
     cuda_lib.check(status, "fused_attention")
     fused_attention.launches += 1
     return out

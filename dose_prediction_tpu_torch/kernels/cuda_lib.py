@@ -30,8 +30,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, bh, L, dh, dtype, scale, stream
-    "dpt_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, o, bh, L, dh, dtype, warps_m, warps_n, scale, stream
+    "dpt_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # x, y, partials, scale, bias, planes, channels, S, chunk, eps, act, dtype, stream
     "dpt_instance_norm_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # x, w, bias, y, N, C, D, H, W, dtype, stream

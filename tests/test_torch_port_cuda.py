@@ -48,10 +48,13 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(8, 12, 216, 64), (1, 6, 512, 128), (2, 3, 70, 32)])
-def test_attention_kernel_matches_plain_on_card(card, shape, dtype):
+# the main path's two shapes, then edge lengths (one key, one partial tile,
+# one key past a tile, one past eight tiles) at every head dim
+ATTENTION_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (2, 3, 70, 32)] + [
+    (1, 3, length, dh) for length in (1, 16, 65, 513) for dh in (32, 64, 128)]
+
+
+def check_attention(card, shape, dtype):
     g = torch.Generator(card).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=card).to(dtype) for _ in range(3))
     n = k1.fused_attention.launches
@@ -61,6 +64,23 @@ def test_attention_kernel_matches_plain_on_card(card, shape, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     want = k1.plain_attention(q, k, v)
     assert (got.float() - want.float()).abs().max().item() <= tolerance(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES)
+def test_attention_kernel_matches_plain_on_card(card, shape, dtype):
+    check_attention(card, shape, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiling", k1.TILINGS)
+@pytest.mark.parametrize("shape", [(2, 3, 200, 32), (2, 3, 65, 64), (1, 2, 300, 128)])
+def test_attention_bf16_tilings_match_plain_on_card(card, shape, tiling, monkeypatch):
+    """Every bfloat16 block shape at every head dim, whatever the chooser
+    would pick for the shape."""
+    monkeypatch.setattr(k1, "bf16_tiling", lambda *args: tiling)
+    check_attention(card, shape, torch.bfloat16)
 
 
 @pytest.mark.cuda
