@@ -13,7 +13,11 @@ Phases, each printing its seconds on a line of its own:
             convs it takes) against their plain PyTorch versions, in float32
             and bfloat16, and time kernel, plain version and one PyTorch
             library call computing the same function (a yardstick the port
-            never calls), beside the least time the card could take;
+            never calls), beside the least time the card could take; K1
+            also from a replayed CUDA graph (device time without the host's
+            launch cost), its bfloat16 block shape at each shape (and every
+            block shape timed), and the HMMA (tensor-core) instructions in
+            its SASS;
 4. parity   the full-width 128³ serve cascade (12-layer ViT-768 TranSeg over
             96³ windows, then DOSE-PYFER) in float32 with TF32 off, once
             through the kernels and once with the plain versions swapped in,
@@ -103,6 +107,18 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean ms per call of ``fn`` captured ``iters`` times in one CUDA graph
+    and replayed: the device's time without the host's launch cost."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, 5) / iters
+
+
 def bound(nbytes: float, ops: float, dtype: torch.dtype):
     """Least time (ms) for the work and which of bytes or operations sets it."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
@@ -156,7 +172,7 @@ def read_counts(field: str = "launches") -> dict:
     return {name: getattr(f, field) for name, f in kernel_wrappers().items()}
 
 
-def check_kernel(name, kernel, plain, library, args, dtype, nbytes, ops, iters):
+def check_kernel(name, kernel, plain, library, args, dtype, nbytes, ops, iters, graphs=False):
     out = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
@@ -173,9 +189,66 @@ def check_kernel(name, kernel, plain, library, args, dtype, nbytes, ops, iters):
         f"{'ok' if ok else 'FAIL'}; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})")
+    if graphs and ok:
+        for key, fn in (("graph_ms", kernel), ("graph_plain_ms", plain),
+                        ("graph_library_ms", library)):
+            row[key] = graph_ms(lambda: fn(*args), iters)
+        log(f"{name} {str(dtype).replace('torch.', '')} from a CUDA graph: kernel "
+            f"{row['graph_ms']:.4f} ms, plain {row['graph_plain_ms']:.4f} ms, library "
+            f"{row['graph_library_ms']:.4f} ms per call")
     if not ok:
         raise AssertionError(f"{name}: max abs err {err} > {tol} or non-finite output")
     return row
+
+
+def k1_hmma_counts() -> dict:
+    """HMMA (tensor-core mma) instructions in the SASS of each K1
+    instantiation of the built library, from ``cuobjdump -sass``."""
+    from dose_prediction_tpu_torch.kernels import cuda_lib
+
+    out = subprocess.run([cuda_lib.cuda_tool("cuobjdump"), "-sass", str(cuda_lib.build())],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "attention_fwd" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_k1_tensor_cores(k1) -> None:
+    """Every bfloat16 K1 instantiation (head dims × block shapes) runs HMMA;
+    the float32 ones run none (full-precision FMAs)."""
+    counts = k1_hmma_counts()
+    bf16 = {f: c for f, c in counts.items() if "attention_fwd_bf16_kernel" in f}
+    f32 = {f: c for f, c in counts.items() if f not in bf16}
+    log(f"K1 SASS (cuobjdump -sass): HMMA instructions {sum(bf16.values())} in "
+        f"{len(bf16)} bfloat16 instantiations (each {min(bf16.values(), default=0)}-"
+        f"{max(bf16.values(), default=0)}), {sum(f32.values())} in {len(f32)} float32 ones")
+    if len(bf16) != len(k1.HEAD_DIMS) * len(k1.TILINGS) or min(bf16.values()) == 0:
+        raise AssertionError(f"K1 bfloat16 instantiations without HMMA: {bf16}")
+
+
+def k1_block_shapes(k1, q, k, v, iters: int) -> dict:
+    """K1 bfloat16 at every block shape, whatever the chooser picks: each
+    held against the plain version and timed from a CUDA graph."""
+    ref = k1.plain_attention(q, k, v)
+    times = {}
+    for tiling in k1.TILINGS:
+        with mock.patch.object(k1, "bf16_tiling", lambda *args: tiling):
+            err = (k1.fused_attention(q, k, v).float() - ref.float()).abs().max().item()
+            if err > tolerance(ref):
+                raise AssertionError(f"K1 bf16 block shape {tiling}: err {err} > "
+                                     f"{tolerance(ref)}")
+            times[tiling] = graph_ms(lambda: k1.fused_attention(q, k, v), iters)
+    log(f"K1 attention {tuple(q.shape)} bfloat16 from a CUDA graph by block shape (query-row "
+        f"x key-split warps): " + ", ".join(f"{t} {ms:.4f} ms" for t, ms in times.items()))
+    return times
 
 
 def phase_kernels(dev):
@@ -187,14 +260,23 @@ def phase_kernels(dev):
 
     g = torch.Generator(dev).manual_seed(SEED)
     rows = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape in K1_SHAPES:
         n, h, l, dh = shape
+        wm, wn = k1.bf16_tiling(n * h, l, sms)
+        log(f"K1 bf16 block shape at {shape}: {wm} query-row x {wn} key-split warps, "
+            f"{16 * wm} rows per block, {n * h * -(-l // (16 * wm))} blocks on {sms} SMs")
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
             rows[("attention", shape, dtype)] = check_kernel(
                 f"K1 attention {shape}", k1.fused_attention, k1.plain_attention,
                 F.scaled_dot_product_attention, (q, k, v), dtype,
-                nbytes=4 * q.numel() * q.element_size(), ops=4 * n * h * l * l * dh, iters=20)
+                nbytes=4 * q.numel() * q.element_size(), ops=4 * n * h * l * l * dh, iters=20,
+                graphs=True)
+            if dtype == torch.bfloat16:
+                rows[("attention", shape, dtype)]["block_shapes_graph_ms"] = k1_block_shapes(
+                    k1, q, k, v, iters=20)
+    check_k1_tensor_cores(k1)
     for shape in K2_SHAPES:
         c = shape[1]
         for dtype in (torch.float32, torch.bfloat16):
@@ -339,7 +421,7 @@ def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
 # kernel-name fragments by group, first match wins (cuDNN's convolutions are
 # implicit GEMMs, so they are matched before the matmul fragments)
 KERNEL_GROUPS = (("K3 conv3d_k3", ("conv3d_k3",)),
-                 ("K1 attention", ("attention_fwd_kernel",)),
+                 ("K1 attention", ("attention_fwd",)),
                  ("K2 instance norm", ("stats_kernel", "apply_kernel")),
                  ("cuDNN layout transform", ("nchwtonhwc", "nhwctonchw")),
                  ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "implicit")),

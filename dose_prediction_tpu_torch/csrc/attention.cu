@@ -21,9 +21,12 @@
 //   a key slice own 16*WM rows, and the WN warps that share those rows split
 //   every key tile between them (64/WN keys each), keep their own running
 //   max, sum and output, and are combined through shared memory at the end.
-//   The wrapper picks (WM, WN) so that the grid covers the card's SMs:
-//   (4, 1) at (8*12 heads, L = 216), 384 blocks; (1, 4) at (6 heads,
-//   L = 512), 192 blocks of 16 rows, where 64-row blocks would give 48.
+//   A key split shortens each warp's sequential run of key tiles, but a
+//   block of fewer query rows reads all of K and V again from L2. The
+//   wrapper takes the fewest key splits whose grid has at least one block
+//   per two SMs: (4, 1) at (8*12 heads, L = 216), 384 blocks; (2, 2) at
+//   (6 heads, L = 512), 96 blocks of 32 rows, where 64-row blocks would
+//   give 48 and 16-row blocks 192 that read K and V twice as often.
 // - Q is staged once and held in registers as mma A fragments (ldmatrix).
 //   K and V tiles stream through a 2-stage shared-memory ring with 16-byte
 //   cp.async copies (rows past L zero-filled), the next tile in flight while

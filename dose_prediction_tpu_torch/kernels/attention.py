@@ -11,7 +11,7 @@ cores (mma.sync m16n8k16): Q held in registers, K and V streamed in
 probabilities in registers, probabilities rounded to bf16 before P·V as
 the JAX reference rounds them, the row sum in float32. ``bf16_tiling``
 chooses a block's warps by shape: query-row warps where the grid already
-covers the card, key-split warps (combined at the end) where it would
+fills the card, key-split warps (combined at the end) where it would
 not. float32 keeps FMAs in full float32, the exact-order path the float32
 parity checks rely on. The source describes both.
 ``plain_attention`` is
@@ -38,10 +38,13 @@ TILINGS = ((4, 1), (2, 2), (1, 4))
 def bf16_tiling(bh: int, length: int, sms: int) -> tuple[int, int]:
     """The bfloat16 kernel's (query-row warps, key-split warps) for ``bh``
     (batch · heads) sequences of ``length`` on a card with ``sms`` SMs: the
-    fewest key splits whose grid has at least one block per SM, else the
-    most."""
+    fewest key splits whose grid has at least one block per two SMs, else
+    the most. A key split shortens each warp's sequential run of key tiles,
+    but a block of fewer query rows reads all of K and V again from L2; on
+    the H100 the trade turns at about half a block per SM (chip_smoke.py
+    times every block shape at the main path's shapes)."""
     for wm, wn in TILINGS:
-        if bh * -(-length // (16 * wm)) >= sms:
+        if 2 * bh * -(-length // (16 * wm)) >= sms:
             return wm, wn
     return TILINGS[-1]
 

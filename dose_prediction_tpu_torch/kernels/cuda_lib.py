@@ -39,13 +39,14 @@ _SIGNATURES = {
 }
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump, ...)."""
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").is_file():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
+        if cand and (Path(cand) / "bin" / name).is_file():
+            return str(Path(cand) / "bin" / name)
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+        raise RuntimeError(f"{name} not found (set CUDA_HOME or put it on PATH)")
     return found
 
 
@@ -71,7 +72,7 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp),
            *(str(s) for s in sorted(SOURCE_DIR.glob("*.cu")))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)

@@ -99,6 +99,7 @@ def test_conv3d_k3_bf16_rounds_as_pallas(rng):
         assert got.dtype == torch.bfloat16
         got = got.permute(0, 2, 3, 4, 1).contiguous().view(torch.int16).numpy()
         ulps = np.abs(_bf16_order(got.view(np.uint16)) - _bf16_order(want.view(np.uint16)))
+        print(f"max {ulps.max()} ulps, {(ulps > 0).sum()} of {ulps.size} outputs differ")
         assert ulps.max() <= 1 and (ulps > 0).mean() < 0.01, (
             f"max {ulps.max()} ulps, {(ulps > 0).sum()} of {ulps.size} outputs differ")
 

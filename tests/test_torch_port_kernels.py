@@ -108,3 +108,17 @@ def test_library_path_follows_the_sources(tmp_path, monkeypatch):
     assert cuda_lib.library_path() == first
     (src / "attention.cu").write_text((src / "attention.cu").read_text() + "\n// edit\n")
     assert cuda_lib.library_path() != first
+
+
+@pytest.mark.parametrize("bh,length,want", [
+    (8 * 12, 216, (4, 1)),     # TranSeg windows: 384 blocks of 64 rows
+    (1 * 6, 512, (2, 2)),      # DOSE-PYFER ViT: 96 blocks of 32 rows
+    (1 * 6, 216, (1, 4)),      # one TranSeg window: 84 blocks of 16 rows
+    (1, 1, (1, 4))])           # nothing fills the card: the most key splits
+def test_bf16_tiling_takes_the_fewest_key_splits_that_fill_half_the_sms(bh, length, want):
+    """On a 132-SM card: the fewest key-split warps whose grid has at least
+    one block per two SMs; every choice is an instantiated tiling."""
+    got = k1.bf16_tiling(bh, length, 132)
+    assert got == want and got in k1.TILINGS
+    wm, _ = got
+    assert 2 * bh * -(-length // (16 * wm)) >= 132 or got == k1.TILINGS[-1]

@@ -188,6 +188,8 @@ def assert_bf16_forward_matches_jax(model, jax_model, variables, x):
         ref_err = float(np.abs(jb - jf).max())
         err = float(np.abs(port - jb).max())
         tol = 2 * ref_err + _bf16_ulp(float(np.abs(jf).max()))
+        print(f"output {i}: max|port - JAX bf16| {err:.5g}, tolerance {tol:.5g} "
+              f"(max|JAX bf16 - JAX f32| {ref_err:.5g})")
         assert np.isfinite(port).all() and err <= tol, (
             f"output {i}: max|port - JAX bf16| {err} > {tol} (JAX bf16 - f32: {ref_err})")
 
