@@ -71,10 +71,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (3 * 64 * (DH + 1) + 64 * (kBN + 1) + 3 * 64);
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int L, float scale) {
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int L, float scale) {
   constexpr int LD = DH + 1;
   constexpr int LDS = kBN + 1;
   constexpr int CPT = DH / 16;  // output columns per thread
@@ -92,13 +92,13 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16;
   const int q0 = blockIdx.x * kBM;
   const size_t base = (size_t)blockIdx.y * L * DH;
-  const T* qb = q + base;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const float* qb = q + base;
+  const float* kb = k + base;
+  const float* vb = v + base;
 
   for (int i = tid; i < kBM * DH; i += kThreads) {
     const int r = i / DH, c = i % DH, gr = q0 + r;
-    sQ[r * LD + c] = gr < L ? dpt::to_f32(qb[(size_t)gr * DH + c]) : 0.f;
+    sQ[r * LD + c] = gr < L ? qb[(size_t)gr * DH + c] : 0.f;
   }
   if (tid < kBM) {
     sM[tid] = -INFINITY;
@@ -118,8 +118,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBN * DH; i += kThreads) {
       const int r = i / DH, c = i % DH, gr = k0 + r;
       const bool ok = gr < L;
-      sK[r * LD + c] = ok ? dpt::to_f32(kb[(size_t)gr * DH + c]) : 0.f;
-      sV[r * LD + c] = ok ? dpt::to_f32(vb[(size_t)gr * DH + c]) : 0.f;
+      sK[r * LD + c] = ok ? kb[(size_t)gr * DH + c] : 0.f;
+      sV[r * LD + c] = ok ? vb[(size_t)gr * DH + c] : 0.f;
     }
     __syncthreads();
 
@@ -206,7 +206,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = 1.f / sL[r];
 #pragma unroll
       for (int j = 0; j < CPT; ++j)
-        o[base + (size_t)gr * DH + tx + 16 * j] = dpt::from_f32<T>(acc[i][j] * inv);
+        o[base + (size_t)gr * DH + tx + 16 * j] = acc[i][j] * inv;
     }
   }
 }
@@ -522,7 +522,7 @@ template <int DH>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int L,
                        float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  auto kernel = attention_fwd_kernel<float, DH>;
+  auto kernel = attention_fwd_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
