@@ -28,10 +28,62 @@ class ConvTranspose3d(nn.ConvTranspose3d):
                                     padding=self.padding, output_padding=self.output_padding)
 
 
+# torch.addmm takes out_dtype (a float32 result from bfloat16 operands) on
+# CUDA from PyTorch 2.8 on (aten::addmm.dtype); the CPU build has no kernel
+# for it.
+ADDMM_OUT_DTYPE = tuple(int(v) for v in torch.__version__.split(".")[:2]) >= (2, 8)
+
+
+def linear_f32_sum(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x·wᵀ + b in float32 from low-precision ``x`` and ``w`` (exact products,
+    float32 sums) and a float32 ``b``."""
+    if x.device.type == "cuda" and ADDMM_OUT_DTYPE:
+        y = torch.addmm(b, x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    if x.device.type == "cuda":   # a float32 product of the same values, without TF32
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return nn.functional.linear(x.float(), w.float(), b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    return nn.functional.linear(x.float(), w.float(), b)
+
+
+class _LinearF32Sum(torch.autograd.Function):
+    """``linear_f32_sum`` (whose CUDA route, addmm with out_dtype, has no
+    derivative in PyTorch). The backward takes the products a bf16
+    ``F.linear`` takes, and sums the bias gradient in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return linear_f32_sum(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = (g.to(x.dtype) @ w) if ctx.needs_input_grad[0] else None
+        gw = (g2.to(x.dtype).t() @ x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
+        gb = g2.sum(0) if ctx.needs_input_grad[2] else None
+        return gx, gw, gb
+
+
 class Linear(nn.Linear):
+    """In a low-precision dtype with a bias, as the JAX ``Dense``
+    (dose_prediction_tpu/nn/layers.py:180-184): the product with a float32
+    result, plus the float32 bias, rounded once to the input dtype. In
+    float32, or without a bias, one ``F.linear`` (cuBLAS rounds its float32
+    sum once)."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return nn.functional.linear(x, self.weight.to(x.dtype), b)
+        w = self.weight.to(x.dtype)
+        if self.bias is None:
+            return nn.functional.linear(x, w)
+        if x.dtype == torch.float32:
+            return nn.functional.linear(x, w, self.bias)
+        return _LinearF32Sum.apply(x, w, self.bias.float()).to(x.dtype)
 
 
 class InstanceNorm3d(nn.InstanceNorm3d):
