@@ -8,16 +8,19 @@ Phases, each printing its seconds on a line of its own:
 1. device   require CUDA (no fallback) and print the card's name and power
             limit as nvidia-smi reports them;
 2. build    build the CUDA kernels (one nvcc call over csrc/*.cu);
-3. kernels  hold K1 (attention), K2 (instance norm) and K3 (same-size 3x3x3
-            conv, at the six shapes of the C3D, DOSE-PYFER and TranSeg
-            convs it takes) against their plain PyTorch versions, in float32
-            and bfloat16, and time kernel, plain version and one PyTorch
-            library call computing the same function (a yardstick the port
-            never calls), beside the least time the card could take; K1
-            also from a replayed CUDA graph (device time without the host's
-            launch cost), its bfloat16 block shape at each shape (and every
-            block shape timed), and the HMMA (tensor-core) instructions in
-            its SASS;
+3. kernels  hold K1 (attention), K2 (instance norm, at the eleven shapes a
+            serve request gives it in bfloat16 and two in float32) and K3
+            (same-size 3x3x3 conv, at the six shapes of the C3D, DOSE-PYFER
+            and TranSeg convs it takes) against their plain PyTorch
+            versions, in float32 and bfloat16, and time kernel, plain
+            version and one PyTorch library call computing the same function
+            (a yardstick the port never calls), beside the least time the
+            card could take; K1 and K2 also from a replayed CUDA graph
+            (device time without the host's launch cost); K1's bfloat16
+            block shape at each shape (and every block shape timed) and the
+            HMMA (tensor-core) instructions in its SASS; K2's path and chunk
+            at each shape (any serve shape on the two-kernel path fails),
+            and both paths timed;
 4. parity   the full-width 128³ serve cascade (12-layer ViT-768 TranSeg over
             96³ windows, then DOSE-PYFER) in float32 with TF32 off, once
             through the kernels and once with the plain versions swapped in,
@@ -67,7 +70,13 @@ DOSE_TOL_OF_SCALE = 1e-3     # f32 cascade: |dose_kernels - dose_plain| ≤ 1e-3
 LABEL_AGREEMENT_MIN = 0.999
 
 K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128)]          # TranSeg windows, DOSE-PYFER
-K2_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96)]  # C3D level 1, TranSeg decoder2
+# every shape a bf16 serve request gives K2: the TranSeg windows' (8 per
+# call) decoder levels, then DOSE-PYFER's at 128³; float32 at the first two
+K2_SHAPES = [(8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
+             (8, 32, 24, 24, 24), (8, 128, 12, 12, 12), (1, 16, 128, 128, 128),
+             (1, 32, 64, 64, 64), (1, 64, 32, 32, 32), (1, 32, 32, 32, 32),
+             (1, 128, 16, 16, 16), (1, 256, 8, 8, 8)]
+K2_F32_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96)]
 # C3D / DOSE-PYFER levels 1-3 at 128³, then the TranSeg windows' levels at 96³
 K3_SHAPES = [(1, 16, 128, 128, 128), (1, 32, 64, 64, 64), (1, 64, 32, 32, 32),
              (8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24)]
@@ -166,6 +175,11 @@ def kernel_wrappers():
 def zero_counts() -> None:
     for f in kernel_wrappers().values():
         f.launches = f.recomputes = 0
+    kernel_wrappers()["instance_norm"].two_kernel_launches = 0
+
+
+def k2_two_kernel_launches() -> int:
+    return kernel_wrappers()["instance_norm"].two_kernel_launches
 
 
 def read_counts(field: str = "launches") -> dict:
@@ -251,6 +265,39 @@ def k1_block_shapes(k1, q, k, v, iters: int) -> dict:
     return times
 
 
+def check_k2(k2, F, g, dev, shape, dtype):
+    """K2 at one shape: against its plain version, timed eagerly and from a
+    CUDA graph beside the plain version and F.instance_norm; the path and
+    chunk the wrapper takes (a serve shape must take the single-read
+    kernel); then each path forced, graph-timed."""
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 1).to(dtype)
+    scale = torch.rand(c, generator=g, device=dev) + 0.5
+    bias = torch.randn(c, generator=g, device=dev)
+    planes, s = shape[0] * c, math.prod(shape[2:])
+    chunk, resident = k2.capacity(dev.index or 0, dtype, True)
+    path = k2.plan(s, chunk, resident)
+    before = k2.instance_norm_act.two_kernel_launches
+    row = check_kernel(
+        f"K2 instance_norm {shape}", k2.instance_norm_act, k2.plain_instance_norm_act,
+        lambda x, s, b: F.instance_norm(x, weight=s, bias=b, eps=1e-5),
+        (x, scale, bias), dtype, nbytes=2 * x.numel() * x.element_size(),
+        ops=8 * x.numel(), iters=20 if x.numel() < 2 ** 24 else 10, graphs=True)
+    if path != k2.SINGLE_READ or k2.instance_norm_act.two_kernel_launches > before:
+        raise AssertionError(f"K2 {shape}: a serve shape took the two-kernel path")
+    row.update(path=path, chunk=chunk, chunks_per_plane=-(-s // chunk), resident=resident)
+    forced = {}
+    for option in (k2.SINGLE_READ, k2.TWO_KERNEL):
+        with mock.patch.object(k2, "plan", lambda *args: option):
+            forced[option] = graph_ms(lambda: k2.instance_norm_act(x, scale, bias), 10)
+    row["forced_graph_ms"] = forced
+    log(f"K2 {shape} {str(dtype).replace('torch.', '')}: path {path}, chunk {chunk} "
+        f"({row['chunks_per_plane']} per plane, {planes * row['chunks_per_plane']} blocks; "
+        f"{resident} resident blocks); from a CUDA graph by path: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in forced.items()))
+    return row
+
+
 def phase_kernels(dev):
     import torch.nn.functional as F
 
@@ -277,18 +324,9 @@ def phase_kernels(dev):
                 rows[("attention", shape, dtype)]["block_shapes_graph_ms"] = k1_block_shapes(
                     k1, q, k, v, iters=20)
     check_k1_tensor_cores(k1)
-    for shape in K2_SHAPES:
-        c = shape[1]
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn(shape, generator=g, device=dev) * 2 + 1).to(dtype)
-            scale = torch.rand(c, generator=g, device=dev) + 0.5
-            bias = torch.randn(c, generator=g, device=dev)
-            rows[("instance_norm", shape, dtype)] = check_kernel(
-                f"K2 instance_norm {shape}", k2.instance_norm_act, k2.plain_instance_norm_act,
-                lambda x, s, b: F.instance_norm(x, weight=s, bias=b, eps=1e-5),
-                (x, scale, bias), dtype, nbytes=2 * x.numel() * x.element_size(),
-                ops=8 * x.numel(), iters=10)
-            del x
+    for dtype, shapes in ((torch.bfloat16, K2_SHAPES), (torch.float32, K2_F32_SHAPES)):
+        for shape in shapes:
+            rows[("instance_norm", shape, dtype)] = check_k2(k2, F, g, dev, shape, dtype)
     for shape in K3_SHAPES:
         n, c, d, h, w = shape
         for dtype in (torch.float32, torch.bfloat16):
@@ -405,15 +443,18 @@ def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
             out = request()
             times.append(time.perf_counter() - t0)
         launches = read_counts()
+        two_kernel = k2_two_kernel_launches()
     ok = (out.shape == (1, 128, 128, 128, 1) and bool(torch.isfinite(out).all())
           and bool((out[mask < 1] == 0).all()) and bool((out >= 0).all()))
     p50 = sorted(times)[1]
     name = "serve_k3" if route_k3 else "serve"
     log(f"{name} bf16: request seconds {times}, p50 {p50} s; output shape {tuple(out.shape)}, "
-        f"finite, 0 outside the mask, >= 0: {ok}; launches over the 3 requests {launches}; "
+        f"finite, 0 outside the mask, >= 0: {ok}; launches over the 3 requests {launches}, "
+        f"K2 calls on the two-kernel path {two_kernel}; "
         f"peak memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     routed = launches["conv3d_k3"] > 0 if route_k3 else launches["conv3d_k3"] == 0
-    if not (ok and routed and launches["attention"] > 0 and launches["instance_norm"] > 0):
+    if not (ok and routed and launches["attention"] > 0 and launches["instance_norm"] > 0
+            and two_kernel == 0):
         raise AssertionError(f"{name} check failed (launches {launches})")
     return {"p50_s": p50, "times_s": times, "launches": launches}
 
@@ -422,7 +463,9 @@ def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
 # implicit GEMMs, so they are matched before the matmul fragments)
 KERNEL_GROUPS = (("K3 conv3d_k3", ("conv3d_k3",)),
                  ("K1 attention", ("attention_fwd",)),
-                 ("K2 instance norm", ("stats_kernel", "apply_kernel")),
+                 ("K2 instance norm", ("instance_norm_kernel", "stats_kernel",
+                                       "apply_kernel")),
+                 ("memset (K2's counters among them)", ("memset",)),
                  ("cuDNN layout transform", ("nchwtonhwc", "nhwctonchw")),
                  ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "implicit")),
                  ("matmul", ("gemm", "nvjet", "cublas", "cutlass")))
@@ -743,7 +786,7 @@ def main() -> int:
             ("attention", "dose_prediction_tpu_torch/csrc/attention.cu",
              "dose_prediction_tpu/kernels/attention.py:26", K1_SHAPES[0], "serve"),
             ("instance_norm", "dose_prediction_tpu_torch/csrc/instance_norm.cu",
-             "dose_prediction_tpu/kernels/instance_norm.py:32", K2_SHAPES[1], "serve"),
+             "dose_prediction_tpu/kernels/instance_norm.py:32", K2_SHAPES[0], "serve"),
             ("conv3d_k3", "dose_prediction_tpu_torch/csrc/conv3d_k3.cu",
              "dose_prediction_tpu/kernels/conv3d.py:60", K3_SHAPES[3], "serve_k3")):
         row = results["kernels"][(name, shape, torch.bfloat16)]

@@ -32,8 +32,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, bh, L, dh, dtype, warps_m, warps_n, scale, stream
     "dpt_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # x, y, partials, scale, bias, planes, channels, S, chunk, eps, act, dtype, stream
-    "dpt_instance_norm_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # x, y, partials, counters, scale, bias, planes, channels, S, chunk, eps, act, dtype,
+    # vector, single_read, stream
+    "dpt_instance_norm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
+    # dtype, vector, chunk (out), resident blocks (out)
+    "dpt_instance_norm_capacity": (_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     # x, w, bias, y, N, C, D, H, W, dtype, stream
     "dpt_conv3d_k3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

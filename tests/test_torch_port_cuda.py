@@ -16,6 +16,8 @@ depend on the forward they equal the plain version's own gradients up to
 float32 summation order (1e-5 relative to the largest).
 """
 
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -104,6 +106,100 @@ def test_instance_norm_kernel_matches_plain_on_card(card, act, dtype):
     assert k2.instance_norm_act.launches == n + 1
     want = k2.plain_instance_norm_act(x, scale, bias, act=act)
     assert (got.float() - want.float()).abs().max().item() <= tolerance(want)
+
+
+def check_instance_norm(card, x, act, two_kernel=False):
+    """K2 on ``x`` (affine drawn from a seed) against the plain version; the
+    call must launch once, on the two-kernel path exactly when asked."""
+    g = torch.Generator(card).manual_seed(1)
+    c = x.shape[1]
+    scale = torch.rand(c, generator=g, device=card) + 0.5
+    bias = torch.randn(c, generator=g, device=card)
+    n, n2 = k2.instance_norm_act.launches, k2.instance_norm_act.two_kernel_launches
+    got = k2.instance_norm_act(x, scale, bias, act=act)
+    torch.cuda.synchronize()
+    assert k2.instance_norm_act.launches == n + 1
+    assert k2.instance_norm_act.two_kernel_launches == n2 + int(two_kernel)
+    want = k2.plain_instance_norm_act(x, scale, bias, act=act)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert (got.float() - want.float()).abs().max().item() <= tolerance(want)
+
+
+def seeded_volume(card, shape, dtype):
+    g = torch.Generator(card).manual_seed(0)
+    return (torch.randn(shape, generator=g, device=card) * 2 + 1).to(dtype)
+
+
+# ragged planes: S = 1, S = 7 (not whole 16-byte words: scalar loads) and
+# S = 17,280 (two chunks of 8192 and a ragged third)
+RAGGED_SHAPES = [(2, 3, 1, 1, 1), (1, 4, 1, 1, 7), (2, 3, 24, 24, 30)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_instance_norm_ragged_planes_on_card(card, shape, dtype, act):
+    check_instance_norm(card, seeded_volume(card, shape, dtype), act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_instance_norm_plane_of_over_100_chunks_on_card(card, dtype):
+    """1,703,936 elements a plane: 104 bf16 chunks of 16384 or 208 float32
+    chunks of 8192 meet on one plane."""
+    x = seeded_volume(card, (1, 2, 128, 128, 104), dtype)
+    chunk, resident = k2.capacity(card.index or 0, dtype, True)
+    s = x[0, 0].numel()
+    assert k2.plan(s, chunk, resident) == k2.SINGLE_READ and -(-s // chunk) > 100
+    check_instance_norm(card, x, "mish")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 3, 24, 24, 30), (1, 2, 128, 128, 104), (1, 4, 1, 1, 7)])
+def test_instance_norm_two_kernel_path_on_card(card, shape, dtype, act, monkeypatch):
+    """A card that holds one resident block (no plane fits in half of it)
+    sends every call to the two-kernel path."""
+    capacity = k2.capacity
+    monkeypatch.setattr(k2, "capacity", lambda *args: (capacity(*args)[0], 1))
+    check_instance_norm(card, seeded_volume(card, shape, dtype), act, two_kernel=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_instance_norm_unaligned_view_on_card(card, dtype, act, monkeypatch):
+    """A view one element into its buffer is not 16-byte aligned: the
+    wrapper takes the scalar-load instantiation."""
+    shape = (2, 5, 16, 20, 24)
+    buf = seeded_volume(card, (1 + math.prod(shape),), dtype)
+    x = buf[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    vectors, capacity = [], k2.capacity
+    monkeypatch.setattr(k2, "capacity", lambda i, d, v: vectors.append(v) or capacity(i, d, v))
+    check_instance_norm(card, x, act)
+    assert vectors == [False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_instance_norm_replays_from_a_cuda_graph(card, dtype):
+    """The counters' memset and the kernel replay: every replay starts from
+    zeroed counters and gives the plain version's result."""
+    x = seeded_volume(card, (2, 16, 24, 20, 36), dtype)
+    want = k2.plain_instance_norm_act(x, act="gelu")
+    k2.instance_norm_act(x, act="gelu")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k2.instance_norm_act(x, act="gelu")
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (out.float() - want.float()).abs().max().item() <= tolerance(want)
 
 
 @pytest.mark.cuda

@@ -66,6 +66,29 @@ def test_instance_norm_act_matches_pallas(rng, act):
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 4, 1), want, rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("act", ACTS)
+def test_instance_norm_act_bf16_matches_pallas(act):
+    """bf16 in, bf16 out: the plain version (the CUDA kernel's reference on
+    the card) and the Pallas kernel both apply the activation in float32 and
+    round once; their statistics differ in float32 rounding only. Bar: one
+    bf16 ulp at the larger of |Pallas output| and 2^-8 (below that, float32
+    differences of order 2^-24 and GELU's cancelling 1 + erf tail in torch
+    reach a bf16 ulp of the tiny result)."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((2, 4, 4, 8, 16)) * 2 + 1).astype(np.float32)   # NDHWC
+    scale, bias = (rng.standard_normal(16).astype(np.float32) for _ in range(2))
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(j_in_act(xb, jnp.asarray(scale), jnp.asarray(bias), act=act,
+                               interpret=True).astype(jnp.float32))
+    xt = torch.from_numpy(np.asarray(xb.astype(jnp.float32)).transpose(0, 4, 1, 2, 3).copy())
+    got = k2.instance_norm_act(xt.bfloat16(), torch.from_numpy(scale), torch.from_numpy(bias),
+                               act=act)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy().transpose(0, 2, 3, 4, 1)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -8))) - 7)
+    assert (np.abs(got - want) <= ulp).all()
+
+
 def test_instance_norm_act_without_affine_matches_ops(rng):
     """Shifted data (mean 50) as a check that the statistics are two-pass."""
     x = (rng.standard_normal((1, 3, 6, 5, 7)) + 50).astype(np.float32)
@@ -122,3 +145,36 @@ def test_bf16_tiling_takes_the_fewest_key_splits_that_fill_half_the_sms(bh, leng
     assert got == want and got in k1.TILINGS
     wm, _ = got
     assert 2 * bh * -(-length // (16 * wm)) >= 132 or got == k1.TILINGS[-1]
+
+
+# Resident blocks of the single-read K2 kernel's 16-byte instantiations on
+# an H100: 132 SMs x the 4 blocks per SM the card's occupancy calculator
+# gives for both dtypes; bf16 blocks hold 16384 elements, float32 8192
+H100_CAPACITY = 4 * 132
+CHUNK = {"bfloat16": 16384, "float32": 8192}
+# every shape a bf16 serve request gives K2 (chip_smoke.K2_SHAPES)
+SERVE_K2_SHAPES = [(8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
+                   (8, 32, 24, 24, 24), (8, 128, 12, 12, 12), (1, 16, 128, 128, 128),
+                   (1, 32, 64, 64, 64), (1, 64, 32, 32, 32), (1, 32, 32, 32, 32),
+                   (1, 128, 16, 16, 16), (1, 256, 8, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", SERVE_K2_SHAPES)
+def test_k2_serve_shapes_take_the_single_read_kernel(shape, dtype):
+    """At the H100's capacity every serve shape's plane needs at most half
+    the resident blocks, so K2 reads each volume once."""
+    s = int(np.prod(shape[2:]))
+    assert k2.plan(s, CHUNK[dtype], H100_CAPACITY) == k2.SINGLE_READ
+    assert -(-s // CHUNK[dtype]) <= H100_CAPACITY // 2
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k2_plane_larger_than_half_the_card_takes_two_kernels(dtype):
+    """264 chunks is the largest plane the H100 takes in one read; one more
+    element takes the two-kernel path, as does any plane of several chunks
+    on a card that holds one block."""
+    largest = CHUNK[dtype] * (H100_CAPACITY // 2)
+    assert k2.plan(largest, CHUNK[dtype], H100_CAPACITY) == k2.SINGLE_READ
+    assert k2.plan(largest + 1, CHUNK[dtype], H100_CAPACITY) == k2.TWO_KERNEL
+    assert k2.plan(CHUNK[dtype] + 1, CHUNK[dtype], 1) == k2.TWO_KERNEL
