@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files are compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface, loaded with ctypes. No PyTorch headers are
-included, so the build takes seconds. The library's name carries a hash of
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. No PyTorch headers are included, so the build
+takes seconds. The library's name carries a hash of
 the sources and flags: a second run in the same checkout finds it and skips
 the build. Nothing is built when this module is imported.
 """
@@ -22,8 +23,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -67,23 +68,38 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` with one nvcc call unless the library for
-    these sources exists. Raises with nvcc's output if the build fails; the
-    compiler's report (registers, spills) is kept beside the library."""
+    """Compile every ``csrc/*.cu`` (one nvcc process each, in parallel) and
+    link them unless the library for these sources exists. Raises with
+    nvcc's output if a step fails; the compiler's report (registers,
+    spills) is kept beside the library."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(SOURCE_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(SOURCE_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    try:
+        compiles = [[cuda_tool(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        steps = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(compiles, procs)]
+        link = [cuda_tool(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        if all(rc == 0 for _, _, rc in steps):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc.stdout + proc.stderr, proc.returncode))
+        out.with_suffix(".log").write_text("".join(log for _, log, _ in steps))
+        failed = [(cmd, log, rc) for cmd, log, rc in steps if rc != 0]
+        if failed:
+            cmd, log, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

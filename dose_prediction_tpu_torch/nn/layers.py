@@ -40,14 +40,13 @@ def linear_f32_sum(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     if x.device.type == "cuda" and ADDMM_OUT_DTYPE:
         y = torch.addmm(b, x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[0])
-    if x.device.type == "cuda":   # a float32 product of the same values, without TF32
-        saved = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return nn.functional.linear(x.float(), w.float(), b)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = saved
-    return nn.functional.linear(x.float(), w.float(), b)
+    # a float32 product of the same values (on a card, without TF32)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return nn.functional.linear(x.float(), w.float(), b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 class _LinearF32Sum(torch.autograd.Function):
@@ -64,10 +63,10 @@ class _LinearF32Sum(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
-        gx = (g.to(x.dtype) @ w) if ctx.needs_input_grad[0] else None
-        gw = (g2.to(x.dtype).t() @ x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
-        gb = g2.sum(0) if ctx.needs_input_grad[2] else None
-        return gx, gw, gb
+        need_x, need_w, need_b = ctx.needs_input_grad
+        gx = g.to(x.dtype) @ w if need_x else None
+        gw = g2.to(x.dtype).t() @ x.reshape(-1, x.shape[-1]) if need_w else None
+        return gx, gw, g2.sum(0) if need_b else None
 
 
 class Linear(nn.Linear):
