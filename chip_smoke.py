@@ -7,7 +7,8 @@ Phases, each printing its seconds on a line of its own:
 
 1. device   require CUDA (no fallback) and print the card's name and power
             limit as nvidia-smi reports them;
-2. build    build the CUDA kernels (one nvcc call over csrc/*.cu);
+2. build    build the CUDA kernels (one nvcc process per csrc/*.cu, all
+            in parallel, then one link);
 3. kernels  hold K1 (attention), K2 (instance norm, at the eleven shapes a
             serve request gives it in bfloat16 and two in float32) and K3
             (same-size 3x3x3 conv, at the six shapes of the C3D, DOSE-PYFER
@@ -176,10 +177,6 @@ def zero_counts() -> None:
     for f in kernel_wrappers().values():
         f.launches = f.recomputes = 0
     kernel_wrappers()["instance_norm"].two_kernel_launches = 0
-
-
-def k2_two_kernel_launches() -> int:
-    return kernel_wrappers()["instance_norm"].two_kernel_launches
 
 
 def read_counts(field: str = "launches") -> dict:
@@ -443,7 +440,7 @@ def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
             out = request()
             times.append(time.perf_counter() - t0)
         launches = read_counts()
-        two_kernel = k2_two_kernel_launches()
+        two_kernel = kernel_wrappers()["instance_norm"].two_kernel_launches
     ok = (out.shape == (1, 128, 128, 128, 1) and bool(torch.isfinite(out).all())
           and bool((out[mask < 1] == 0).all()) and bool((out >= 0).all()))
     p50 = sorted(times)[1]

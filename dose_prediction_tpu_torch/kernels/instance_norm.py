@@ -11,11 +11,11 @@ one write of the volume in one launch. It is safe only while the card holds
 a plane's chunks resident at once, so ``plan`` sends a plane too large for
 that, by shape and before any launch, to the two-kernel path (statistics,
 then a second read to normalize); the source gives the design and the
-argument. ``plain_instance_norm_act`` is the same
-function in PyTorch: ``ops.instance_norm`` (two-pass float32 statistics)
-and the activation in float32, one rounding to the input dtype, as the
-Pallas kernel rounds; the backward recomputes it (kernels/autograd.py), as
-the JAX custom VJP (:124-144) does.
+argument. ``plain_instance_norm_act`` is the same function in PyTorch:
+``ops.instance_norm`` (two-pass float32 statistics) and the activation in
+float32, one rounding to the input dtype, as the Pallas kernel rounds; the
+backward recomputes it (kernels/autograd.py), as the JAX custom VJP
+(:124-144) does.
 """
 
 from __future__ import annotations
