@@ -11,15 +11,16 @@ Phases, each printing its seconds on a line of its own:
             in parallel, then one link);
 3. kernels  hold K1 (attention), K2 (instance norm, at the eleven shapes a
             serve request gives it in bfloat16 and two in float32) and K3
-            (same-size 3x3x3 conv, at the six shapes of the C3D, DOSE-PYFER
+            (same-size 3x3x3 conv, at the eight shapes of the C3D, DOSE-PYFER
             and TranSeg convs it takes) against their plain PyTorch
             versions, in float32 and bfloat16, and time kernel, plain
             version and one PyTorch library call computing the same function
             (a yardstick the port never calls), beside the least time the
-            card could take; K1 and K2 also from a replayed CUDA graph
-            (device time without the host's launch cost); K1's bfloat16
-            block shape at each shape (and every block shape timed) and the
-            HMMA (tensor-core) instructions in its SASS; K2's path and chunk
+            card could take; K1, K2 and bfloat16 K3 also from a replayed
+            CUDA graph (device time without the host's launch cost); K1's
+            bfloat16 block shape at each shape (and every block shape timed)
+            and the HMMA (tensor-core) instructions in its SASS, and K3's
+            bfloat16 HMMA and LDSM (ldmatrix) counts; K2's path and chunk
             at each shape (any serve shape on the two-kernel path fails),
             and both paths timed;
 4. parity   the full-width 128³ serve cascade (12-layer ViT-768 TranSeg over
@@ -32,7 +33,8 @@ Phases, each printing its seconds on a line of its own:
             kernel group and the device's idle share;
 7. serve_k3 the same three requests with the K3 routing on
             (DPT_PALLAS_CONV=1: same-size 3x3x3 convs with C in {16, 32,
-            64} go to K3), and one more under the profiler;
+            64} go to K3), K3's calls per request by shape (they must sum
+            to its launches), and one more request under the profiler;
 8. train    the full-width DOSE-PYFER train step at 128³, batch 1, bfloat16
             compute, float32 parameters, AdamW, net_A frozen, routing on,
             PyTorch's TF32 defaults (cuDNN float32 convolutions in TF32):
@@ -78,9 +80,12 @@ K2_SHAPES = [(8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
              (1, 32, 64, 64, 64), (1, 64, 32, 32, 32), (1, 32, 32, 32, 32),
              (1, 128, 16, 16, 16), (1, 256, 8, 8, 8)]
 K2_F32_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96)]
-# C3D / DOSE-PYFER levels 1-3 at 128³, then the TranSeg windows' levels at 96³
+# every shape a bf16 serve_k3 request gives K3: C3D / DOSE-PYFER levels 1-3
+# at 128³, the TranSeg windows' levels at 96³, then the decoders' two
+# narrower convs (appended, so that K3_SHAPES[3] stays the kernels line's)
 K3_SHAPES = [(1, 16, 128, 128, 128), (1, 32, 64, 64, 64), (1, 64, 32, 32, 32),
-             (8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24)]
+             (8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
+             (8, 32, 24, 24, 24), (1, 32, 32, 32, 32)]
 TRAIN_LR, TRAIN_WD = 6.130697604327541e-4, 1.6303111017674179e-4   # train/trainers.py:56-57
 TRAIN_STEPS = 5
 TRAIN_PARITY_NOISE = 1e-6
@@ -212,9 +217,10 @@ def check_kernel(name, kernel, plain, library, args, dtype, nbytes, ops, iters, 
     return row
 
 
-def k1_hmma_counts() -> dict:
-    """HMMA (tensor-core mma) instructions in the SASS of each K1
-    instantiation of the built library, from ``cuobjdump -sass``."""
+def sass_counts(fragment: str, opcode: str = "HMMA") -> dict:
+    """``opcode`` instructions (HMMA: tensor-core mma; LDSM: ldmatrix) in the
+    SASS of each kernel of the built library whose name holds ``fragment``,
+    from ``cuobjdump -sass``."""
     from dose_prediction_tpu_torch.kernels import cuda_lib
 
     out = subprocess.run([cuda_lib.cuda_tool("cuobjdump"), "-sass", str(cuda_lib.build())],
@@ -225,17 +231,29 @@ def k1_hmma_counts() -> dict:
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            if "attention_fwd" in fn:
+            if fragment in fn:
                 counts[fn] = 0
-        elif fn in counts and "HMMA" in line:
+        elif fn in counts and opcode in line:
             counts[fn] += 1
+    return counts
+
+
+def check_k3_tensor_cores() -> dict:
+    """Every bfloat16 K3 instantiation loads its fragments with LDSM
+    (ldmatrix) and multiplies with HMMA."""
+    counts = {op: sass_counts("conv3d_k3_bf16", op) for op in ("HMMA", "LDSM")}
+    for fn in counts["HMMA"]:
+        log(f"K3 SASS (cuobjdump -sass) {fn}: HMMA {counts['HMMA'][fn]}, "
+            f"LDSM {counts['LDSM'][fn]}")
+    if not counts["HMMA"] or min(min(c.values()) for c in counts.values()) == 0:
+        raise AssertionError(f"K3 bfloat16 instantiations without HMMA or LDSM: {counts}")
     return counts
 
 
 def check_k1_tensor_cores(k1) -> None:
     """Every bfloat16 K1 instantiation (head dims × block shapes) runs HMMA;
     the float32 ones run none (full-precision FMAs)."""
-    counts = k1_hmma_counts()
+    counts = sass_counts("attention_fwd")
     bf16 = {f: c for f, c in counts.items() if "attention_fwd_bf16_kernel" in f}
     f32 = {f: c for f, c in counts.items() if f not in bf16}
     log(f"K1 SASS (cuobjdump -sass): HMMA instructions {sum(bf16.values())} in "
@@ -334,8 +352,9 @@ def phase_kernels(dev):
                 f"K3 conv3d_k3 {shape}", k3.conv3d_k3, k3.plain_conv3d_k3,
                 lambda x, wt, b: F.conv3d(x, wt.to(x.dtype), b.to(x.dtype), padding=1),
                 (x, wt, b), dtype, nbytes=2 * x.numel() * x.element_size(),
-                ops=2 * n * d * h * w * 27 * c * c, iters=10)
+                ops=2 * n * d * h * w * 27 * c * c, iters=10, graphs=dtype == torch.bfloat16)
             del x
+    rows["k3_sass"] = check_k3_tensor_cores()
     for dtype in (torch.float32, torch.bfloat16):        # every activation K2 fuses
         x = (torch.randn((2, 16, 24, 20, 36), generator=g, device=dev) * 2 + 1).to(dtype)
         for act in ACTS:
@@ -431,9 +450,19 @@ def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
         torch.cuda.synchronize()
         return out
 
-    with k3_routing(route_k3):
+    from dose_prediction_tpu_torch.kernels import conv3d as k3
+
+    k3_shapes, launch = {}, k3._launch
+
+    def record(x, *args):
+        key = tuple(x.shape)
+        k3_shapes[key] = k3_shapes.get(key, 0) + 1
+        return launch(x, *args)
+
+    with k3_routing(route_k3), mock.patch.object(k3, "_launch", record):
         request()                                       # warm-up
         zero_counts()
+        k3_shapes.clear()
         times, out = [], None
         for _ in range(3):
             t0 = time.perf_counter()
@@ -449,11 +478,17 @@ def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
         f"finite, 0 outside the mask, >= 0: {ok}; launches over the 3 requests {launches}, "
         f"K2 calls on the two-kernel path {two_kernel}; "
         f"peak memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    if route_k3:
+        log(f"{name} K3 calls per request by shape: "
+            + ", ".join(f"{s} {n // 3}" for s, n in k3_shapes.items())
+            + f"; {sum(k3_shapes.values()) // 3} in all")
     routed = launches["conv3d_k3"] > 0 if route_k3 else launches["conv3d_k3"] == 0
     if not (ok and routed and launches["attention"] > 0 and launches["instance_norm"] > 0
-            and two_kernel == 0):
-        raise AssertionError(f"{name} check failed (launches {launches})")
-    return {"p50_s": p50, "times_s": times, "launches": launches}
+            and two_kernel == 0 and sum(k3_shapes.values()) == launches["conv3d_k3"]):
+        raise AssertionError(f"{name} check failed (launches {launches}, K3 calls by shape "
+                             f"{k3_shapes})")
+    return {"p50_s": p50, "times_s": times, "launches": launches,
+            "k3_calls_per_request": {str(s): n // 3 for s, n in k3_shapes.items()}}
 
 
 # kernel-name fragments by group, first match wins (cuDNN's convolutions are

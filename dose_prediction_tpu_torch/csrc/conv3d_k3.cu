@@ -66,8 +66,9 @@ __device__ __forceinline__ void stage_plane(const S* __restrict__ x, S* xs, int 
   }
 }
 
-// The three kw taps of one (kd, kh): ws[(kw * C + ci) * LDW + co] from the
-// (27, C_in, C_out) weights, tap = (kd * 3 + kh) * 3 + kw.
+// The three kw taps of one (kd, kh): ws[(kw * C + r) * LDW + c] from the
+// (27, C, C) weights wt[tap][r][c], tap = (kd * 3 + kh) * 3 + kw: r = C_in and
+// c = C_out for float32, r = C_out and c = C_in (k-contiguous) for bfloat16.
 template <typename S, int C, int LDW>
 __device__ __forceinline__ void stage_weights(const S* __restrict__ wt, S* ws, int tap0) {
   const S* src = wt + (size_t)tap0 * C * C;
@@ -139,8 +140,15 @@ conv3d_k3_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   }
 }
 
-__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[j] is matrix j's
+// fragment (row lane / 4, columns 2 (lane % 4) and + 1).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
 }
 
 // D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, float32 accumulators.
@@ -192,24 +200,23 @@ conv3d_k3_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict
       __syncthreads();
 #pragma unroll
       for (int kw = 0; kw < 3; ++kw) {
-        // A rows: voxels (warp, gid) and (warp, gid + 8) of the tile, shifted by the tap
-        const uint16_t* xa = xs + ((warp + kh) * kHW + gid + kw) * LDX + tig * 2;
-        const uint16_t* xb = xa + 8 * LDX;
+        // A (16 voxels x 16 channels): lane l gives voxel (warp, l % 16) of the
+        // tile, shifted by the tap, channels k0 + 8 (l / 16)
+        const uint16_t* xa = xs + ((warp + kh) * kHW + (lane & 15) + kw) * LDX + (lane >> 4) * 8;
+        // B (16 channels x 2 n-tiles): lane l gives output channel
+        // 8 (l / 16) + l % 8 of the pair, input channels k0 + 8 ((l / 8) % 2)
+        const uint16_t* wb =
+            ws + (kw * C + ((lane >> 4) << 3) + (lane & 7)) * LDW + ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
-          const int k0 = ks * 16;
-          const uint32_t a0 = *reinterpret_cast<const uint32_t*>(xa + k0);
-          const uint32_t a1 = *reinterpret_cast<const uint32_t*>(xb + k0);
-          const uint32_t a2 = *reinterpret_cast<const uint32_t*>(xa + k0 + 8);
-          const uint32_t a3 = *reinterpret_cast<const uint32_t*>(xb + k0 + 8);
-          // B: rows ci = k0 + 2 tig (+1, +8, +9), column co = 8 t + gid
-          const uint16_t* wb = ws + (kw * C + k0 + tig * 2) * LDW + gid;
+          uint32_t a[4];
+          ldsm_x4(a, xa + ks * 16);
 #pragma unroll
-          for (int t = 0; t < NT; ++t) {
-            const uint16_t* wc = wb + t * 8;
-            const uint32_t b0 = pack2(wc[0], wc[LDW]);
-            const uint32_t b1 = pack2(wc[8 * LDW], wc[9 * LDW]);
-            mma_bf16_16816(acc[t], a0, a1, a2, a3, b0, b1);
+          for (int p = 0; p < NT / 2; ++p) {
+            uint32_t b[4];
+            ldsm_x4(b, wb + p * 16 * LDW + ks * 16);
+            mma_bf16_16816(acc[2 * p], a[0], a[1], a[2], a[3], b[0], b[1]);
+            mma_bf16_16816(acc[2 * p + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
           }
         }
       }
@@ -268,7 +275,8 @@ cudaError_t launch_c(const void* x, const void* wt, const float* bias, void* y, 
 }  // namespace
 
 // x, y: contiguous (N, C, D, H, W) tensors of one dtype; w: contiguous
-// (27, C_in, C_out) weights in that dtype, tap = kd * 9 + kh * 3 + kw; bias:
+// weights in that dtype, (27, C_in, C_out) for float32 and (27, C_out, C_in)
+// for bfloat16, tap = kd * 9 + kh * 3 + kw; bias:
 // float32 (C,) or null. Returns the cudaError_t of the launch (0 on success).
 extern "C" int dpt_conv3d_k3_fwd(const void* x, const void* w, const float* bias, void* y,
                                  int N, int C, int D, int H, int W, int dtype, void* stream) {

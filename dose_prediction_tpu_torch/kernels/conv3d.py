@@ -41,6 +41,16 @@ def plain_conv3d_k3(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def pack_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's weight layout: ``(C_out, C_in, 3, 3, 3)`` →
+    ``(27, C_out, C_in)`` in bfloat16 (input channels contiguous, the rows
+    ``ldmatrix`` reads) and ``(27, C_in, C_out)`` in float32, tap
+    ``kd·9 + kh·3 + kw``, in ``dtype``."""
+    order = (2, 3, 4, 0, 1) if dtype == torch.bfloat16 else (2, 3, 4, 1, 0)
+    c = w.shape[0]
+    return w.to(dtype).permute(*order).reshape(27, c, c).contiguous()
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     cuda_lib.require_cuda(x, "conv3d_k3")
     if x.ndim != 5 or x.shape[1] not in CHANNELS:
@@ -55,8 +65,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.T
     if x.numel() == 0:
         raise ValueError(f"conv3d_k3: empty input {tuple(x.shape)}")
     x = x.contiguous()
-    # (C_out, C_in, kd, kh, kw) -> (27, C_in, C_out) in the working dtype
-    wt = w.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(27, c, c).contiguous()
+    wt = pack_weights(w, x.dtype)
     bias = None if b is None else b.float().contiguous()
     out = torch.empty_like(x)
     status = cuda_lib.library().dpt_conv3d_k3_fwd(

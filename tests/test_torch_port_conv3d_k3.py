@@ -76,6 +76,26 @@ def test_conv3d_k3_matches_pallas(rng, shape):
         np.testing.assert_allclose(ndhwc(got), want, rtol=FWD_TOL, atol=FWD_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_weights_give_the_convolution(rng, dtype):
+    """The kernel's weight layout (``pack_weights``: (27, C_out, C_in) for
+    bfloat16, (27, C_in, C_out) for float32) as the plain implicit GEMM it
+    feeds: an einsum of the packed taps with the 27 shifted inputs is the
+    convolution, in float32 to 1e-5 relative and absolute (outputs reach
+    about 10; the weights are bf16 values, so the packing is exact)."""
+    x, w, _ = conv_inputs(rng, (2, 5, 6, 7, 16))
+    xt, wt = ncdhw(x), torch_weight(w).bfloat16().float()
+    packed = k3.pack_weights(wt, dtype)
+    assert packed.dtype == dtype and packed.shape == (27, 16, 16)
+    n, c, d, h, wd = xt.shape
+    xp = torch.nn.functional.pad(xt, (1,) * 6)
+    taps = torch.stack([xp[:, :, kd:kd + d, kh:kh + h, kw:kw + wd]
+                        for kd in range(3) for kh in range(3) for kw in range(3)])
+    spec = "tncdhw,toc->nodhw" if dtype == torch.bfloat16 else "tncdhw,tco->nodhw"
+    got = torch.einsum(spec, taps, packed.float())
+    torch.testing.assert_close(got, k3.plain_conv3d_k3(xt, wt), rtol=1e-5, atol=1e-5)
+
+
 def _bf16_order(a: np.ndarray) -> np.ndarray:
     """bf16 values as integers in the order of the values: neighbouring
     bf16 numbers differ by 1, so a difference counts ulps."""
