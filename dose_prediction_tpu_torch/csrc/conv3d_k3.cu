@@ -66,9 +66,8 @@ __device__ __forceinline__ void stage_plane(const S* __restrict__ x, S* xs, int 
   }
 }
 
-// The three kw taps of one (kd, kh): ws[(kw * C + r) * LDW + c] from the
-// (27, C, C) weights wt[tap][r][c], tap = (kd * 3 + kh) * 3 + kw: r = C_in and
-// c = C_out for float32, r = C_out and c = C_in (k-contiguous) for bfloat16.
+// The three kw taps of one (kd, kh): ws[(kw * C + ci) * LDW + co] from the
+// (27, C_in, C_out) weights, tap = (kd * 3 + kh) * 3 + kw.
 template <typename S, int C, int LDW>
 __device__ __forceinline__ void stage_weights(const S* __restrict__ wt, S* ws, int tap0) {
   const S* src = wt + (size_t)tap0 * C * C;
@@ -140,157 +139,262 @@ conv3d_k3_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   }
 }
 
+// ---- bfloat16 ----
+
+constexpr int kMaxWarps = 12;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use (H100)
+
+// m-tiles of 16 voxels per warp: each B fragment feeds MT mma. 64 float32
+// accumulators per thread at every C.
+__host__ __device__ constexpr int bf16_mtiles(int C) { return C == 16 ? 8 : C == 32 ? 4 : 2; }
+
+// The block's tile: th x tw output positions (tw a multiple of 8) at td
+// consecutive output depths; each warp owns g groups of 16 consecutive
+// positions (row-major over the tile) at each of the td depths, so
+// td * g = MT m-tiles, and th * tw / (16 g) warps.
+struct Tile {
+  int D, H, W;
+  int th, tw, td, g, tiles_w;
+};
+
+// Shared memory: one weight group (the 3 kw taps of one (kd, kh), [kw][co][ci
+// + 8]) and the td + 2 input depth planes of the halo tile ([plane][pos][c +
+// 8], pos = row * (tw + 2) + column). A row of C + 8 values is an odd number
+// of 16-byte units (3, 5 or 9), so the 8 rows of one ldmatrix matrix
+// (consecutive positions, or consecutive output channels) fall on distinct
+// banks.
+__host__ __device__ inline long long bf16_smem_bytes(int C, int th, int tw, int td) {
+  return 2LL * (C + 8) * (3LL * C + (long long)(td + 2) * (th + 2) * (tw + 2));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // Four 8x8 bf16 matrices from shared memory: lane l gives the address of
 // row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[j] is matrix j's
 // fragment (row lane / 4, columns 2 (lane % 4) and + 1).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
+               : "r"(addr)
                : "memory");
 }
 
 // D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, float32 accumulators.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(d[0]), "f"(d[1]),
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(d[0]), "f"(d[1]),
         "f"(d[2]), "f"(d[3]));
+}
+
+// Weight group q (taps 3q .. 3q + 2 of the (27, C_out, C_in) weights) into
+// ws[(kw * C + co) * (C + 8) + ci], 16 bytes a thread at a time.
+template <int C>
+__device__ __forceinline__ void stage_weight_group(const uint16_t* __restrict__ wt,
+                                                   uint16_t* ws, int q) {
+  constexpr int kChunks = C / 8;  // 16-byte chunks per row
+  const uint4* src = reinterpret_cast<const uint4*>(wt + (size_t)q * 3 * C * C);
+  for (int i = threadIdx.x; i < 3 * C * kChunks; i += blockDim.x) {
+    const int row = i / kChunks, k = i - row * kChunks;
+    *reinterpret_cast<uint4*>(ws + row * (C + 8) + k * 8) = src[i];
+  }
+}
+
+// The td + 2 input planes d0 - 1 .. d0 + td of the halo tile, two channels
+// (one 32-bit word) per thread and item, positions fastest; zero outside the
+// volume.
+template <int C>
+__device__ __forceinline__ void stage_planes(const uint16_t* __restrict__ x, uint16_t* xs,
+                                             int n, int d0, int h0, int w0, const Tile& t) {
+  const int pw = t.tw + 2, pos = (t.th + 2) * pw, items = (t.td + 2) * pos;
+  const size_t hw = (size_t)t.H * t.W, cstride = (size_t)t.D * hw;
+  for (int i = threadIdx.x; i < items * (C / 2); i += blockDim.x) {
+    const int cp = i / items, r = i - cp * items;
+    const int p = r / pos, rr = r - p * pos;
+    const int hh = rr / pw, ww = rr - hh * pw;
+    const int din = d0 - 1 + p, h = h0 - 1 + hh, w = w0 - 1 + ww;
+    uint32_t v = 0;
+    if (din >= 0 && din < t.D && h >= 0 && h < t.H && w >= 0 && w < t.W) {
+      const uint16_t* src =
+          x + ((size_t)n * C + 2 * cp) * cstride + (size_t)din * hw + (size_t)h * t.W + w;
+      v = (uint32_t)src[0] | ((uint32_t)src[cstride] << 16);
+    }
+    *reinterpret_cast<uint32_t*>(xs + r * (C + 8) + 2 * cp) = v;
+  }
 }
 
 // bfloat16 values are moved as their 16-bit patterns (uint16_t); only the
 // tensor cores and the final cast interpret them.
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 conv3d_k3_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
-                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                      Geometry g) {
-  constexpr int LDX = C + 8;  // (C + 8) / 2 words per position: conflict-free A loads
-  constexpr int LDW = C + 8;  // and B loads
+                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, Tile t) {
+  constexpr int LDX = C + 8;
   constexpr int NT = C / 8;   // n-tiles of 8 output channels
   constexpr int KS = C / 16;  // k-steps of 16 input channels per tap
+  constexpr int MT = bf16_mtiles(C);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* xs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* ws = xs + kPos * LDX;  // kPos * LDX * 2 bytes is a multiple of 16
+  uint16_t* ws = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* xs = ws + 3 * C * LDX;  // 3 C (C + 8) * 2 bytes: a multiple of 16
 
-  const int n = blockIdx.z, d = blockIdx.y;
-  const int h0 = (blockIdx.x / g.tiles_w) * kTH, w0 = (blockIdx.x % g.tiles_w) * kTW;
+  const int pw = t.tw + 2, pos = (t.th + 2) * pw;
+  const int n = blockIdx.z, d0 = blockIdx.y * t.td;
+  const int h0 = (blockIdx.x / t.tiles_w) * t.th, w0 = (blockIdx.x % t.tiles_w) * t.tw;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
 
-  float acc[NT][4];
+  // A of m-tile i (depth d0 + i / g, positions 16 (warp g + i % g) onward):
+  // lane l gives position l % 16 at tap (0, 0, 0), channels 8 (l / 16) on
+  uint32_t a_addr[MT];
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[t][j] = 0.f;
+  for (int i = 0; i < MT; ++i) {
+    const int q = (warp * t.g + i % t.g) * 16 + (lane & 15);
+    const int qh = q / t.tw, qw = q - qh * t.tw;
+    a_addr[i] = smem_u32(xs + ((i / t.g) * pos + qh * pw + qw) * LDX + (lane >> 4) * 8);
+  }
+  // B of an n-tile pair: lane l gives output channel 8 (l / 16) + l % 8 of
+  // the pair, input channels 8 ((l / 8) % 2) on
+  const uint32_t b_addr =
+      smem_u32(ws + (((lane >> 4) << 3) + (lane & 7)) * LDX + ((lane >> 3) & 1) * 8);
 
-  for (int kd = 0; kd < 3; ++kd) {
-    const int din = d + kd - 1;
-    if (din < 0 || din >= g.D) continue;  // the same for the whole block
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  stage_planes<C>(x, xs, n, d0, h0, w0, t);
+  for (int q = 0; q < 9; ++q) {  // weight group q = (kd, kh)
+    const int kd = q / 3, kh = q - kd * 3;
+    __syncthreads();  // the planes are staged, the previous group consumed
+    stage_weight_group<C>(wt, ws, q);
     __syncthreads();
-    stage_plane<uint16_t, C, LDX>(x, xs, n, din, h0, w0, g, 0);
-    for (int kh = 0; kh < 3; ++kh) {
-      if (kh) __syncthreads();
-      stage_weights<uint16_t, C, LDW>(wt, ws, (kd * 3 + kh) * 3);
-      __syncthreads();
+    const uint32_t tap = (kd * pos + kh * pw) * LDX * 2;
 #pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        // A (16 voxels x 16 channels): lane l gives voxel (warp, l % 16) of the
-        // tile, shifted by the tap, channels k0 + 8 (l / 16)
-        const uint16_t* xa = xs + ((warp + kh) * kHW + (lane & 15) + kw) * LDX + (lane >> 4) * 8;
-        // B (16 channels x 2 n-tiles): lane l gives output channel
-        // 8 (l / 16) + l % 8 of the pair, input channels k0 + 8 ((l / 8) % 2)
-        const uint16_t* wb =
-            ws + (kw * C + ((lane >> 4) << 3) + (lane & 7)) * LDW + ((lane >> 3) & 1) * 8;
+    for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint32_t a[4];
-          ldsm_x4(a, xa + ks * 16);
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[MT][4], b[NT / 2][4];
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p)
+          ldsm_x4(b[p], b_addr + ((kw * C + 16 * p) * LDX + 16 * ks) * 2);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) ldsm_x4(a[i], a_addr[i] + tap + (kw * LDX + 16 * ks) * 2);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
           for (int p = 0; p < NT / 2; ++p) {
-            uint32_t b[4];
-            ldsm_x4(b, wb + p * 16 * LDW + ks * 16);
-            mma_bf16_16816(acc[2 * p], a[0], a[1], a[2], a[3], b[0], b[1]);
-            mma_bf16_16816(acc[2 * p + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+            mma_bf16_16816(acc[i][2 * p], a[i], b[p][0], b[p][1]);
+            mma_bf16_16816(acc[i][2 * p + 1], a[i], b[p][2], b[p][3]);
           }
-        }
       }
-    }
   }
 
-  // accumulator (t, j): voxel gid (j < 2) or gid + 8 (j >= 2), channel 8 t + 2 tig + (j & 1)
-  const int h = h0 + warp;
-  if (h >= g.H) return;
-  const size_t plane = (size_t)g.H * g.W;
+  // accumulator (i, j, e): position gid (e < 2) or gid + 8 (e >= 2) of the
+  // m-tile, channel 8 j + 2 tig + (e & 1)
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t hw = (size_t)t.H * t.W;
+  float bv[NT][2];
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int w = w0 + gid + (j >= 2 ? 8 : 0);
-      const int co = t * 8 + tig * 2 + (j & 1);
-      if (w < g.W) {
-        // round the sum, add the float32 bias, round again (a no-op without bias)
-        const float sum = __bfloat162float(__float2bfloat16(acc[t][j]));
-        const float b = bias ? bias[co] : 0.f;
-        y[(((size_t)n * C + co) * g.D + d) * plane + (size_t)h * g.W + w] =
-            dpt::from_f32<__nv_bfloat16>(sum + b);
-      }
+    for (int e = 0; e < 2; ++e) bv[j][e] = bias ? bias[8 * j + 2 * tig + e] : 0.f;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int d = d0 + i / t.g;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q = (warp * t.g + i % t.g) * 16 + gid + 8 * half;
+      const int qh = q / t.tw, h = h0 + qh, w = w0 + q - qh * t.tw;
+      if (d >= t.D || h >= t.H || w >= t.W) continue;
+      __nv_bfloat16* out = y + ((size_t)n * C * t.D + d) * hw + (size_t)h * t.W + w;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // round the sum, add the float32 bias, round again (a no-op without bias)
+          const float sum = __bfloat162float(__float2bfloat16(acc[i][j][2 * half + e]));
+          out[(size_t)(8 * j + 2 * tig + e) * t.D * hw] =
+              dpt::from_f32<__nv_bfloat16>(sum + bv[j][e]);
+        }
     }
+  }
 }
 
 template <int C>
-cudaError_t launch_c(const void* x, const void* wt, const float* bias, void* y, int N,
-                     const Geometry& g, int tiles, int dtype, cudaStream_t stream) {
-  const dim3 grid(tiles, g.D, N);
-  if (dtype == dpt::kFloat32) {
-    constexpr size_t smem = sizeof(float) * (kPos * (C + 1) + 3 * C * C);
-    auto kernel = conv3d_k3_f32_kernel<C>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(x),
-                                             static_cast<const float*>(wt), bias,
-                                             static_cast<float*>(y), g);
-    return cudaGetLastError();
-  }
-  if (dtype == dpt::kBFloat16) {
-    constexpr size_t smem = sizeof(uint16_t) * (kPos * (C + 8) + 3 * C * (C + 8));
-    auto kernel = conv3d_k3_bf16_kernel<C>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const uint16_t*>(x),
-                                             static_cast<const uint16_t*>(wt), bias,
-                                             static_cast<__nv_bfloat16*>(y), g);
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;
+cudaError_t launch_f32(const void* x, const void* wt, const float* bias, void* y, int N, int D,
+                       int H, int W, cudaStream_t stream) {
+  const int tiles_w = (W + kTW - 1) / kTW;
+  const long long tiles = (long long)((H + kTH - 1) / kTH) * tiles_w;
+  if (D > 65535 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const Geometry g{D, H, W, tiles_w};
+  constexpr size_t smem = sizeof(float) * (kPos * (C + 1) + 3 * C * C);
+  auto kernel = conv3d_k3_f32_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)tiles, D, N), kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wt), bias, static_cast<float*>(y),
+      g);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_bf16(const void* x, const void* wt, const float* bias, void* y, int N,
+                        Tile t, cudaStream_t stream) {
+  if (t.th <= 0 || t.tw <= 0 || t.tw % 8 || t.td <= 0 || t.g <= 0 ||
+      t.td * t.g != bf16_mtiles(C) || (t.th * t.tw) % (16 * t.g))
+    return cudaErrorInvalidValue;
+  const int warps = t.th * t.tw / (16 * t.g);
+  const long long smem = bf16_smem_bytes(C, t.th, t.tw, t.td);
+  t.tiles_w = (t.W + t.tw - 1) / t.tw;
+  const long long tiles = (long long)((t.H + t.th - 1) / t.th) * t.tiles_w;
+  const int depth_blocks = (t.D + t.td - 1) / t.td;
+  if (warps > kMaxWarps || smem > kMaxSmem || tiles > 0x7fffffffLL || depth_blocks > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = conv3d_k3_bf16_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)tiles, depth_blocks, N), warps * 32, (size_t)smem, stream>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(wt), bias,
+      static_cast<__nv_bfloat16*>(y), t);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, y: contiguous (N, C, D, H, W) tensors of one dtype; w: contiguous
 // weights in that dtype, (27, C_in, C_out) for float32 and (27, C_out, C_in)
-// for bfloat16, tap = kd * 9 + kh * 3 + kw; bias:
-// float32 (C,) or null. Returns the cudaError_t of the launch (0 on success).
+// for bfloat16, tap = kd * 9 + kh * 3 + kw; bias: float32 (C,) or null.
+// bfloat16 takes the tile (th, tw, td, g) that kernels/conv3d.py::plan
+// chooses; float32 ignores it. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int dpt_conv3d_k3_fwd(const void* x, const void* w, const float* bias, void* y,
-                                 int N, int C, int D, int H, int W, int dtype, void* stream) {
-  if (N <= 0 || N > 65535 || D <= 0 || D > 65535 || H <= 0 || W <= 0)
-    return cudaErrorInvalidValue;
-  const int tiles_w = (W + kTW - 1) / kTW;
-  const long long tiles = (long long)((H + kTH - 1) / kTH) * tiles_w;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const Geometry g{D, H, W, tiles_w};
+                                 int N, int C, int D, int H, int W, int dtype, int th, int tw,
+                                 int td, int g, void* stream) {
+  if (N <= 0 || N > 65535 || D <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dpt::kFloat32) {
+    switch (C) {
+      case 16: return launch_f32<16>(x, w, bias, y, N, D, H, W, s);
+      case 32: return launch_f32<32>(x, w, bias, y, N, D, H, W, s);
+      case 64: return launch_f32<64>(x, w, bias, y, N, D, H, W, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != dpt::kBFloat16) return cudaErrorInvalidValue;
+  const Tile t{D, H, W, th, tw, td, g, 0};
   switch (C) {
-    case 16: return launch_c<16>(x, w, bias, y, N, g, (int)tiles, dtype, s);
-    case 32: return launch_c<32>(x, w, bias, y, N, g, (int)tiles, dtype, s);
-    case 64: return launch_c<64>(x, w, bias, y, N, g, (int)tiles, dtype, s);
+    case 16: return launch_bf16<16>(x, w, bias, y, N, t, s);
+    case 32: return launch_bf16<32>(x, w, bias, y, N, t, s);
+    case 64: return launch_bf16<64>(x, w, bias, y, N, t, s);
     default: return cudaErrorInvalidValue;
   }
 }

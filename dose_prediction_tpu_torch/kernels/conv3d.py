@@ -21,6 +21,10 @@ differentiates its XLA reference (:156-182).
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -28,6 +32,66 @@ from dose_prediction_tpu_torch.kernels import cuda_lib
 from dose_prediction_tpu_torch.kernels.autograd import PlainBackward, needs_grad
 
 CHANNELS = (16, 32, 64)
+SMS = 132                  # the H100's streaming multiprocessors: the grid rule's card
+MAX_SMEM = 232_448         # dynamic shared memory one block can use
+MAX_WARPS = 12             # csrc/conv3d_k3.cu kMaxWarps
+MAX_TD = 1                 # output depths a block may take
+MTILES = {16: 8, 32: 4, 64: 2}   # 16-voxel m-tiles per warp (bf16_mtiles)
+
+
+class Tile(NamedTuple):
+    """A bf16 block's tile: ``th`` x ``tw`` output positions at ``td``
+    consecutive depths; each warp owns ``g`` groups of 16 positions at each
+    depth (``td * g`` m-tiles)."""
+    th: int
+    tw: int
+    td: int
+    g: int
+
+
+# bf16 tiles by C, in order of preference: larger blocks first, then the
+# 24-column tiles that cover W = 24 without waste, then smaller blocks
+TILES = {c: [Tile(*t) for t in tiles] for c, tiles in {
+    16: [(16, 16, 4, 2), (16, 16, 2, 4), (8, 16, 4, 2), (8, 8, 4, 2), (32, 32, 1, 8),
+         (16, 32, 1, 8), (16, 16, 1, 8), (8, 16, 1, 8)],
+    32: [(8, 16, 4, 1), (8, 24, 4, 1), (8, 24, 2, 2), (16, 16, 1, 4), (8, 16, 2, 2),
+         (8, 8, 2, 2), (8, 24, 1, 4), (4, 8, 2, 2), (8, 16, 1, 4), (8, 8, 1, 4)],
+    64: [(8, 16, 2, 1), (8, 24, 2, 1), (16, 16, 1, 2), (8, 24, 1, 2), (8, 8, 2, 1),
+         (8, 16, 1, 2), (4, 8, 2, 1), (8, 8, 1, 2), (4, 8, 1, 2)]}.items()}
+
+
+def smem_bytes(c: int, t: Tile) -> int:
+    """Shared memory of the bf16 kernel (bf16_smem_bytes): one weight group
+    of 3 taps and the ``td + 2`` halo planes, rows padded to C + 8."""
+    return 2 * (c + 8) * (3 * c + (t.td + 2) * (t.th + 2) * (t.tw + 2))
+
+
+def warps(t: Tile) -> int:
+    return t.th * t.tw // (16 * t.g)
+
+
+def grid(shape: tuple, t: Tile) -> tuple[int, int, int]:
+    """The launch grid: (h, w) tiles, depth blocks, samples."""
+    n, _, d, h, w = shape
+    return -(-h // t.th) * -(-w // t.tw), -(-d // t.td), n
+
+
+@functools.lru_cache(maxsize=None)
+def plan(shape: tuple, sms: int = SMS) -> Tile:
+    """The bf16 tile for an ``(N, C, D, H, W)`` input: the first of
+    ``TILES[C]`` that fits in shared memory, gives every SM at least two
+    blocks and pads the volume by at most 1/8 (W = 24 takes a 24-column
+    tile); where none does, the one that pads least."""
+    n, c, d, h, w = shape
+    fits = [t for t in TILES[c] if t.td <= MAX_TD and smem_bytes(c, t) <= MAX_SMEM]
+
+    def padded(t):
+        return -(-d // t.td) * t.td * -(-h // t.th) * t.th * -(-w // t.tw) * t.tw
+
+    for t in fits:
+        if math.prod(grid(shape, t)) >= 2 * sms and padded(t) * 8 <= d * h * w * 9:
+            return t
+    return min(fits, key=lambda t: (padded(t), -math.prod(grid(shape, t))))
 
 
 def plain_conv3d_k3(x: torch.Tensor, w: torch.Tensor,
@@ -67,10 +131,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.T
     x = x.contiguous()
     wt = pack_weights(w, x.dtype)
     bias = None if b is None else b.float().contiguous()
+    tile = plan(tuple(x.shape)) if x.dtype == torch.bfloat16 else Tile(0, 0, 0, 0)
     out = torch.empty_like(x)
     status = cuda_lib.library().dpt_conv3d_k3_fwd(
         x.data_ptr(), wt.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), n, c, d, h, wd, cuda_lib.DTYPE_CODES[x.dtype], cuda_lib.stream_of(x))
+        out.data_ptr(), n, c, d, h, wd, cuda_lib.DTYPE_CODES[x.dtype], *tile,
+        cuda_lib.stream_of(x))
     cuda_lib.check(status, "conv3d_k3")
     conv3d_k3.launches += 1
     return out

@@ -96,6 +96,81 @@ def test_packed_weights_give_the_convolution(rng, dtype):
     torch.testing.assert_close(got, k3.plain_conv3d_k3(xt, wt), rtol=1e-5, atol=1e-5)
 
 
+# every shape a bf16 serve_k3 request gives K3 (chip_smoke.K3_SHAPES), then
+# the ragged shapes of the card tests (tests/test_torch_port_cuda.py)
+SERVE_K3_SHAPES = [(1, 16, 128, 128, 128), (1, 32, 64, 64, 64), (1, 64, 32, 32, 32),
+                   (8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
+                   (8, 32, 24, 24, 24), (1, 32, 32, 32, 32)]
+RAGGED_SHAPES = [(2, 16, 5, 7, 13), (1, 32, 9, 10, 20), (1, 64, 4, 8, 16), (3, 16, 6, 17, 33),
+                 (1, 32, 6, 16, 24), (1, 16, 4, 8, 48), (1, 64, 1, 9, 12), (2, 32, 2, 13, 7),
+                 (8, 64, 3, 8, 16), (1, 16, 3, 33, 13)]
+
+
+@pytest.mark.parametrize("shape", SERVE_K3_SHAPES + RAGGED_SHAPES)
+def test_bf16_plan_fits_the_card(shape):
+    """The bf16 tile that ``plan`` chooses: a valid tile (tw a multiple of
+    8, td·g m-tiles a warp, whole warps, at most 12), shared memory within
+    the 232,448 bytes a block can use, grid dimensions within CUDA's
+    limits; at the serve_k3 shapes at least 2 blocks per SM on 132 SMs and
+    no padded column (W = 24 takes a 24-column tile)."""
+    n, c, d, h, w = shape
+    t = k3.plan(shape)
+    assert t.tw % 8 == 0 and t.td * t.g == k3.MTILES[c] and t.td <= k3.MAX_TD
+    assert (t.th * t.tw) % (16 * t.g) == 0 and 1 <= k3.warps(t) <= k3.MAX_WARPS
+    assert k3.smem_bytes(c, t) <= 232_448
+    gx, gy, gz = k3.grid(shape, t)
+    assert gx < 2 ** 31 and gy <= 65535 and gz <= 65535
+    if shape in SERVE_K3_SHAPES:
+        assert gx * gy * gz >= 2 * 132 and w % t.tw == 0 and h % t.th == 0 and d % t.td == 0
+
+
+def emulate_bf16_kernel(x: torch.Tensor, w: torch.Tensor, t) -> torch.Tensor:
+    """The bf16 kernel's index maths in float32: per block, the td + 2 halo
+    planes; per warp and m-tile, the 16 positions and their depth; per tap,
+    the shifted halo rows times the packed (27, C_out, C_in) weights."""
+    n, c, d, h, wd = x.shape
+    packed = k3.pack_weights(w, torch.bfloat16).float()
+    pad = torch.nn.functional.pad(x, (1, t.tw + 1, 1, t.th + 1, 1, t.td + 1))
+    y = torch.full_like(x, float("nan"))
+    tiles_w = -(-wd // t.tw)
+    gx, gy, gz = k3.grid(x.shape, t)
+    for bz in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                d0, h0, w0 = by * t.td, (bx // tiles_w) * t.th, (bx % tiles_w) * t.tw
+                planes = pad[bz, :, d0:d0 + t.td + 2, h0:h0 + t.th + 2, w0:w0 + t.tw + 2]
+                halo = planes.permute(1, 2, 3, 0).reshape(t.td + 2, -1, c)  # [plane][pos][c]
+                for warp in range(k3.warps(t)):
+                    for i in range(k3.MTILES[c]):
+                        q = torch.arange(16) + (warp * t.g + i % t.g) * 16
+                        qh, qw = q // t.tw, q % t.tw
+                        acc = torch.zeros(16, c)
+                        for tap in range(27):
+                            kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+                            rows = halo[i // t.g + kd, (qh + kh) * (t.tw + 2) + qw + kw]
+                            acc += rows @ packed[tap].T
+                        dd, hh, ww = d0 + i // t.g, h0 + qh, w0 + qw
+                        keep = (dd < d) & (hh < h) & (ww < wd)
+                        y[bz, :, dd, hh[keep], ww[keep]] = acc[keep].T
+    return y
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 3, 9, 13), (1, 32, 4, 8, 24), (2, 64, 3, 5, 12)])
+def test_bf16_tiling_covers_the_volume(rng, shape, monkeypatch):
+    """Every output voxel is written and equals the convolution (float32,
+    1e-5 relative and absolute), under the planned tile and under every
+    tile of TILES[C] that fits."""
+    n, c, d, h, w = shape
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    wt = torch.from_numpy((rng.standard_normal((c, c, 3, 3, 3)) * 0.2).astype(np.float32))
+    wt = wt.bfloat16().float()
+    want = k3.plain_conv3d_k3(x, wt)
+    tiles = {k3.plan(shape)} | {t for t in k3.TILES[c] if t.td <= k3.MAX_TD}
+    for t in sorted(tiles):
+        got = emulate_bf16_kernel(x, wt, t)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, msg=f"tile {t}")
+
+
 def _bf16_order(a: np.ndarray) -> np.ndarray:
     """bf16 values as integers in the order of the values: neighbouring
     bf16 numbers differ by 1, so a difference counts ulps."""

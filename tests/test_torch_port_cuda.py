@@ -241,20 +241,31 @@ def test_reduced_cascade_kernels_match_plain_on_card(card, monkeypatch):
     assert bool(torch.isfinite(dose_gy).all()) and bool((dose_gy[mask < 1] == 0).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape,bias", [((2, 16, 5, 7, 13), True), ((1, 32, 9, 10, 20), False),
-                                        ((1, 64, 4, 8, 16), True), ((3, 16, 6, 17, 33), True)])
-def test_conv3d_k3_kernel_matches_plain_on_card(card, shape, bias, dtype, monkeypatch):
-    """Ragged H and W (7, 13, 17, 33: not multiples of the 8 x 16 tile, W
-    not a multiple of 8), N up to 3, with and without bias. The plain
-    version's float32 convolution runs with TF32 off."""
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+# ragged H and W (7, 13, 17, 33: not multiples of a tile, W not a multiple
+# of 8), W = 24 and 48 (the bf16 tile's choice), D = 1 and 2 (the depth
+# edges), N up to 8 (8 at C = 64), with and without bias
+K3_CASES = [((2, 16, 5, 7, 13), True), ((1, 32, 9, 10, 20), False), ((1, 64, 4, 8, 16), True),
+            ((3, 16, 6, 17, 33), True), ((1, 32, 6, 16, 24), True), ((1, 16, 4, 8, 48), False),
+            ((1, 64, 1, 9, 12), True), ((2, 32, 2, 13, 7), True), ((8, 64, 3, 8, 16), True),
+            ((1, 16, 3, 33, 13), False)]
+
+
+def k3_inputs(card, shape, dtype, bias=True):
     c = shape[1]
     g = torch.Generator(card).manual_seed(0)
     x = torch.randn(shape, generator=g, device=card).to(dtype)
     w = (torch.rand((c, c, 3, 3, 3), generator=g, device=card) * 2 - 1) / (27 * c) ** 0.5
     b = torch.randn(c, generator=g, device=card) if bias else None
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,bias", K3_CASES)
+def test_conv3d_k3_kernel_matches_plain_on_card(card, shape, bias, dtype, monkeypatch):
+    """The plain version's float32 convolution runs with TF32 off."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, w, b = k3_inputs(card, shape, dtype, bias)
     n = k3.conv3d_k3.launches
     got = k3.conv3d_k3(x, w, b)
     torch.cuda.synchronize()
@@ -262,6 +273,40 @@ def test_conv3d_k3_kernel_matches_plain_on_card(card, shape, bias, dtype, monkey
     assert got.dtype == dtype and got.shape == x.shape
     want = k3.plain_conv3d_k3(x, w, b)
     assert (got.float() - want.float()).abs().max().item() <= tolerance(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv3d_k3_unaligned_view_on_card(card, dtype, monkeypatch):
+    """A contiguous view one element into its buffer: its data pointer is not
+    16-byte aligned."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    shape = (2, 32, 4, 16, 24)
+    x0, w, b = k3_inputs(card, shape, dtype)
+    buf = torch.empty(1 + x0.numel(), dtype=dtype, device=card)
+    buf[1:].copy_(x0.flatten())
+    x = buf[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got, want = k3.conv3d_k3(x, w, b), k3.plain_conv3d_k3(x, w, b)
+    assert (got.float() - want.float()).abs().max().item() <= tolerance(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv3d_k3_replays_from_a_cuda_graph(card, dtype):
+    """Captured in a CUDA graph and replayed, K3 gives what a direct call
+    gives."""
+    x, w, b = k3_inputs(card, (2, 32, 6, 16, 24), dtype)
+    want = k3.conv3d_k3(x, w, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k3.conv3d_k3(x, w, b)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
