@@ -147,6 +147,9 @@ constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use (H100
 // m-tiles of 16 voxels per warp: each B fragment feeds MT mma. 64 float32
 // accumulators per thread at every C.
 __host__ __device__ constexpr int bf16_mtiles(int C) { return C == 16 ? 8 : C == 32 ? 4 : 2; }
+// Weight groups (3 taps, 3 C (C + 8) bf16 each) held at once: all 9 at C =
+// 16 (21 KB), a ring of 3 at C = 32 (23 KB) and of 2 at C = 64 (55 KB).
+__host__ __device__ constexpr int bf16_ring(int C) { return C == 16 ? 9 : C == 32 ? 3 : 2; }
 
 // The block's tile: th x tw output positions (tw a multiple of 8) at td
 // consecutive output depths; each warp owns g groups of 16 consecutive
@@ -157,14 +160,15 @@ struct Tile {
   int th, tw, td, g, tiles_w;
 };
 
-// Shared memory: one weight group (the 3 kw taps of one (kd, kh), [kw][co][ci
-// + 8]) and the td + 2 input depth planes of the halo tile ([plane][pos][c +
+// Shared memory: a ring of weight groups (the 3 kw taps of one (kd, kh),
+// [kw][co][ci + 8]) and the td + 2 input depth planes of the halo tile ([plane][pos][c +
 // 8], pos = row * (tw + 2) + column). A row of C + 8 values is an odd number
 // of 16-byte units (3, 5 or 9), so the 8 rows of one ldmatrix matrix
 // (consecutive positions, or consecutive output channels) fall on distinct
 // banks.
 __host__ __device__ inline long long bf16_smem_bytes(int C, int th, int tw, int td) {
-  return 2LL * (C + 8) * (3LL * C + (long long)(td + 2) * (th + 2) * (tw + 2));
+  return 2LL * (C + 8) *
+         (3LL * C * bf16_ring(C) + (long long)(td + 2) * (th + 2) * (tw + 2));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -192,22 +196,103 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
         "f"(d[2]), "f"(d[3]));
 }
 
-// Weight group q (taps 3q .. 3q + 2 of the (27, C_out, C_in) weights) into
-// ws[(kw * C + co) * (C + 8) + ci], 16 bytes a thread at a time.
+// 16 bytes from global to shared memory without the registers (L2 only);
+// completion is waited for by commit group.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying weight group q (taps 3q .. 3q + 2 of the (27, C_out, C_in)
+// weights) into ws[(kw * C + co) * (C + 8) + ci], 16 bytes a copy.
 template <int C>
 __device__ __forceinline__ void stage_weight_group(const uint16_t* __restrict__ wt,
                                                    uint16_t* ws, int q) {
   constexpr int kChunks = C / 8;  // 16-byte chunks per row
-  const uint4* src = reinterpret_cast<const uint4*>(wt + (size_t)q * 3 * C * C);
+  const uint16_t* src = wt + (size_t)q * 3 * C * C;
   for (int i = threadIdx.x; i < 3 * C * kChunks; i += blockDim.x) {
     const int row = i / kChunks, k = i - row * kChunks;
-    *reinterpret_cast<uint4*>(ws + row * (C + 8) + k * 8) = src[i];
+    cp_async16(smem_u32(ws + row * (C + 8) + k * 8), src + i * 8);
   }
 }
 
-// The td + 2 input planes d0 - 1 .. d0 + td of the halo tile, two channels
-// (one 32-bit word) per thread and item, positions fastest; zero outside the
-// volume.
+// The td + 2 input planes d0 - 1 .. d0 + td of the halo tile with 16-byte
+// loads: x 16-byte aligned, W a multiple of 8 (so every 8-column chunk of a
+// row is aligned and lies wholly inside or outside the volume). Each item is
+// one row and one channel pair at one of tw / 8 + 2 column slots: the left
+// halo column (2-byte loads), the tw / 8 chunks (two 16-byte loads, 8
+// positions), the right halo column. Lane l takes channel pair l % (C / 2)
+// of row 4 b + s + S (l / (C / 2)) of a block of 4 rows (S = C / 16, s < S):
+// 8 positions apart is no bank offset at all, 2 (C = 16) or 4 (C = 32) rows
+// apart is the other half or quarter of the banks, so the 32 lanes' word
+// stores fall on 32 banks. Each thread keeps kBatch items' loads in flight
+// before it stores them. Zero outside the volume.
+template <int C>
+__device__ __forceinline__ void stage_planes_vec(const uint16_t* __restrict__ x, uint16_t* xs,
+                                                 int n, int d0, int h0, int w0, const Tile& t) {
+  constexpr int kBatch = 4, S = C / 16, LDX = C + 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int cp = lane % (C / 2), row_off = S * (lane / (C / 2));
+  const int pw = t.tw + 2, pos = (t.th + 2) * pw;
+  const int slots = t.tw / 8 + 2, row_blocks = (t.th + 5) / 4;
+  const int items = (t.td + 2) * row_blocks * slots * S;  // per lane
+  const size_t hw = (size_t)t.H * t.W, cstride = (size_t)t.D * hw;
+  const uint16_t* xc = x + ((size_t)n * C + 2 * cp) * cstride;
+  for (int r0 = warp; r0 < items; r0 += kBatch * warps) {
+    uint4 v0[kBatch], v1[kBatch];
+    int dst[kBatch], slot[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int r = r0 + b * warps;
+      const int sub = r % S, r2 = r / S;
+      const int k = r2 % slots, r3 = r2 / slots;
+      const int p = r3 % (t.td + 2), hh = (r3 / (t.td + 2)) * 4 + sub + row_off;
+      const int ww = k == 0 ? 0 : k == slots - 1 ? t.tw + 1 : 8 * k - 7;
+      const int din = d0 - 1 + p, h = h0 - 1 + hh, w = w0 - 1 + ww;
+      slot[b] = k == 0 || k == slots - 1 ? 0 : 1;
+      dst[b] = r < items && hh < t.th + 2 ? (p * pos + hh * pw + ww) * LDX + 2 * cp : -1;
+      v0[b] = v1[b] = make_uint4(0, 0, 0, 0);
+      if (dst[b] >= 0 && din >= 0 && din < t.D && h >= 0 && h < t.H && w >= 0 && w < t.W) {
+        const uint16_t* src = xc + (size_t)din * hw + (size_t)h * t.W + w;
+        if (slot[b]) {
+          v0[b] = __ldg(reinterpret_cast<const uint4*>(src));
+          v1[b] = __ldg(reinterpret_cast<const uint4*>(src + cstride));
+        } else {
+          v0[b].x = __ldg(src);
+          v1[b].x = __ldg(src + cstride);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (dst[b] < 0) continue;
+      uint32_t* out = reinterpret_cast<uint32_t*>(xs + dst[b]);
+      const uint32_t lo[4] = {v0[b].x, v0[b].y, v0[b].z, v0[b].w};
+      const uint32_t hi[4] = {v1[b].x, v1[b].y, v1[b].z, v1[b].w};
+      // word j: channel 2 cp of position j in the low half, 2 cp + 1 in the high
+      out[0] = __byte_perm(lo[0], hi[0], 0x5410);
+      if (slot[b]) {
+        out[LDX / 2] = __byte_perm(lo[0], hi[0], 0x7632);
+#pragma unroll
+        for (int j = 1; j < 4; ++j) {
+          out[LDX * j] = __byte_perm(lo[j], hi[j], 0x5410);
+          out[LDX * j + LDX / 2] = __byte_perm(lo[j], hi[j], 0x7632);
+        }
+      }
+    }
+  }
+}
+
+// The same planes with 2-byte loads, for tensors that are not 16-byte
+// aligned or whose rows are not: two channels (one 32-bit word) per item,
+// positions fastest.
 template <int C>
 __device__ __forceinline__ void stage_planes(const uint16_t* __restrict__ x, uint16_t* xs,
                                              int n, int d0, int h0, int w0, const Tile& t) {
@@ -230,17 +315,17 @@ __device__ __forceinline__ void stage_planes(const uint16_t* __restrict__ x, uin
 
 // bfloat16 values are moved as their 16-bit patterns (uint16_t); only the
 // tensor cores and the final cast interpret them.
-template <int C>
+template <int C, bool VEC>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 conv3d_k3_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
                       const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, Tile t) {
   constexpr int LDX = C + 8;
   constexpr int NT = C / 8;   // n-tiles of 8 output channels
   constexpr int KS = C / 16;  // k-steps of 16 input channels per tap
-  constexpr int MT = bf16_mtiles(C);
+  constexpr int MT = bf16_mtiles(C), RING = bf16_ring(C), GROUP = 3 * C * LDX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* ws = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* xs = ws + 3 * C * LDX;  // 3 C (C + 8) * 2 bytes: a multiple of 16
+  uint16_t* xs = ws + RING * GROUP;  // GROUP * 2 bytes: a multiple of 16
 
   const int pw = t.tw + 2, pos = (t.th + 2) * pw;
   const int n = blockIdx.z, d0 = blockIdx.y * t.td;
@@ -269,13 +354,29 @@ conv3d_k3_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  stage_planes<C>(x, xs, n, d0, h0, w0, t);
-  for (int q = 0; q < 9; ++q) {  // weight group q = (kd, kh)
+  // weight groups 0 .. RING - 2 in flight (one commit group each) while the
+  // planes are staged
+#pragma unroll
+  for (int q = 0; q < RING - 1; ++q) {
+    stage_weight_group<C>(wt, ws + q * GROUP, q);
+    cp_async_commit();
+  }
+  if (VEC)
+    stage_planes_vec<C>(x, xs, n, d0, h0, w0, t);
+  else
+    stage_planes<C>(x, xs, n, d0, h0, w0, t);
+  for (int q = 0; q < 9; ++q) {  // weight group q = (kd, kh), in ring slot q % RING
     const int kd = q / 3, kh = q - kd * 3;
-    __syncthreads();  // the planes are staged, the previous group consumed
-    stage_weight_group<C>(wt, ws, q);
+    // RING - 1 + q groups are committed: group q has landed when at most
+    // RING - 2 are in flight; the barrier makes every thread's copies and
+    // plane stores visible, and slot (q - 1) % RING free (group q - 1 consumed)
+    cp_async_wait<RING - 2>();
     __syncthreads();
+    const int next = q + RING - 1;
+    if (next < 9) stage_weight_group<C>(wt, ws + next % RING * GROUP, next);
+    cp_async_commit();  // possibly empty: one commit per iteration keeps the count
     const uint32_t tap = (kd * pos + kh * pw) * LDX * 2;
+    const uint32_t b_slot = b_addr + (q % RING) * GROUP * 2;
 #pragma unroll
     for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
@@ -283,7 +384,7 @@ conv3d_k3_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict
         uint32_t a[MT][4], b[NT / 2][4];
 #pragma unroll
         for (int p = 0; p < NT / 2; ++p)
-          ldsm_x4(b[p], b_addr + ((kw * C + 16 * p) * LDX + 16 * ks) * 2);
+          ldsm_x4(b[p], b_slot + ((kw * C + 16 * p) * LDX + 16 * ks) * 2);
 #pragma unroll
         for (int i = 0; i < MT; ++i) ldsm_x4(a[i], a_addr[i] + tap + (kw * LDX + 16 * ks) * 2);
 #pragma unroll
@@ -347,7 +448,7 @@ cudaError_t launch_f32(const void* x, const void* wt, const float* bias, void* y
 
 template <int C>
 cudaError_t launch_bf16(const void* x, const void* wt, const float* bias, void* y, int N,
-                        Tile t, cudaStream_t stream) {
+                        Tile t, bool vec, cudaStream_t stream) {
   if (t.th <= 0 || t.tw <= 0 || t.tw % 8 || t.td <= 0 || t.g <= 0 ||
       t.td * t.g != bf16_mtiles(C) || (t.th * t.tw) % (16 * t.g))
     return cudaErrorInvalidValue;
@@ -358,7 +459,7 @@ cudaError_t launch_bf16(const void* x, const void* wt, const float* bias, void* 
   const int depth_blocks = (t.D + t.td - 1) / t.td;
   if (warps > kMaxWarps || smem > kMaxSmem || tiles > 0x7fffffffLL || depth_blocks > 65535)
     return cudaErrorInvalidValue;
-  auto kernel = conv3d_k3_bf16_kernel<C>;
+  auto kernel = vec ? conv3d_k3_bf16_kernel<C, true> : conv3d_k3_bf16_kernel<C, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -374,11 +475,12 @@ cudaError_t launch_bf16(const void* x, const void* wt, const float* bias, void* 
 // weights in that dtype, (27, C_in, C_out) for float32 and (27, C_out, C_in)
 // for bfloat16, tap = kd * 9 + kh * 3 + kw; bias: float32 (C,) or null.
 // bfloat16 takes the tile (th, tw, td, g) that kernels/conv3d.py::plan
-// chooses; float32 ignores it. Returns the cudaError_t of the launch (0 on
+// chooses, and vec = 1 where x is 16-byte aligned and W % 8 == 0 (16-byte
+// loads of the halo); float32 ignores them. Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int dpt_conv3d_k3_fwd(const void* x, const void* w, const float* bias, void* y,
                                  int N, int C, int D, int H, int W, int dtype, int th, int tw,
-                                 int td, int g, void* stream) {
+                                 int td, int g, int vec, void* stream) {
   if (N <= 0 || N > 65535 || D <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dpt::kFloat32) {
@@ -392,9 +494,9 @@ extern "C" int dpt_conv3d_k3_fwd(const void* x, const void* w, const float* bias
   if (dtype != dpt::kBFloat16) return cudaErrorInvalidValue;
   const Tile t{D, H, W, th, tw, td, g, 0};
   switch (C) {
-    case 16: return launch_bf16<16>(x, w, bias, y, N, t, s);
-    case 32: return launch_bf16<32>(x, w, bias, y, N, t, s);
-    case 64: return launch_bf16<64>(x, w, bias, y, N, t, s);
+    case 16: return launch_bf16<16>(x, w, bias, y, N, t, vec != 0, s);
+    case 32: return launch_bf16<32>(x, w, bias, y, N, t, vec != 0, s);
+    case 64: return launch_bf16<64>(x, w, bias, y, N, t, vec != 0, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -37,6 +37,7 @@ MAX_SMEM = 232_448         # dynamic shared memory one block can use
 MAX_WARPS = 12             # csrc/conv3d_k3.cu kMaxWarps
 MAX_TD = 1                 # output depths a block may take
 MTILES = {16: 8, 32: 4, 64: 2}   # 16-voxel m-tiles per warp (bf16_mtiles)
+RING = {16: 9, 32: 3, 64: 2}     # weight groups of 3 taps held at once (bf16_ring)
 
 
 class Tile(NamedTuple):
@@ -52,8 +53,8 @@ class Tile(NamedTuple):
 # bf16 tiles by C, in order of preference: larger blocks first, then the
 # 24-column tiles that cover W = 24 without waste, then smaller blocks
 TILES = {c: [Tile(*t) for t in tiles] for c, tiles in {
-    16: [(16, 16, 4, 2), (16, 16, 2, 4), (8, 16, 4, 2), (8, 8, 4, 2), (32, 32, 1, 8),
-         (16, 32, 1, 8), (16, 16, 1, 8), (8, 16, 1, 8)],
+    16: [(16, 16, 4, 2), (16, 16, 2, 4), (8, 16, 4, 2), (8, 8, 4, 2), (16, 32, 1, 8),
+         (32, 32, 1, 8), (16, 16, 1, 8), (8, 16, 1, 8)],
     32: [(8, 16, 4, 1), (8, 24, 4, 1), (8, 24, 2, 2), (16, 16, 1, 4), (8, 16, 2, 2),
          (8, 8, 2, 2), (8, 24, 1, 4), (4, 8, 2, 2), (8, 16, 1, 4), (8, 8, 1, 4)],
     64: [(8, 16, 2, 1), (8, 24, 2, 1), (16, 16, 1, 2), (8, 24, 1, 2), (8, 8, 2, 1),
@@ -61,9 +62,10 @@ TILES = {c: [Tile(*t) for t in tiles] for c, tiles in {
 
 
 def smem_bytes(c: int, t: Tile) -> int:
-    """Shared memory of the bf16 kernel (bf16_smem_bytes): one weight group
-    of 3 taps and the ``td + 2`` halo planes, rows padded to C + 8."""
-    return 2 * (c + 8) * (3 * c + (t.td + 2) * (t.th + 2) * (t.tw + 2))
+    """Shared memory of the bf16 kernel (bf16_smem_bytes): a ring of
+    ``RING[c]`` weight groups of 3 taps and the ``td + 2`` halo planes, rows
+    padded to C + 8."""
+    return 2 * (c + 8) * (3 * c * RING[c] + (t.td + 2) * (t.th + 2) * (t.tw + 2))
 
 
 def warps(t: Tile) -> int:
@@ -132,10 +134,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.T
     wt = pack_weights(w, x.dtype)
     bias = None if b is None else b.float().contiguous()
     tile = plan(tuple(x.shape)) if x.dtype == torch.bfloat16 else Tile(0, 0, 0, 0)
+    # 16-byte halo loads need an aligned tensor and rows of whole 16-byte chunks
+    vector = x.data_ptr() % 16 == 0 and wd % 8 == 0
     out = torch.empty_like(x)
     status = cuda_lib.library().dpt_conv3d_k3_fwd(
         x.data_ptr(), wt.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), n, c, d, h, wd, cuda_lib.DTYPE_CODES[x.dtype], *tile,
+        out.data_ptr(), n, c, d, h, wd, cuda_lib.DTYPE_CODES[x.dtype], *tile, int(vector),
         cuda_lib.stream_of(x))
     cuda_lib.check(status, "conv3d_k3")
     conv3d_k3.launches += 1

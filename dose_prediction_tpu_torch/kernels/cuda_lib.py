@@ -38,8 +38,8 @@ _SIGNATURES = {
     "dpt_instance_norm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
     # dtype, vector, chunk (out), resident blocks (out)
     "dpt_instance_norm_capacity": (_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
-    # x, w, bias, y, N, C, D, H, W, dtype, th, tw, td, g (the bf16 tile), stream
-    "dpt_conv3d_k3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, y, N, C, D, H, W, dtype, th, tw, td, g (the bf16 tile), vector, stream
+    "dpt_conv3d_k3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
