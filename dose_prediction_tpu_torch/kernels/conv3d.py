@@ -35,7 +35,7 @@ CHANNELS = (16, 32, 64)
 SMS = 132                  # the H100's streaming multiprocessors: the grid rule's card
 MAX_SMEM = 232_448         # dynamic shared memory one block can use
 MAX_WARPS = 12             # csrc/conv3d_k3.cu kMaxWarps
-MAX_TD = 1                 # output depths a block may take
+MAX_TD = 8                 # output depths a block may take
 MTILES = {16: 8, 32: 4, 64: 2}   # 16-voxel m-tiles per warp (bf16_mtiles)
 RING = {16: 9, 32: 3, 64: 2}     # weight groups of 3 taps held at once (bf16_ring)
 

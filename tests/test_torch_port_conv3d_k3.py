@@ -77,13 +77,13 @@ def test_conv3d_k3_matches_pallas(rng, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_packed_weights_give_the_convolution(rng, dtype):
+def test_packed_weights_give_the_convolution(dtype):
     """The kernel's weight layout (``pack_weights``: (27, C_out, C_in) for
     bfloat16, (27, C_in, C_out) for float32) as the plain implicit GEMM it
     feeds: an einsum of the packed taps with the 27 shifted inputs is the
     convolution, in float32 to 1e-5 relative and absolute (outputs reach
     about 10; the weights are bf16 values, so the packing is exact)."""
-    x, w, _ = conv_inputs(rng, (2, 5, 6, 7, 16))
+    x, w, _ = conv_inputs(np.random.default_rng(1), (2, 5, 6, 7, 16))
     xt, wt = ncdhw(x), torch_weight(w).bfloat16().float()
     packed = k3.pack_weights(wt, dtype)
     assert packed.dtype == dtype and packed.shape == (27, 16, 16)
@@ -150,17 +150,20 @@ def emulate_bf16_kernel(x: torch.Tensor, w: torch.Tensor, t) -> torch.Tensor:
                             rows = halo[i // t.g + kd, (qh + kh) * (t.tw + 2) + qw + kw]
                             acc += rows @ packed[tap].T
                         dd, hh, ww = d0 + i // t.g, h0 + qh, w0 + qw
-                        keep = (dd < d) & (hh < h) & (ww < wd)
-                        y[bz, :, dd, hh[keep], ww[keep]] = acc[keep].T
+                        keep = (hh < h) & (ww < wd)
+                        if dd < d:
+                            y[bz, :, dd, hh[keep], ww[keep]] = acc[keep].T
     return y
 
 
 @pytest.mark.parametrize("shape", [(1, 16, 3, 9, 13), (1, 32, 4, 8, 24), (2, 64, 3, 5, 12)])
-def test_bf16_tiling_covers_the_volume(rng, shape, monkeypatch):
+def test_bf16_tiling_covers_the_volume(shape):
     """Every output voxel is written and equals the convolution (float32,
-    1e-5 relative and absolute), under the planned tile and under every
-    tile of TILES[C] that fits."""
+    to 1e-5 of the largest output: the sums of up to 1728 products reach
+    about 30 and differ from the plain version's in summation order), under
+    the planned tile and under every tile of TILES[C] that fits."""
     n, c, d, h, w = shape
+    rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     wt = torch.from_numpy((rng.standard_normal((c, c, 3, 3, 3)) * 0.2).astype(np.float32))
     wt = wt.bfloat16().float()
@@ -168,7 +171,8 @@ def test_bf16_tiling_covers_the_volume(rng, shape, monkeypatch):
     tiles = {k3.plan(shape)} | {t for t in k3.TILES[c] if t.td <= k3.MAX_TD}
     for t in sorted(tiles):
         got = emulate_bf16_kernel(x, wt, t)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, msg=f"tile {t}")
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), f"tile {t}: max abs err {err}"
 
 
 def _bf16_order(a: np.ndarray) -> np.ndarray:
