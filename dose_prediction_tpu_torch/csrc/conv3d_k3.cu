@@ -17,22 +17,52 @@
 // card's 295), 864 and 1728 at C = 32 and 64 (operations bound). In float32
 // the non-tensor 67 TFLOP/s bound it at every C.
 //
-// Design (an implicit GEMM, simple first): M is a tile of 8 x 16 output
-// voxels of one (n, d) row, N is the C output channels, K is 27 * C. A block
-// stages one input depth plane of the tile with its halo, (8+2) x (16+2)
-// positions x C channels, channels innermost, in shared memory, then the
-// weights of the three kw taps of one (kd, kh) at a time: all 27 taps do not
-// fit at C = 64 (221 KB in bfloat16, twice that in float32), three take at
-// most 27 KB (bf16) or 49 KB (f32). Depth planes outside the volume are
-// skipped (they add zeros).
-// - bfloat16: the products run on the tensor cores with mma.sync m16n8k16
-//   (bf16 in, float32 accumulate). Warp i owns output row i of the tile, one
-//   16-voxel m-tile, and all C / 8 n-tiles. Rows of both tiles are padded by
-//   8 elements so that the fragment loads hit distinct banks.
-// - float32: plain FMAs in full float32 (no TF32), so the result matches the
-//   plain version up to summation order. Thread t owns voxel t % 128 and half
-//   of the output channels; weight rows are read as float4 broadcasts.
-// No wgmma, TMA or pipelining yet: staging and compute alternate.
+// Design: an implicit GEMM. M is the output voxels, N the C output channels,
+// K is 27 * C (27 taps of C input channels).
+// - float32 (simple first, unchanged since its port): a block computes 8 x 16
+//   voxels of one (n, d) row. It stages one input depth plane with its halo,
+//   10 x 18 positions x C, channels innermost, then the three kw taps of one
+//   (kd, kh) at a time (49 KB at most), and alternates staging and compute.
+//   Plain FMAs in full float32 (no TF32), so the result matches the plain
+//   version up to summation order: thread t owns voxel t % 128 and half of
+//   the output channels; weight rows are read as float4 broadcasts.
+// - bfloat16, on the tensor cores (mma.sync m16n8k16, bf16 in, float32
+//   accumulate):
+//   * Tile. A block takes th x tw output positions of one sample at td
+//     consecutive depths; kernels/conv3d.py::plan chooses (th, tw, td, g) by
+//     shape from a short list (tw a multiple of 8; 8 x 24 at W = 24, so
+//     nothing is masked off there). Warp w owns g groups of 16 consecutive
+//     positions of the tile at each of the td depths: MT = td * g m-tiles
+//     (8, 4, 2 at C = 16, 32, 64) and all C / 8 n-tiles, 64 float32
+//     accumulators a thread. The m-tiles' rows are shared-memory positions,
+//     so an m-tile may span two rows of the tile.
+//   * Fragments. Both come from ldmatrix.x4: A (16 positions x 16 channels)
+//     from the halo planes, each lane giving one position's row shifted by
+//     the tap; B (16 input channels x two n-tiles) from the weights, packed
+//     (27, C_out, C_in) by the wrapper so that input channels are
+//     contiguous. Each B fragment feeds MT mma; per k-step a warp issues
+//     C / 16 + MT ldmatrix for MT * C / 8 mma.
+//   * Staging. The td + 2 input planes of the halo, (th + 2) x (tw + 2)
+//     positions x (C + 8) channels each, are staged once a block with
+//     16-byte loads along w (four items in flight a thread, word stores on
+//     32 banks), or with 2-byte loads where x is not 16-byte aligned or W
+//     is not a multiple of 8 (a second instantiation, chosen before the
+//     launch). The weights move in groups of the three kw taps of one (kd,
+//     kh), by 16-byte cp.async into a ring of slots ([kw][co][ci + 8]): all
+//     nine groups at C = 16, three slots at C = 32, two at C = 64 (21, 23 and
+//     55 KB); a group is in flight while the halo is staged and while the
+//     previous group computes. Each group and plane is staged once a block.
+//     Rows padded to C + 8 are an odd number of 16-byte units, so
+//     ldmatrix's rows fall on distinct banks. Shared memory a block, at the
+//     serve shapes' tiles: 114 KB at C = 16 (16 x 16 x 4), 106-109 KB at
+//     C = 32, 159-205 KB at C = 64.
+//   * What bounds it: at C >= 32 the shared-memory reads that feed the mma
+//     (A loads grow with MT, B with C) and the halo staging, which is not
+//     overlapped with the block's own compute; at C = 16, which is about
+//     even between bytes and operations, the halo staging, which reads 1.9
+//     times the input from L2.
+//   Not done: wgmma, TMA, warp specialisation, and overlapping the halo of
+//   the next depths with compute.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -141,12 +171,15 @@ conv3d_k3_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 
 // ---- bfloat16 ----
 
-constexpr int kMaxWarps = 12;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use (H100)
 
 // m-tiles of 16 voxels per warp: each B fragment feeds MT mma. 64 float32
 // accumulators per thread at every C.
 __host__ __device__ constexpr int bf16_mtiles(int C) { return C == 16 ? 8 : C == 32 ? 4 : 2; }
+// Warps a block may have: at most 8 at C = 16 and 32, so that two blocks'
+// registers (at most 128 a thread) fit on one SM beside their shared memory;
+// 12 at C = 64, whose tiles leave room for one block an SM.
+__host__ __device__ constexpr int bf16_max_warps(int C) { return C == 64 ? 12 : 8; }
 // Weight groups (3 taps, 3 C (C + 8) bf16 each) held at once: all 9 at C =
 // 16 (21 KB), a ring of 3 at C = 32 (23 KB) and of 2 at C = 64 (55 KB).
 __host__ __device__ constexpr int bf16_ring(int C) { return C == 16 ? 9 : C == 32 ? 3 : 2; }
@@ -316,7 +349,7 @@ __device__ __forceinline__ void stage_planes(const uint16_t* __restrict__ x, uin
 // bfloat16 values are moved as their 16-bit patterns (uint16_t); only the
 // tensor cores and the final cast interpret them.
 template <int C, bool VEC>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(bf16_max_warps(C) * 32, C == 64 ? 1 : 2)
 conv3d_k3_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
                       const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, Tile t) {
   constexpr int LDX = C + 8;
@@ -457,7 +490,7 @@ cudaError_t launch_bf16(const void* x, const void* wt, const float* bias, void* 
   t.tiles_w = (t.W + t.tw - 1) / t.tw;
   const long long tiles = (long long)((t.H + t.th - 1) / t.th) * t.tiles_w;
   const int depth_blocks = (t.D + t.td - 1) / t.td;
-  if (warps > kMaxWarps || smem > kMaxSmem || tiles > 0x7fffffffLL || depth_blocks > 65535)
+  if (warps > bf16_max_warps(C) || smem > kMaxSmem || tiles > 0x7fffffffLL || depth_blocks > 65535)
     return cudaErrorInvalidValue;
   auto kernel = vec ? conv3d_k3_bf16_kernel<C, true> : conv3d_k3_bf16_kernel<C, false>;
   cudaError_t err =

@@ -13,6 +13,19 @@ C = 16); bfloat16 runs on the tensor cores, float32 in full-precision FMAs.
 The TPU kernel's banded weights, 128-lane packing, ``W % (128 // C)``
 restriction and per-sample loop are not carried over: any N, D, H and W.
 
+The bfloat16 kernel is an implicit GEMM on ``mma.sync`` whose fragments
+come from ``ldmatrix``: ``pack_weights`` lays the weights out
+``(27, C_out, C_in)`` so that B's input channels are contiguous, and
+``plan`` chooses each call's tile (``Tile``: rows, columns, output depths,
+16-position groups a warp) by shape from ``TILES``. A block stages its
+``td + 2`` halo planes once, with 16-byte loads where the tensor is 16-byte
+aligned and W is a multiple of 8 (else a 2-byte-load instantiation), and
+its weights once, by ``cp.async`` into a ring of 3-tap groups. Shared
+memory: ``smem_bytes`` (106-205 KB at the serve shapes). At C ≥ 32 the
+shared-memory reads that feed the tensor cores and the unoverlapped halo
+staging bound it, at C = 16 the halo staging; ``wgmma``, TMA and warp
+specialisation are not used. csrc/conv3d_k3.cu gives the design.
+
 ``plain_conv3d_k3`` is the same function in PyTorch: a float32 convolution
 rounded to the input dtype, plus the float32 bias, rounded again. On a card path only the
 backward recomputes it (kernels/autograd.py), as the JAX custom VJP
@@ -34,8 +47,7 @@ from dose_prediction_tpu_torch.kernels.autograd import PlainBackward, needs_grad
 CHANNELS = (16, 32, 64)
 SMS = 132                  # the H100's streaming multiprocessors: the grid rule's card
 MAX_SMEM = 232_448         # dynamic shared memory one block can use
-MAX_WARPS = 12             # csrc/conv3d_k3.cu kMaxWarps
-MAX_TD = 8                 # output depths a block may take
+MAX_WARPS = {16: 8, 32: 8, 64: 12}   # csrc/conv3d_k3.cu bf16_max_warps
 MTILES = {16: 8, 32: 4, 64: 2}   # 16-voxel m-tiles per warp (bf16_mtiles)
 RING = {16: 9, 32: 3, 64: 2}     # weight groups of 3 taps held at once (bf16_ring)
 
@@ -51,12 +63,13 @@ class Tile(NamedTuple):
 
 
 # bf16 tiles by C, in order of preference: larger blocks first, then the
-# 24-column tiles that cover W = 24 without waste, then smaller blocks
+# 24-column tiles that cover W = 24 without waste, then smaller blocks (the
+# order of the times bench_k3.py --tiles measured at the serve_k3 shapes)
 TILES = {c: [Tile(*t) for t in tiles] for c, tiles in {
     16: [(16, 16, 4, 2), (16, 16, 2, 4), (8, 16, 4, 2), (8, 8, 4, 2), (16, 32, 1, 8),
          (32, 32, 1, 8), (16, 16, 1, 8), (8, 16, 1, 8)],
-    32: [(8, 16, 4, 1), (8, 24, 4, 1), (8, 24, 2, 2), (16, 16, 1, 4), (8, 16, 2, 2),
-         (8, 8, 2, 2), (8, 24, 1, 4), (4, 8, 2, 2), (8, 16, 1, 4), (8, 8, 1, 4)],
+    32: [(8, 16, 4, 1), (8, 24, 2, 2), (8, 16, 2, 2), (16, 16, 1, 4), (8, 8, 2, 2),
+         (8, 24, 1, 4), (4, 8, 2, 2), (8, 16, 1, 4), (8, 8, 1, 4)],
     64: [(8, 16, 2, 1), (8, 24, 2, 1), (16, 16, 1, 2), (8, 24, 1, 2), (8, 8, 2, 1),
          (8, 16, 1, 2), (4, 8, 2, 1), (8, 8, 1, 2), (4, 8, 1, 2)]}.items()}
 
@@ -81,17 +94,21 @@ def grid(shape: tuple, t: Tile) -> tuple[int, int, int]:
 @functools.lru_cache(maxsize=None)
 def plan(shape: tuple, sms: int = SMS) -> Tile:
     """The bf16 tile for an ``(N, C, D, H, W)`` input: the first of
-    ``TILES[C]`` that fits in shared memory, gives every SM at least two
-    blocks and pads the volume by at most 1/8 (W = 24 takes a 24-column
-    tile); where none does, the one that pads least."""
+    ``TILES[C]`` that fits in shared memory, pads the volume by at most 1/8
+    (W = 24 takes a 24-column tile) and gives at least half as many blocks
+    as the card has SMs; where none does, the one that pads least. Every
+    block stages all 27 taps (27·C·C weights), so a larger block that
+    leaves SMs idle beats smaller ones that fill them: at (1,64,32³) 128
+    blocks of 8×16×2 voxels take 0.034 ms, 512 of 4×8×2 take 0.061 ms on an
+    H100 (``bench_k3.py --tiles``)."""
     n, c, d, h, w = shape
-    fits = [t for t in TILES[c] if t.td <= MAX_TD and smem_bytes(c, t) <= MAX_SMEM]
+    fits = [t for t in TILES[c] if smem_bytes(c, t) <= MAX_SMEM]
 
     def padded(t):
         return -(-d // t.td) * t.td * -(-h // t.th) * t.th * -(-w // t.tw) * t.tw
 
     for t in fits:
-        if math.prod(grid(shape, t)) >= 2 * sms and padded(t) * 8 <= d * h * w * 9:
+        if 2 * math.prod(grid(shape, t)) >= sms and padded(t) * 8 <= d * h * w * 9:
             return t
     return min(fits, key=lambda t: (padded(t), -math.prod(grid(shape, t))))
 
