@@ -19,7 +19,7 @@
 //
 // Design: an implicit GEMM. M is the output voxels, N the C output channels,
 // K is 27 * C (27 taps of C input channels).
-// - float32 (simple first, unchanged since its port): a block computes 8 x 16
+// - float32 (simple first): a block computes 8 x 16
 //   voxels of one (n, d) row. It stages one input depth plane with its halo,
 //   10 x 18 positions x C, channels innermost, then the three kw taps of one
 //   (kd, kh) at a time (49 KB at most), and alternates staging and compute.
@@ -81,15 +81,15 @@ struct Geometry {
 
 // One input depth plane of the block's halo tile, channels innermost:
 // xs[pos * LDX + c]. Positions outside the volume are zero.
-template <typename S, int C, int LDX>
-__device__ __forceinline__ void stage_plane(const S* __restrict__ x, S* xs, int n, int din,
-                                            int h0, int w0, const Geometry& g, S zero) {
+template <int C, int LDX>
+__device__ __forceinline__ void stage_plane(const float* __restrict__ x, float* xs, int n,
+                                            int din, int h0, int w0, const Geometry& g) {
   const size_t plane = (size_t)g.H * g.W;
   for (int i = threadIdx.x; i < C * kPos; i += kThreads) {
     const int c = i / kPos, r = i - c * kPos;
     const int hh = r / kHW, ww = r - hh * kHW;
     const int h = h0 + hh - 1, w = w0 + ww - 1;
-    S v = zero;
+    float v = 0.f;
     if (h >= 0 && h < g.H && w >= 0 && w < g.W)
       v = x[(((size_t)n * C + c) * g.D + din) * plane + (size_t)h * g.W + w];
     xs[r * LDX + c] = v;
@@ -98,9 +98,9 @@ __device__ __forceinline__ void stage_plane(const S* __restrict__ x, S* xs, int 
 
 // The three kw taps of one (kd, kh): ws[(kw * C + ci) * LDW + co] from the
 // (27, C_in, C_out) weights, tap = (kd * 3 + kh) * 3 + kw.
-template <typename S, int C, int LDW>
-__device__ __forceinline__ void stage_weights(const S* __restrict__ wt, S* ws, int tap0) {
-  const S* src = wt + (size_t)tap0 * C * C;
+template <int C, int LDW>
+__device__ __forceinline__ void stage_weights(const float* __restrict__ wt, float* ws, int tap0) {
+  const float* src = wt + (size_t)tap0 * C * C;
   for (int i = threadIdx.x; i < 3 * C * C; i += kThreads) {
     const int row = i / C, co = i - row * C;  // row = kw * C + ci
     ws[row * LDW + co] = src[i];
@@ -131,10 +131,10 @@ conv3d_k3_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     const int din = d + kd - 1;
     if (din < 0 || din >= g.D) continue;  // the same for the whole block
     __syncthreads();                      // the previous plane and weights are consumed
-    stage_plane<float, C, LDX>(x, xs, n, din, h0, w0, g, 0.f);
+    stage_plane<C, LDX>(x, xs, n, din, h0, w0, g);
     for (int kh = 0; kh < 3; ++kh) {
       if (kh) __syncthreads();
-      stage_weights<float, C, LDW>(wt, ws, (kd * 3 + kh) * 3);
+      stage_weights<C, LDW>(wt, ws, (kd * 3 + kh) * 3);
       __syncthreads();
 #pragma unroll
       for (int kw = 0; kw < 3; ++kw) {
