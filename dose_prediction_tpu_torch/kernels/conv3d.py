@@ -92,7 +92,7 @@ def grid(shape: tuple, t: Tile) -> tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(shape: tuple, sms: int = SMS) -> Tile:
+def plan(shape: tuple) -> Tile:
     """The bf16 tile for an ``(N, C, D, H, W)`` input: the first of
     ``TILES[C]`` that fits in shared memory, pads the volume by at most 1/8
     (W = 24 takes a 24-column tile) and gives at least half as many blocks
@@ -108,7 +108,7 @@ def plan(shape: tuple, sms: int = SMS) -> Tile:
         return -(-d // t.td) * t.td * -(-h // t.th) * t.th * -(-w // t.tw) * t.tw
 
     for t in fits:
-        if 2 * math.prod(grid(shape, t)) >= sms and padded(t) * 8 <= d * h * w * 9:
+        if 2 * math.prod(grid(shape, t)) >= SMS and padded(t) * 8 <= d * h * w * 9:
             return t
     return min(fits, key=lambda t: (padded(t), -math.prod(grid(shape, t))))
 
