@@ -13,7 +13,8 @@ layers cast their float32 params to the compute dtype. The bias is added as
 the JAX package adds it (ops/conv.py:45-59, :307-309, :327-329): in float32
 cuDNN takes it; in bfloat16 the convolution runs without it, rounding its sum
 to bf16, and the float32 bias is then added in place, in float32 with one
-rounding (one extra pass over each biased bf16 output).
+rounding (one extra pass over each biased bf16 output). Its gradient is the
+cotangent summed in float32, as JAX differentiates its float32 add.
 """
 
 from __future__ import annotations
@@ -27,13 +28,29 @@ from dose_prediction_tpu_torch.kernels import conv3d as k3
 METHODS = ("auto", "k3")
 
 
+class _AddBiasF32(torch.autograd.Function):
+    """``y.add_(b)`` in place: a low-precision ``y`` plus a float32 ``b``,
+    computed in float32 and rounded once. The backward sums the bias
+    gradient in float32 (the in-place add's own backward would sum it in
+    ``y``'s dtype)."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.mark_dirty(y)
+        return y.add_(b.view(1, -1, 1, 1, 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g.float().sum((0, 2, 3, 4)) if ctx.needs_input_grad[1] else None
+
+
 def _biased(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
             **kwargs) -> torch.Tensor:
     """``conv(x, w, b)`` in float32; in other dtypes the sum rounded to
     ``x.dtype`` plus the float32 bias, rounded again."""
     if b is None or x.dtype == torch.float32:
         return conv(x, w, b, **kwargs)
-    return conv(x, w, None, **kwargs).add_(b.float().view(1, -1, 1, 1, 1))
+    return _AddBiasF32.apply(conv(x, w, None, **kwargs), b.float())
 
 
 def _triple(v) -> tuple:

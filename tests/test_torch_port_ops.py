@@ -116,6 +116,51 @@ def test_conv_transpose3d_matches_jax(rng, bias):
     close(to_ndhwc(got), want, 1e-4)
 
 
+@pytest.mark.parametrize("transposed", [False, True], ids=["conv3d", "conv_transpose3d"])
+def test_bf16_conv_bias_gradient_sums_in_float32(rng, transposed):
+    """bfloat16 input and weight, float32 bias. Forward: the bf16 sum plus
+    the float32 bias, rounded once, bit for bit. Bias gradient: float32, the
+    float32 sum of the bf16 cotangent, against jax.vjp of the JAX op, to
+    1e-5 of the channel's sum of |g| (float32 summation order; a sum
+    rounded to bf16 is ~1e-3 off)."""
+    cin, cout = 8, 4
+    x = rng.standard_normal((1, 16, 16, 16, cin)).astype(np.float32)
+    if transposed:   # torch (I, O, k..), JAX (k.., I, O)
+        w = (rng.standard_normal((cin, cout, 2, 2, 2)) * 0.3).astype(np.float32)
+        jw = w.transpose(2, 3, 4, 0, 1)
+    else:            # torch (O, I, k..), JAX (k.., I, O)
+        w = (rng.standard_normal((cout, cin, 3, 3, 3)) * 0.2).astype(np.float32)
+        jw = w.transpose(2, 3, 4, 1, 0)
+    b = rng.standard_normal(cout).astype(np.float32)
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(jw, jnp.bfloat16)
+
+    def jax_op(bias):
+        if transposed:
+            return jops.conv_transpose3d(xb, wb, bias, stride=2)
+        return jops.conv3d(xb, wb, bias, padding=1)
+
+    def port_op(xt, wt, bias):
+        if transposed:
+            return ops.conv_transpose3d(xt, wt, bias, stride=2)
+        return ops.conv3d(xt, wt, bias, padding=1)
+
+    want, vjp = jax.vjp(jax_op, jnp.asarray(b))
+    g = (rng.standard_normal(want.shape) * 1e-2 + 3e-3).astype(np.float32)
+    g = np.asarray(jnp.asarray(g, jnp.bfloat16).astype(jnp.float32))   # bf16 values
+    (want_gb,) = vjp(jnp.asarray(g, jnp.bfloat16))
+    xt = to_ncdhw(np.asarray(xb.astype(jnp.float32))).bfloat16()
+    wt = torch.from_numpy(w).bfloat16()
+    bt = torch.from_numpy(b).requires_grad_()
+    got = port_op(xt, wt, bt)
+    got.backward(to_ncdhw(g).bfloat16())
+    assert got.dtype == torch.bfloat16 and bt.grad.dtype == torch.float32
+    once = (port_op(xt, wt, None).float() + bt.detach().view(1, -1, 1, 1, 1)).bfloat16()
+    assert torch.equal(got.detach().view(torch.int16), once.view(torch.int16))
+    mass = np.abs(g).sum(axis=(0, 1, 2, 3))
+    err = np.abs(bt.grad.numpy() - np.asarray(want_gb, np.float32))
+    assert np.all(err <= 1e-5 * mass), f"bias grad err {err} vs sum|g| {mass}"
+
+
 @pytest.mark.parametrize("mode,align,size", [
     ("trilinear", True, (12, 10, 14)), ("trilinear", True, (3, 2, 4)),
     ("trilinear", False, (12, 3, 9)), ("nearest-exact", False, (3, 10, 4)),
