@@ -187,21 +187,29 @@ def _bf16_order(a: np.ndarray) -> np.ndarray:
 def test_conv3d_k3_bf16_rounds_as_pallas(rng):
     """bfloat16 with a bias: the JAX kernel rounds the sum to bf16, adds the
     float32 bias and rounds again; so must the port. Only the float32
-    summation order may differ: no output more than one bf16 ulp apart,
-    fewer than 1 % apart at all."""
+    summation order may differ, and it decides the first rounding where the
+    exact sum lies within float32 error of a bf16 rounding boundary: there
+    the two differ by one bf16 ulp of the sum, which is more than one ulp of
+    the output where the bias shrinks it. Bar: one bf16 ulp at the larger of
+    |output| and |output - bias| (the sum's magnitude); fewer than 1 % of
+    the outputs apart at all."""
     x, w, b = conv_inputs(rng, (1, 16, 8, 8, 16))
     xb = jnp.asarray(x, jnp.bfloat16)
     want = np.asarray(j_conv3d_k3(xb, jnp.asarray(w, jnp.bfloat16), jnp.asarray(b),
                                   interpret=True))
     xt = ncdhw(np.asarray(xb.astype(jnp.float32))).bfloat16()
     wt = torch_weight(w).bfloat16()
+    wf = want.astype(np.float32)
+    magnitude = np.maximum(np.abs(wf), np.abs(wf - b))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(magnitude, 2.0 ** -126))) - 7)
     for got in (k3.plain_conv3d_k3(xt, wt, torch.from_numpy(b)),
                 k3.conv3d_k3(xt, wt, torch.from_numpy(b))):
         assert got.dtype == torch.bfloat16
+        gf = got.float().permute(0, 2, 3, 4, 1).numpy()
         got = got.permute(0, 2, 3, 4, 1).contiguous().view(torch.int16).numpy()
         ulps = np.abs(_bf16_order(got.view(np.uint16)) - _bf16_order(want.view(np.uint16)))
         print(f"max {ulps.max()} ulps, {(ulps > 0).sum()} of {ulps.size} outputs differ")
-        assert ulps.max() <= 1 and (ulps > 0).mean() < 0.01, (
+        assert (np.abs(gf - wf) <= ulp).all() and (ulps > 0).mean() < 0.01, (
             f"max {ulps.max()} ulps, {(ulps > 0).sum()} of {ulps.size} outputs differ")
 
 
