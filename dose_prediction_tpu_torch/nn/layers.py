@@ -3,8 +3,8 @@
 Subclasses of torch's own modules, so parameters keep torch layouts and names
 (``weight``, ``bias``, ``running_mean``...), with forwards that run the port's
 ops: weights are cast to the input's dtype at use (parameters stay float32,
-as in the JAX layers), norms compute in float32, and every InstanceNorm goes
-through kernel K2's wrapper.
+as in the JAX layers), norms compute in float32, and InstanceNorm goes
+through kernel K2's wrapper where ``DPT_PALLAS_IN`` routes it (core/config.py).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from dose_prediction_tpu_torch import ops
+from dose_prediction_tpu_torch.core.config import FLAGS
 from dose_prediction_tpu_torch.kernels import instance_norm as k2
 
 
@@ -86,11 +87,14 @@ class Linear(nn.Linear):
 
 
 class InstanceNorm3d(nn.InstanceNorm3d):
-    """InstanceNorm3d (``affine`` as at each reference usage site), through
-    kernel K2 with no activation, as nn/layers.py:116-120 calls it."""
+    """InstanceNorm3d (``affine`` as at each reference usage site): through
+    kernel K2 with no activation, as nn/layers.py:113-121 calls it, or, with
+    ``DPT_PALLAS_IN=0``, through ops.instance_norm."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return k2.instance_norm_act(x, self.weight, self.bias, eps=self.eps)
+        if FLAGS.k2_instance_norm():
+            return k2.instance_norm_act(x, self.weight, self.bias, eps=self.eps)
+        return ops.instance_norm(x, self.weight, self.bias, eps=self.eps)
 
 
 class BatchNorm3d(nn.BatchNorm3d):

@@ -6,7 +6,9 @@ dose_prediction_tpu/nn/vit.py; MONAI 0.7 ViT semantics).
   Linear; learned position embeddings.
 - Pre-norm blocks: x += attn(ln(x)); x += mlp(ln(x)). QKV is one bias-free
   Linear whose output axis is (qkv, heads, head_dim); attention runs
-  through kernel K1's wrapper; the MLP is Linear → exact GELU → Linear.
+  through kernel K1's wrapper, or, with ``DPT_PALLAS_ATTENTION=0``
+  (core/config.py), through ``einsum_attention``; the MLP is Linear → exact
+  GELU → Linear.
 - Returns the final LayerNorm'd tokens and the hidden states after each
   block (before the final norm).
 """
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from dose_prediction_tpu_torch import ops
+from dose_prediction_tpu_torch.core.config import FLAGS
 from dose_prediction_tpu_torch.kernels import attention as k1
 from dose_prediction_tpu_torch.nn.layers import LayerNorm, Linear
 
@@ -74,6 +77,16 @@ class PatchEmbeddingBlock(nn.Module):
         return tokens + self.position_embeddings.to(tokens.dtype)
 
 
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(Q Kᵀ · Dh^-½) V on ``(N, heads, L, Dh)`` as the JAX package
+    computes it off its kernel (nn/vit.py:71-75): float32 scores of the
+    exact products, scaled, softmax in float32, probabilities cast to the
+    compute dtype, float32 accumulation, cast back."""
+    scores = torch.einsum("nhld,nhmd->nhlm", q.float(), k.float()) * q.shape[-1] ** -0.5
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("nhlm,nhmd->nhld", probs.float(), v.float()).to(q.dtype)
+
+
 class SABlock(nn.Module):
     """Multi-head self-attention (MONAI SABlock)."""
 
@@ -89,7 +102,7 @@ class SABlock(nn.Module):
         n, l, hidden = x.shape
         qkv = self.qkv(x).reshape(n, l, 3, self.heads, hidden // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)      # each (N, heads, L, Dh)
-        out = k1.fused_attention(q, k, v)
+        out = (k1.fused_attention if FLAGS.use_k1_attention else einsum_attention)(q, k, v)
         return self.out_proj(out.transpose(1, 2).reshape(n, l, hidden))
 
 
