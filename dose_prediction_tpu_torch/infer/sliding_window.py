@@ -1,14 +1,16 @@
 """Sliding-window inference (counterpart of
 dose_prediction_tpu/infer/sliding_window.py::sliding_window_inference,
-constant blend).
+constant and gaussian blends).
 
 MONAI dense-grid spacing: interval = roi·(1−overlap), the last window
 clamped flush to the edge; a volume smaller than the ROI is zero-padded and
 the output cropped back. Windows run through the predictor ``sw_batch_size``
-at a time; predictions are summed in float32 and divided by the number of
-windows covering each voxel. When ``sw_batch_size`` does not divide the
-number of windows, the last batch is padded by repeating the last window
-and the count counts the repeats, as the JAX version does
+at a time; predictions are weighted by the importance map (1 everywhere for
+'constant', a separable gaussian for 'gaussian'), summed in float32 and
+divided by the summed weights covering each voxel. When ``sw_batch_size``
+does not divide the number of windows, the last batch is padded by
+repeating the last window and the count counts the repeats, as the JAX
+version does
 (dose_prediction_tpu/infer/sliding_window.py:110-115): every batch has
 ``sw_batch_size`` windows, and the repeated window weighs more than the
 others in the blend. MONAI runs a shorter last batch instead; that
@@ -45,6 +47,27 @@ def window_grid(image_size: Sequence[int], roi_size: Sequence[int],
     return [(z, y, x) for z in zs for y in ys for x in xs]
 
 
+def _importance_map(roi_size: Sequence[int], mode: str, sigma_scale: float = 0.125, *,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """The ``(1, 1, *roi)`` float32 window weights (JAX :56-72): ones for
+    'constant'; for 'gaussian' the product of one gaussian per axis
+    (centre (s − 1)/2, sigma s·sigma_scale), divided by its maximum and
+    floored at float32's smallest normal number."""
+    if mode == "constant":
+        return torch.ones((1, 1, *roi_size), dtype=torch.float32, device=device)
+    if mode != "gaussian":
+        raise ValueError(f"unknown blend mode {mode!r}")
+    m = None
+    for i, s in enumerate(roi_size):
+        center, sigma = (s - 1) / 2.0, max(s * sigma_scale, 1e-3)
+        x = torch.arange(s, dtype=torch.float32, device=device)
+        axis = torch.exp(-0.5 * ((x - center) / sigma) ** 2).view(
+            [1, 1] + [s if j == i else 1 for j in range(3)])
+        m = axis if m is None else m * axis
+    m = m / m.max()
+    return m.clamp_min(torch.finfo(torch.float32).tiny)
+
+
 def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
                              roi_size: Sequence[int] = (96, 96, 96), sw_batch_size: int = 4,
                              overlap: float = 0.25, mode: str = "constant",
@@ -54,13 +77,12 @@ def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
     Args:
         volume: ``(1, C, D, H, W)``.
         predictor: maps ``(n, C, *roi) -> (n, C_out, *roi)``.
+        mode: the blend, 'constant' or 'gaussian'.
         out_channels: C_out (defaults to C).
 
     Returns:
         ``(1, C_out, D, H, W)`` float32 blend.
     """
-    if mode != "constant":
-        raise ValueError(f"blend mode {mode!r} is not ported; only 'constant' is")
     if volume.shape[0] != 1:
         raise ValueError("sliding_window_inference expects batch size 1")
     _, c, d, h, w = volume.shape
@@ -74,6 +96,8 @@ def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
     # pad the last batch by repeating the last window; the count counts it
     grid = grid + [grid[-1]] * (n_batches * sw_batch_size - len(grid))
     c_out = int(out_channels) if out_channels is not None else c
+    # constant: every window weighs 1, added as such
+    weight = None if mode == "constant" else _importance_map(roi, mode, device=volume.device)
     acc = torch.zeros((1, c_out, *full), dtype=torch.float32, device=volume.device)
     count = torch.zeros((1, 1, *full), dtype=torch.float32, device=volume.device)
 
@@ -86,7 +110,11 @@ def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
         starts = grid[b:b + sw_batch_size]
         preds = predictor(torch.cat([volume[region(s)] for s in starts])).float()
         for i, s in enumerate(starts):
-            acc[region(s)] += preds[i:i + 1]
-            count[region(s)] += 1.0
+            if weight is None:
+                acc[region(s)] += preds[i:i + 1]
+                count[region(s)] += 1.0
+            else:
+                acc[region(s)] += preds[i:i + 1] * weight
+                count[region(s)] += weight
     out = acc / count
     return out[:, :, :d, :h, :w]

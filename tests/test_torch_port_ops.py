@@ -248,9 +248,41 @@ def test_sliding_window_is_the_monai_blend(rng, sw):
 
 
 def test_sliding_window_rejects_gaussian_blend():
-    with pytest.raises(ValueError, match="not ported"):
+    """The gaussian blend is ported (test_gaussian_sliding_window_matches_jax);
+    a blend mode the JAX package does not know is rejected, as there."""
+    out = tsw.sliding_window_inference(torch.ones(1, 1, 8, 8, 8), lambda w: w,
+                                       roi_size=(4, 4, 4), mode="gaussian")
+    close(out, np.ones((1, 1, 8, 8, 8)), 1e-6)
+    with pytest.raises(ValueError, match="blend mode"):
         tsw.sliding_window_inference(torch.zeros(1, 1, 8, 8, 8), lambda w: w,
-                                     roi_size=(4, 4, 4), mode="gaussian")
+                                     roi_size=(4, 4, 4), mode="triangle")
+
+
+@pytest.mark.parametrize("roi", [(96, 96, 96), (32, 32, 32), (5, 12, 7), (1, 2, 3)])
+def test_importance_map_matches_jax(roi):
+    """float32 to 1e-6 (exp one ulp apart between the two libraries)."""
+    for mode in ("constant", "gaussian"):
+        got = tsw._importance_map(roi, mode)
+        want = jsw._importance_map(roi, mode)
+        assert got.shape == (1, 1, *roi) and got.dtype == torch.float32
+        close(got[0, 0], np.asarray(want)[..., 0], 1e-6)
+        assert float(got.min()) > 0 and float(got.max()) == 1.0
+
+
+@pytest.mark.parametrize("shape,sw", [((1, 48, 48, 48, 2), 4), ((1, 48, 48, 48, 2), 3),
+                                      ((1, 20, 40, 36, 1), 2)])
+def test_gaussian_sliding_window_matches_jax(rng, shape, sw):
+    """mode='gaussian' against the JAX engine: 8 windows in batches of 4, in
+    batches of 3 (the last padded by repeats, weighted as the JAX package
+    weighs them), and a volume smaller than the ROI along one axis."""
+    v = rng.standard_normal(shape).astype(np.float32)
+    roi = (32, 32, 32)
+    want = jsw.sliding_window_inference(
+        jnp.asarray(v), lambda w: jnp.moveaxis(_window_dependent(jnp.moveaxis(w, -1, 1)), 1, -1),
+        roi_size=roi, sw_batch_size=sw, overlap=0.25, mode="gaussian")
+    got = tsw.sliding_window_inference(to_ncdhw(v), _window_dependent, roi_size=roi,
+                                       sw_batch_size=sw, overlap=0.25, mode="gaussian")
+    close(to_ndhwc(got), want, 1e-4)
 
 
 def test_postprocess_matches_jax(rng):
