@@ -1,7 +1,7 @@
-"""The linked serve cascade: CT → sliding-window OAR segmentation → one-hot
-masks → concat(PTV, OARs, CT) → DOSE-PYFER dose map (counterpart of
-dose_prediction_tpu/infer/cascade.py::make_cascade_stages, sliding mode;
-reference LinkedNet.test_step, train_light_linked_model.py:138-176).
+"""The linked serve cascade: CT → OAR segmentation (sliding-window or one
+dense forward) → one-hot masks → concat(PTV, OARs, CT) → DOSE-PYFER dose map
+(counterpart of dose_prediction_tpu/infer/cascade.py; reference
+LinkedNet.test_step, train_light_linked_model.py:138-176).
 
 Volumes cross the stage boundaries channels-last (NDHWC), as in the JAX
 package; each stage permutes once to NCDHW on the way in and once back on the
@@ -33,21 +33,29 @@ def make_cascade_stages(seg_model: torch.nn.Module, dose_model: torch.nn.Module,
     ``model.state_dict()`` gives them), applied with ``torch.func
     .functional_call`` as the JAX stages apply their variables. Volumes are
     ``(1, D, H, W, C)``; the models run in eval mode, without autograd, in
-    the dtype of the volumes they are given. Only ``seg_mode='sliding'`` is
-    ported."""
-    if seg_mode != "sliding":
-        raise ValueError(f"seg_mode {seg_mode!r} is not ported; only 'sliding' is")
+    the dtype of the volumes they are given.
+
+    ``seg_mode``: 'sliding', the reference's sweep of overlapping ROI
+    windows (:152-154); or 'dense', one seg forward over the whole volume,
+    for a TranSeg built with ``trained_grid`` = (roi / patch)³ so that its
+    position embedding resizes. Dense equals sliding only where the ROI
+    covers the volume (JAX cascade.py:54-61)."""
+    if seg_mode not in ("sliding", "dense"):
+        raise ValueError(f"unknown seg_mode {seg_mode!r} (want 'sliding' or 'dense')")
     seg_model.eval()
     dose_model.eval()
 
     @torch.inference_mode()
     def stage1(seg_vars: Mapping[str, torch.Tensor], ct: torch.Tensor,
                ptv: torch.Tensor) -> torch.Tensor:
-        logits = sliding_window_inference(
-            ct.permute(0, 4, 1, 2, 3),
-            lambda windows: functional_call(seg_model, seg_vars, (windows,)),
-            roi_size=roi_size, sw_batch_size=sw_batch_size, overlap=overlap,
-            out_channels=num_oar_classes)
+        volume = ct.permute(0, 4, 1, 2, 3)
+        if seg_mode == "dense":
+            logits = functional_call(seg_model, seg_vars, (volume.contiguous(),))
+        else:
+            logits = sliding_window_inference(
+                volume, lambda windows: functional_call(seg_model, seg_vars, (windows,)),
+                roi_size=roi_size, sw_batch_size=sw_batch_size, overlap=overlap,
+                out_channels=num_oar_classes)
         labels = logits.argmax(dim=1)                      # (1, D, H, W)
         # one-hot (channels-last), background dropped (:157-160)
         oars = F.one_hot(labels, num_oar_classes)[..., 1:].to(ct.dtype)

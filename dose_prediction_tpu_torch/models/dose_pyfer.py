@@ -38,12 +38,12 @@ class ViTEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         z, hidden = self.vit(x)
-        i = self.num_layers // 4
+        i, grid = self.num_layers // 4, self.vit.grid(x)
         return [self.skip1(x),
-                self.skip2(tokens_to_volume(hidden[i], self.vit.grid)),
-                self.skip3(tokens_to_volume(hidden[2 * i], self.vit.grid)),
-                self.skip4(tokens_to_volume(hidden[3 * i], self.vit.grid)),
-                tokens_to_volume(z, self.vit.grid)]
+                self.skip2(tokens_to_volume(hidden[i], grid)),
+                self.skip3(tokens_to_volume(hidden[2 * i], grid)),
+                self.skip4(tokens_to_volume(hidden[3 * i], grid)),
+                tokens_to_volume(z, grid)]
 
 
 class PyMSCDecoder(nn.Module):

@@ -1,11 +1,14 @@
 """OAR-TranSeg, the cascade's stage-1 segmentation model (counterpart of
 dose_prediction_tpu/models/transeg.py with block_family='seg',
-multiS_conv=True, trained_grid=None; reference
-OARSegmentation/Models/Networks/oar_transeg.py:14-185).
+multiS_conv=True; reference OARSegmentation/Models/Networks/oar_transeg.py:14-185).
 
 A ViT with hidden-state taps at num_layers/4 multiples (3/6/9 for 12
 layers), UnetrBasicBlock + UnetrPrUpBlock encoders, ModifiedUnetrUpBlock
 decoders (seg-family Conv31, act='relu') and a 1×1 output head.
+``trained_grid`` (JAX models/transeg.py:50-54) runs weights trained on one
+token grid, e.g. (6, 6, 6) for 96³ windows, on volumes of another size: the
+ViT's position embedding is resized; every other block is convolutional.
+That is what the cascade's dense seg mode runs.
 """
 
 from __future__ import annotations
@@ -24,20 +27,21 @@ from dose_prediction_tpu_torch.nn.vit import ViT, tokens_to_volume
 
 
 class TranSeg(nn.Module):
-    """``forward(x)`` on ``(N, in_ch, *img_size)`` returns ``(N, out_ch,
-    *img_size)`` logits. Defaults: 1 input channel, 7 OARs + background,
+    """``forward(x)`` on ``(N, in_ch, D, H, W)`` returns ``(N, out_ch, D, H,
+    W)`` logits; (D, H, W) is ``img_size``, or with ``trained_grid`` any
+    multiple of the patch. Defaults: 1 input channel, 7 OARs + background,
     96³ windows, feature size 16, a 12-layer ViT-768 with 12 heads."""
 
     def __init__(self, in_ch: int = 1, out_ch: int = 8, img_size=96, feature_size: int = 16,
                  hidden_size: int = 768, mlp_dim: int = 3072, num_layers: int = 12,
                  num_heads: int = 12, act: str = "relu", patch_size: int = 16,
-                 device="cuda"):
+                 trained_grid=None, device="cuda"):
         super().__init__()
         self.num_layers = num_layers
         fs = feature_size
         with torch.device(resolve_device(device)):
             self.vit = ViT(in_ch, img_size, patch_size, hidden_size, mlp_dim, num_layers,
-                           num_heads)
+                           num_heads, trained_grid)
             self.encoder1 = UnetrBasicBlock(in_ch, fs)
             self.encoder2 = UnetrPrUpBlock(hidden_size, fs * 2, 2)
             self.encoder3 = UnetrPrUpBlock(hidden_size, fs * 4, 1)
@@ -50,12 +54,12 @@ class TranSeg(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         z, hidden = self.vit(x)
-        i = self.num_layers // 4
+        i, grid = self.num_layers // 4, self.vit.grid(x)
         enc1 = self.encoder1(x)
-        enc2 = self.encoder2(tokens_to_volume(hidden[i], self.vit.grid))
-        enc3 = self.encoder3(tokens_to_volume(hidden[2 * i], self.vit.grid))
-        enc4 = self.encoder4(tokens_to_volume(hidden[3 * i], self.vit.grid))
-        dec3 = self.decoder5(tokens_to_volume(z, self.vit.grid), enc4)
+        enc2 = self.encoder2(tokens_to_volume(hidden[i], grid))
+        enc3 = self.encoder3(tokens_to_volume(hidden[2 * i], grid))
+        enc4 = self.encoder4(tokens_to_volume(hidden[3 * i], grid))
+        dec3 = self.decoder5(tokens_to_volume(z, grid), enc4)
         dec2 = self.decoder4(dec3, enc3)
         dec1 = self.decoder3(dec2, enc2)
         return self.out(self.decoder2(dec1, enc1))

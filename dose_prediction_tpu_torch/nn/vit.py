@@ -3,7 +3,8 @@ dose_prediction_tpu/nn/vit.py; MONAI 0.7 ViT semantics).
 
 - Perceptron patch embed: non-overlapping patches, token order (gD, gH, gW),
   features within a patch in (pd, ph, pw, c) order with c last, then a
-  Linear; learned position embeddings.
+  Linear; learned position embeddings for the trained token grid, resized
+  trilinearly to the input's grid where it differs (``trained_grid``).
 - Pre-norm blocks: x += attn(ln(x)); x += mlp(ln(x)). QKV is one bias-free
   Linear whose output axis is (qkv, heads, head_dim); attention runs
   through kernel K1's wrapper, or, with ``DPT_PALLAS_ATTENTION=0``
@@ -59,22 +60,40 @@ class Patchify(nn.Module):
 
 class PatchEmbeddingBlock(nn.Module):
     """Patches → Linear, plus learned position embeddings for the token grid
-    of ``img_size`` (an int or a (D, H, W) triple)."""
+    they were trained on: ``trained_grid``, or else the grid of ``img_size``
+    (an int or a (D, H, W) triple). The input's own grid is taken at each
+    call; where it differs from ``trained_grid``, the embeddings are resized
+    to it trilinearly (align_corners=True), as the JAX PatchEmbed3D does
+    (dose_prediction_tpu/nn/vit.py:110-148). Without ``trained_grid`` the
+    input must have the grid of ``img_size``."""
 
-    def __init__(self, in_ch: int, img_size, patch: int, hidden: int):
+    def __init__(self, in_ch: int, img_size, patch: int, hidden: int, trained_grid=None):
         super().__init__()
         img = (img_size,) * 3 if isinstance(img_size, int) else tuple(img_size)
-        self.grid = tuple(int(s) // patch for s in img)
+        self.patch = patch
+        self.trained_grid = tuple(int(g) for g in trained_grid) if trained_grid else None
+        self.base_grid = self.trained_grid or tuple(int(s) // patch for s in img)
         self.patch_embeddings = nn.Sequential(Patchify(patch), Linear(in_ch * patch ** 3, hidden))
         self.position_embeddings = nn.Parameter(
-            torch.zeros(1, self.grid[0] * self.grid[1] * self.grid[2], hidden))
+            torch.zeros(1, self.base_grid[0] * self.base_grid[1] * self.base_grid[2], hidden))
+
+    def grid(self, x: torch.Tensor) -> Tuple[int, int, int]:
+        """The token grid of an ``(N, C, D, H, W)`` input."""
+        return tuple(int(s) // self.patch for s in x.shape[2:])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tokens = self.patch_embeddings(x)
-        if tokens.shape[1] != self.position_embeddings.shape[1]:
-            raise ValueError(f"{tokens.shape[1]} tokens but the position embedding was made "
-                             f"for {self.position_embeddings.shape[1]}")
-        return tokens + self.position_embeddings.to(tokens.dtype)
+        grid = self.grid(x)
+        pos = self.position_embeddings
+        if grid != self.base_grid:
+            if self.trained_grid is None:
+                raise ValueError(f"input token grid {grid}, but the position embedding was "
+                                 f"made for {self.base_grid} (pass trained_grid to resize it)")
+            hidden = pos.shape[-1]
+            pos = ops.resize3d(pos.reshape(1, *self.base_grid, hidden).permute(0, 4, 1, 2, 3),
+                               grid, mode="trilinear", align_corners=True)
+            pos = pos.permute(0, 2, 3, 4, 1).reshape(1, tokens.shape[1], hidden)
+        return tokens + pos.to(tokens.dtype)
 
 
 def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -131,17 +150,19 @@ class TransformerBlock(nn.Module):
 
 class ViT(nn.Module):
     """Returns (final_normed_tokens, [hidden states after each block]);
-    ``grid`` is the token grid (gD, gH, gW)."""
+    ``grid(x)`` is the token grid (gD, gH, gW) of an input."""
 
     def __init__(self, in_ch: int, img_size, patch: int = 16,
                  hidden: int = 768, mlp_dim: int = 3072, num_layers: int = 12,
-                 heads: int = 12):
+                 heads: int = 12, trained_grid=None):
         super().__init__()
-        self.patch_embedding = PatchEmbeddingBlock(in_ch, img_size, patch, hidden)
+        self.patch_embedding = PatchEmbeddingBlock(in_ch, img_size, patch, hidden, trained_grid)
         self.blocks = nn.ModuleList(
             [TransformerBlock(hidden, mlp_dim, heads) for _ in range(num_layers)])
         self.norm = LayerNorm(hidden)
-        self.grid = self.patch_embedding.grid
+
+    def grid(self, x: torch.Tensor) -> Tuple[int, int, int]:
+        return self.patch_embedding.grid(x)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         x = self.patch_embedding(x)

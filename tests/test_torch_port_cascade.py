@@ -142,6 +142,9 @@ def test_port_runs_without_jax(tmp_path):
 
 
 def test_dense_mode_is_not_ported():
+    """Dense mode is ported (tests/test_torch_port_dense.py); a seg mode the
+    JAX package does not know is refused, as there."""
     seg, dose = torch.nn.Module(), torch.nn.Module()
-    with pytest.raises(ValueError, match="not ported"):
-        make_cascade_stages(seg, dose, seg_mode="dense")
+    assert len(make_cascade_stages(seg, dose, seg_mode="dense")) == 2
+    with pytest.raises(ValueError, match="unknown seg_mode"):
+        make_cascade_stages(seg, dose, seg_mode="patchwise")
