@@ -11,7 +11,7 @@ reference (:157-165) are applied.
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Callable, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -72,3 +72,40 @@ def make_cascade_stages(seg_model: torch.nn.Module, dose_model: torch.nn.Module,
                                       scale=dose_scale)
 
     return stage1, stage2
+
+
+def make_cascade_fn(seg_model: torch.nn.Module, seg_variables: Mapping[str, torch.Tensor],
+                    dose_model: torch.nn.Module, dose_variables: Mapping[str, torch.Tensor], *,
+                    num_oar_classes: int = 8, roi_size: Sequence[int] = (96, 96, 96),
+                    sw_batch_size: int = 4, overlap: float = 0.25, dose_scale: float = 70.0,
+                    fuse: bool = False, seg_mode: str = "sliding", aot: bool = False,
+                    input_dtype: torch.dtype | None = None
+                    ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """The linked serve program (counterpart of the JAX make_cascade_fn,
+    infer/cascade.py:95-167): ``run(ct, ptv, dose_mask) -> dose_gy``, with
+    the models' state dicts bound. The three volumes are ``(1, D, H, W, 1)``;
+    ``dose_gy`` is ``(1, D, H, W, 1)`` in Gy, masked and clamped as the
+    reference post-processes it (:171-173).
+
+    ``input_dtype`` casts ct, ptv and dose_mask before dispatch; the models
+    compute in that dtype with float32 parameters. ``fuse``: in JAX, True
+    traces both stages into one XLA program and False compiles two. Eager
+    PyTorch has no counterpart of one program: either way ``run`` launches
+    stage 1 and then stage 2 asynchronously in one call, with no host
+    synchronisation between them, so the two settings run the same launches.
+    ``aot`` (the JAX package's shipped precompiled executables) is not
+    ported: a precompiled serve path is ROADMAP queue 1 item 7."""
+    if aot:
+        raise NotImplementedError(
+            "aot=True: a precompiled serve path for the port is ROADMAP queue 1 item 7")
+    stage1, stage2 = make_cascade_stages(
+        seg_model, dose_model, num_oar_classes=num_oar_classes, roi_size=roi_size,
+        sw_batch_size=sw_batch_size, overlap=overlap, dose_scale=dose_scale, seg_mode=seg_mode)
+
+    def cast(x: torch.Tensor) -> torch.Tensor:
+        return x if input_dtype is None else x.to(input_dtype)
+
+    def run(ct: torch.Tensor, ptv: torch.Tensor, dose_mask: torch.Tensor) -> torch.Tensor:
+        return stage2(dose_variables, stage1(seg_variables, cast(ct), cast(ptv)), cast(dose_mask))
+
+    return run
