@@ -1,5 +1,5 @@
-"""The port's serve entry point infer/cascade.py::make_cascade_fn against
-the JAX package on the CPU.
+"""The port's serve entry points against the JAX package on the CPU:
+infer/cascade.py::make_cascade_fn and infer/pipeline.py::pipeline_map.
 
 make_cascade_fn runs the reduced cascade of tests/test_torch_port_cascade.py
 (48³ volumes, 32³ windows, sw batch 4, the same seeded weights in both
@@ -11,6 +11,7 @@ near ties, and a flipped label moves the dose around it, so the voxels of
 the two bf16 runs do not agree one by one. The bar is on the dose score's
 measure, the mean absolute dose over the volume: the port's bf16 run may be
 no further from the JAX float32 run than twice the JAX bf16 run is.
+pipeline_map: the same outputs and the same order of calls as the JAX one.
 """
 
 import numpy as np
@@ -22,8 +23,10 @@ torch = pytest.importorskip("torch")
 
 from dose_prediction_tpu.core import torch_import as TI  # noqa: E402
 from dose_prediction_tpu.infer.cascade import make_cascade_fn as jax_cascade_fn  # noqa: E402
+from dose_prediction_tpu.infer.pipeline import pipeline_map as jax_pipeline_map  # noqa: E402
 
 from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn, make_cascade_stages  # noqa: E402
+from dose_prediction_tpu_torch.infer.pipeline import pipeline_map  # noqa: E402
 
 import test_torch_port_cascade as C  # noqa: E402  (the reduced cascade's geometry and inputs)
 import test_torch_port_models as M  # noqa: E402  (seeded reduced models, JAX import)
@@ -90,3 +93,27 @@ def test_make_cascade_fn_bf16_input_dtype_matches_jax(models):
 def test_make_cascade_fn_aot_is_not_ported(models):
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         _port_run(models, aot=True)
+
+
+@pytest.mark.parametrize("items", [[], [0], [0, 1, 2, 3]])
+def test_pipeline_map_matches_jax(items):
+    """produce(i + 1) is called before consume(i); results come in order."""
+    def traced(fn_map):
+        log = []
+
+        def produce(i):
+            log.append(("produce", i))
+            return 10 * i + 1
+
+        def consume(x):
+            log.append(("consume", x))
+            return -x
+
+        return list(fn_map(produce, consume, iter(items))), log
+
+    got, got_log = traced(pipeline_map)
+    want, want_log = traced(jax_pipeline_map)
+    assert got == want == [-(10 * i + 1) for i in items]
+    assert got_log == want_log
+    if len(items) > 1:
+        assert got_log[:3] == [("produce", 0), ("produce", 1), ("consume", 1)]
