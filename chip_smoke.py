@@ -9,8 +9,10 @@ Phases, each printing its seconds on a line of its own:
             limit as nvidia-smi reports them;
 2. build    build the CUDA kernels (one nvcc process per csrc/*.cu, all
             in parallel, then one link);
-3. kernels  hold K1 (attention), K2 (instance norm, at the eleven shapes a
-            serve request gives it in bfloat16 and two in float32) and K3
+3. kernels  hold K1 (attention, at the sliding TranSeg's, DOSE-PYFER's and
+            the dense TranSeg's shapes), K2 (instance norm, at the eleven
+            shapes a serve request gives it in bfloat16, the dense TranSeg's
+            among them, and two in float32) and K3
             (same-size 3x3x3 conv, at the eight shapes of the C3D, DOSE-PYFER
             and TranSeg convs it takes) against their plain PyTorch
             versions, in float32 and bfloat16, and time kernel, plain
@@ -26,7 +28,10 @@ Phases, each printing its seconds on a line of its own:
 4. parity   the full-width 128³ serve cascade (12-layer ViT-768 TranSeg over
             96³ windows, then DOSE-PYFER) in float32 with TF32 off, once
             through the kernels and once with the plain versions swapped in,
-            with the K3 routing off and then on;
+            with the K3 routing off and then on; then, the same way, stage 1
+            in dense mode (the same weights in a TranSeg with
+            trained_grid (6, 6, 6) over the whole volume) and the sliding
+            seg with the gaussian blend;
 5. serve    three bfloat16 requests after one warm-up through the same
             entry points, with the kernels' launch counts read around them;
 6. profile  one more bfloat16 request under torch.profiler: device time by
@@ -35,15 +40,25 @@ Phases, each printing its seconds on a line of its own:
             (DPT_PALLAS_CONV=1: same-size 3x3x3 convs with C in {16, 32,
             64} go to K3), K3's calls per request by shape (they must sum
             to its launches), and one more request under the profiler;
-8. train    the full-width DOSE-PYFER train step at 128³, batch 1, bfloat16
+8. dense    one warm-up and five bfloat16 requests through make_cascade_fn
+            with seg_mode='dense' (bench.py's dense_fastpath_p50_s), K1's
+            and K2's launches per request and K2's calls by shape (each must
+            be a shape the kernels phase held);
+9. sweep    ten bfloat16 requests through pipeline_map over make_cascade_fn,
+            each consumed by a synchronisation (bench.py's
+            sweep_volumes_per_sec);
+10. routes  three bfloat16 requests with DPT_PALLAS_ATTENTION=0 and three
+            with DPT_PALLAS_IN=0, p50 beside serve's: each switch must bring
+            its kernel's launches to 0 and leave the other's as in serve;
+11. train   the full-width DOSE-PYFER train step at 128³, batch 1, bfloat16
             compute, float32 parameters, AdamW, net_A frozen, routing on,
             PyTorch's TF32 defaults (cuDNN float32 convolutions in TF32):
             one warm-up and five timed steps on a fixed batch, each step's
             launches and backward recomputes of K1, K2 and K3, peak memory,
             one step under the profiler; then the same with the routing off;
-9. train_parity  one float32 step (TF32 off) from identical weights and batch
-            through the kernels and through their plain versions: the loss
-            and every gradient leaf;
+12. train_parity  one float32 step (TF32 off) from identical weights and
+            batch through the kernels and through their plain versions: the
+            loss and every gradient leaf;
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -72,9 +87,12 @@ SEED = 0
 DOSE_TOL_OF_SCALE = 1e-3     # f32 cascade: |dose_kernels - dose_plain| ≤ 1e-3 × 70 Gy
 LABEL_AGREEMENT_MIN = 0.999
 
-K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128)]          # TranSeg windows, DOSE-PYFER
+# TranSeg windows, DOSE-PYFER, the dense TranSeg at 128³ (8³ tokens)
+K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (1, 12, 512, 64)]
 # every shape a bf16 serve request gives K2: the TranSeg windows' (8 per
-# call) decoder levels, then DOSE-PYFER's at 128³; float32 at the first two
+# call) decoder levels, then DOSE-PYFER's at 128³ (the dense TranSeg's five
+# shapes are among these: the dense phase fails on any other); float32 at
+# the first two
 K2_SHAPES = [(8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
              (8, 32, 24, 24, 24), (8, 128, 12, 12, 12), (1, 16, 128, 128, 128),
              (1, 32, 64, 64, 64), (1, 64, 32, 32, 32), (1, 32, 32, 32, 32),
@@ -436,9 +454,65 @@ def cascade_parity(dev, seg, dose, stage1, stage2, kernels, route_k3):
     return {"dose_max_abs_diff_gy": diff, "label_agreement": agree, "launches": launches}
 
 
+def dense_seg(dev):
+    """The full-width TranSeg that runs the 96³-window seg weights over the
+    whole volume (trained_grid (6, 6, 6)), as bench.py:211 builds it."""
+    from dose_prediction_tpu_torch.models import TranSeg
+
+    return TranSeg(out_ch=8, trained_grid=(6, 6, 6), device=dev)
+
+
+def seg_parity(name, seg_fn, kernels):
+    """float32 OAR labels from ``seg_fn()`` through the kernels and with the
+    plain versions swapped in: they must agree at LABEL_AGREEMENT_MIN of the
+    voxels, and the run must launch K1 and K2."""
+    zero_counts()
+    labels_k = seg_fn()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    with plain_kernels(*kernels):
+        labels_p = seg_fn()
+    torch.cuda.synchronize()
+    agree = (labels_k == labels_p).float().mean().item()
+    present = torch.unique(labels_k).numel()
+    log(f"{name} f32 (TF32 off): seg labels agree kernels vs plain {agree * 100:.4f}% (min "
+        f"{LABEL_AGREEMENT_MIN * 100:.1f}%), {present} labels present; launches {launches}")
+    if not (agree >= LABEL_AGREEMENT_MIN and launches["attention"] > 0
+            and launches["instance_norm"] > 0 and launches["conv3d_k3"] == 0):
+        raise AssertionError(f"{name} parity failed")
+    return {"label_agreement": agree, "labels_present": present, "launches": launches}
+
+
 def phase_parity(dev, seg, dose, stage1, stage2, kernels):
-    return {"cudnn": cascade_parity(dev, seg, dose, stage1, stage2, kernels, False),
+    """The cascade with the K3 routing off and on; then stage 1 in dense mode
+    and the sliding seg with the gaussian blend, each in float32 through the
+    kernels against the plain versions."""
+    from torch.func import functional_call
+
+    from dose_prediction_tpu_torch.infer.cascade import make_cascade_stages
+    from dose_prediction_tpu_torch.infer.sliding_window import sliding_window_inference
+
+    rows = {"cudnn": cascade_parity(dev, seg, dose, stage1, stage2, kernels, False),
             "k3": cascade_parity(dev, seg, dose, stage1, stage2, kernels, True)}
+    ct, ptv, _ = seeded_volumes(dev, torch.float32)
+    seg_vars = seg.state_dict()
+    dense_stage1, _ = make_cascade_stages(dense_seg(dev), dose, seg_mode="dense")
+
+    def dense_labels():
+        oars = dense_stage1(seg_vars, ct, ptv)[..., 1:8]
+        return torch.where(oars.amax(-1) > 0, oars.argmax(-1) + 1, 0)
+
+    @torch.inference_mode()
+    def gaussian_labels():
+        logits = sliding_window_inference(
+            ct.permute(0, 4, 1, 2, 3), lambda w: functional_call(seg, seg_vars, (w,)),
+            roi_size=(96, 96, 96), sw_batch_size=8, overlap=0.25, mode="gaussian",
+            out_channels=8)
+        return logits.argmax(dim=1)
+
+    rows["dense_stage1"] = seg_parity("dense stage 1", dense_labels, kernels)
+    rows["gaussian_seg"] = seg_parity("sliding seg, gaussian blend", gaussian_labels, kernels)
+    return rows
 
 
 def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
@@ -553,6 +627,113 @@ def phase_profile(dev, seg, dose, stage1, stage2, route_k3=False):
     with k3_routing(route_k3):
         return profiled(lambda: stage2(dose_vars, stage1(seg_vars, ct, ptv), mask),
                         "bf16 request" + (" (K3 routing on)" if route_k3 else ""))
+
+
+def bf16_requests(run, ct, ptv, mask, n):
+    """One warm-up, then ``n`` timed requests ``run(ct, ptv, mask)``, each
+    ended by a synchronisation, the counts read around them; checks the last
+    output (shape, finite, 0 outside the mask, >= 0)."""
+    run(ct, ptv, mask)
+    torch.cuda.synchronize()
+    zero_counts()
+    times, out = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = run(ct, ptv, mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    ok = (out.shape == (1, 128, 128, 128, 1) and bool(torch.isfinite(out).all())
+          and bool((out[mask < 1] == 0).all()) and bool((out >= 0).all()))
+    return times, launches, ok
+
+
+def phase_dense(dev, seg, dose):
+    """bench.py's dense fast path: five bf16 requests through
+    make_cascade_fn(seg_mode='dense'), with K2's calls by shape."""
+    from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
+    from dose_prediction_tpu_torch.kernels import instance_norm as k2
+
+    run = make_cascade_fn(dense_seg(dev), seg.state_dict(), dose, dose.state_dict(),
+                          seg_mode="dense", dose_scale=70.0)
+    ct, ptv, mask = seeded_volumes(dev, torch.bfloat16)
+    k2_shapes, direct = {}, k2._direct
+
+    def record(x, *args, **kwargs):
+        k2_shapes[tuple(x.shape)] = k2_shapes.get(tuple(x.shape), 0) + 1
+        return direct(x, *args, **kwargs)
+
+    n = 5
+    with mock.patch.object(k2, "_direct", record):
+        times, launches, ok = bf16_requests(run, ct, ptv, mask, n)
+    per_request = {k: v / n for k, v in launches.items()}
+    p50 = sorted(times)[n // 2]
+    log(f"dense bf16: request seconds {times}, dense_fastpath_p50_s {p50}; output checks {ok}; "
+        f"launches per request {per_request}; K2 calls per request by shape (warm-up "
+        f"included, / {n + 1}): " + ", ".join(f"{s} {c / (n + 1):g}" for s, c in k2_shapes.items()))
+    unheld = [s for s in k2_shapes if s not in K2_SHAPES]
+    if not (ok and per_request["attention"] > 0 and per_request["instance_norm"] > 0
+            and per_request["conv3d_k3"] == 0 and not unheld):
+        raise AssertionError(f"dense check failed (K2 shapes the kernels phase did not hold: "
+                             f"{unheld})")
+    return {"dense_fastpath_p50_s": p50, "times_s": times, "launches_per_request": per_request,
+            "k2_calls_by_shape": {str(s): c / (n + 1) for s, c in k2_shapes.items()}}
+
+
+def phase_sweep(dev, seg, dose):
+    """bench.py's serve sweep: ten bf16 requests through pipeline_map over
+    make_cascade_fn, request i+1 queued before request i is synchronised."""
+    from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
+    from dose_prediction_tpu_torch.infer.pipeline import pipeline_map
+
+    run = make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(), roi_size=(96, 96, 96),
+                          sw_batch_size=8, overlap=0.25, dose_scale=70.0)
+    ct, ptv, mask = seeded_volumes(dev, torch.bfloat16)
+    run(ct, ptv, mask)
+    torch.cuda.synchronize()
+
+    def consume(out):
+        torch.cuda.synchronize()
+        return out
+
+    n = 10
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = list(pipeline_map(lambda i: run(ct, ptv, mask), consume, range(n)))
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    vps = n / seconds
+    ok = len(outs) == n and all(bool(torch.isfinite(o).all()) for o in outs)
+    log(f"sweep bf16: {n} requests in {seconds} s, sweep_volumes_per_sec {vps}; outputs finite "
+        f"{ok}; launches {launches}")
+    if not (ok and launches["attention"] > 0 and launches["instance_norm"] > 0):
+        raise AssertionError("sweep check failed")
+    return {"sweep_volumes_per_sec": vps, "seconds": seconds, "requests": n}
+
+
+def phase_routes(dev, seg, dose, stage1, stage2, serve):
+    """Three bf16 sliding requests with each kernel switched off by its flag:
+    its launches must fall to 0 and the other kernel's stay as in serve."""
+    from dose_prediction_tpu_torch.core.config import FLAGS
+
+    ct, ptv, mask = seeded_volumes(dev, torch.bfloat16)
+    seg_vars, dose_vars = seg.state_dict(), dose.state_dict()
+    rows = {}
+    for switch, attr, value, kernel in (
+            ("DPT_PALLAS_ATTENTION=0", "use_k1_attention", False, "attention"),
+            ("DPT_PALLAS_IN=0", "use_k2_instance_norm", "0", "instance_norm")):
+        with mock.patch.object(FLAGS, attr, value):
+            times, launches, ok = bf16_requests(
+                lambda c, p, m: stage2(dose_vars, stage1(seg_vars, c, p), m), ct, ptv, mask, 3)
+        p50 = sorted(times)[1]
+        want = {**serve["launches"], kernel: 0}
+        log(f"routes {switch}: request seconds {times}, p50 {p50} s (serve p50 "
+            f"{serve['p50_s']} s); output checks {ok}; launches over the 3 requests {launches} "
+            f"(serve {serve['launches']})")
+        if not (ok and launches == want):
+            raise AssertionError(f"routes {switch}: launches {launches}, want {want}")
+        rows[switch] = {"p50_s": p50, "times_s": times, "launches": launches}
+    return rows
 
 
 def seeded_pyfer(dev):
@@ -801,6 +982,9 @@ def main() -> int:
         run("profile", lambda: phase_profile(*args))
         run("serve_k3", lambda: {**phase_serve(*args, route_k3=True),
                                  "profile": phase_profile(*args, route_k3=True)})
+        run("dense", lambda: phase_dense(dev, models["seg"], models["dose"]))
+        run("sweep", lambda: phase_sweep(dev, models["seg"], models["dose"]))
+        run("routes", lambda: phase_routes(*args, results["serve"]))
         del models, stage1, stage2, args
         torch.cuda.empty_cache()
         run("train", lambda: phase_train(dev))
@@ -811,8 +995,12 @@ def main() -> int:
 
     smi = results["device"]["smi"]
     log(f"serve p50 {results['serve']['p50_s']} s, serve_k3 p50 {results['serve_k3']['p50_s']} "
-        f"s; train step p50 {results['train']['p50_s']} s with K3 routing, "
-        f"{results['train']['p50_s_routing_off']} s without; on {smi}")
+        f"s; dense_fastpath_p50_s {results['dense']['dense_fastpath_p50_s']}; "
+        f"sweep_volumes_per_sec {results['sweep']['sweep_volumes_per_sec']}; p50 with "
+        + ", ".join(f"{k} {v['p50_s']} s" for k, v in results["routes"].items())
+        + f"; train step p50 {results['train']['p50_s']} s with K3 routing, "
+        f"{results['train']['p50_s_routing_off']} s without; total "
+        f"{time.perf_counter() - t_start:.1f} s; on {smi}")
     kernels = []
     for name, source, replaces, shape, phase in (
             ("attention", "dose_prediction_tpu_torch/csrc/attention.cu",

@@ -51,9 +51,11 @@ def card():
 
 
 # the main path's two shapes, then edge lengths (one key, one partial tile,
-# one key past a tile, one past eight tiles) at every head dim
+# one key past a tile, one past eight tiles) at every head dim, then the
+# dense TranSeg's shape at 128³ (8³ tokens, 12 heads of 64)
 ATTENTION_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (2, 3, 70, 32)] + [
-    (1, 3, length, dh) for length in (1, 16, 65, 513) for dh in (32, 64, 128)]
+    (1, 3, length, dh) for length in (1, 16, 65, 513) for dh in (32, 64, 128)] + [
+    (1, 12, 512, 64)]
 
 
 def check_attention(card, shape, dtype):
@@ -239,6 +241,35 @@ def test_reduced_cascade_kernels_match_plain_on_card(card, monkeypatch):
     assert torch.all(struct == struct_p, dim=-1).float().mean().item() >= 0.999
     assert (dose_gy - dose_p).abs().max().item() / 70.0 <= 1e-3
     assert bool(torch.isfinite(dose_gy).all()) and bool((dose_gy[mask < 1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch", ["attention", "instance_norm"])
+def test_off_switches_stop_their_kernel_on_card(card, monkeypatch, switch):
+    """A reduced bf16 TranSeg forward launches K1 and K2; with
+    DPT_PALLAS_ATTENTION=0 (or DPT_PALLAS_IN=0) the switched kernel launches
+    0 times and the other as often as with both on."""
+    g = torch.Generator(card).manual_seed(0)
+    seg = init_params(TranSeg(img_size=32, feature_size=4, hidden_size=64, mlp_dim=128,
+                              num_layers=4, num_heads=2, device=card), g).eval()
+    x = torch.randn((2, 1, 32, 32, 32), generator=g, device=card).bfloat16()
+
+    def launches():
+        before = (k1.fused_attention.launches, k2.instance_norm_act.launches)
+        with torch.no_grad():
+            out = seg(x)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        after = (k1.fused_attention.launches, k2.instance_norm_act.launches)
+        return dict(zip(("attention", "instance_norm"), (a - b for a, b in zip(after, before))))
+
+    both = launches()
+    assert both["attention"] > 0 and both["instance_norm"] > 0
+    if switch == "attention":
+        monkeypatch.setattr(FLAGS, "use_k1_attention", False)
+    else:
+        monkeypatch.setattr(FLAGS, "use_k2_instance_norm", "0")
+    assert launches() == {**both, switch: 0}
 
 
 # ragged H and W (7, 13, 17, 33: not multiples of a tile, W not a multiple
