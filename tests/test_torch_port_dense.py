@@ -1,8 +1,9 @@
 """The port's dense seg mode against the JAX package on the CPU:
 PatchEmbeddingBlock with ``trained_grid`` (JAX PatchEmbed3D), a reduced
 TranSeg built for 32³ windows run on a 48³ volume (2³ → 3³ tokens), the
-weight carry-over of its resized position embedding, and the dense
-``stage1`` of make_cascade_stages.
+weight carry-over of its resized position embedding (reduced, both ways,
+and at bench.py's full width, shapes only), and the dense ``stage1`` of
+make_cascade_stages.
 
 Inputs and weights are made with numpy or seeded torch (nn/init.py) and
 carried by core/torch_import.py and weights.py; float32. Tolerances: the
@@ -118,3 +119,21 @@ def test_dense_stage1_matches_jax(dense_seg, rng):
     assert not np.any(differ & (top2[..., 1] - top2[..., 0] > 2 * TOL))
     assert differ.mean() < 1e-4
     assert len(np.unique(np.argmax(want, -1))) > 2
+
+
+def test_full_width_trained_grid_weights_carry_to_the_port():
+    """bench.py's dense TranSeg (trained_grid (6, 6, 6), 12-layer ViT-768):
+    jax_to_torch maps every JAX leaf, the (1, 216, 768) pos_embedding among
+    them, onto the port's state dict, shape for shape, with none left over
+    (shapes from jax.eval_shape at a 128³ input; zero arrays of those
+    shapes stand in for the values)."""
+    jm = jmodels.TranSeg(out_ch=8, trained_grid=(6, 6, 6))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jax.ShapeDtypeStruct((1, 128, 128, 128, 1), jnp.float32))
+    zeros = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.float32(0), s.shape), shapes)
+    assert zeros["params"]["vit"]["patch_embedding"]["pos_embedding"].shape == (1, 216, 768)
+    port = TranSeg(out_ch=8, trained_grid=(6, 6, 6), device="meta")
+    sd = weights.jax_to_torch(zeros, port)
+    assert sd.keys() == port.state_dict().keys()
+    assert sd["vit.patch_embedding.position_embeddings"].shape == (1, 216, 768)
+    assert all(sd[k].shape == v.shape for k, v in port.state_dict().items())
