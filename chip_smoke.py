@@ -43,10 +43,10 @@ Phases, each printing its seconds on a line of its own:
 8. dense    one warm-up and five bfloat16 requests through make_cascade_fn
             with seg_mode='dense' (bench.py's dense_fastpath_p50_s), K1's
             and K2's launches per request and K2's calls by shape (each must
-            be a shape the kernels phase held);
+            be a shape the kernels phase held), one more under the profiler;
 9. sweep    ten bfloat16 requests through pipeline_map over make_cascade_fn,
             each consumed by a synchronisation (bench.py's
-            sweep_volumes_per_sec);
+            sweep_volumes_per_sec), then the same ten under the profiler;
 10. routes  three bfloat16 requests with DPT_PALLAS_ATTENTION=0 and three
             with DPT_PALLAS_IN=0, p50 beside serve's: each switch must bring
             its kernel's launches to 0 and leave the other's as in serve;
@@ -666,6 +666,7 @@ def phase_dense(dev, seg, dose):
     n = 5
     with mock.patch.object(k2, "_direct", record):
         times, launches, ok = bf16_requests(run, ct, ptv, mask, n)
+    prof = profiled(lambda: run(ct, ptv, mask), "bf16 dense request")
     per_request = {k: v / n for k, v in launches.items()}
     p50 = sorted(times)[n // 2]
     log(f"dense bf16: request seconds {times}, dense_fastpath_p50_s {p50}; output checks {ok}; "
@@ -677,7 +678,8 @@ def phase_dense(dev, seg, dose):
         raise AssertionError(f"dense check failed (K2 shapes the kernels phase did not hold: "
                              f"{unheld})")
     return {"dense_fastpath_p50_s": p50, "times_s": times, "launches_per_request": per_request,
-            "k2_calls_by_shape": {str(s): c / (n + 1) for s, c in k2_shapes.items()}}
+            "k2_calls_by_shape": {str(s): c / (n + 1) for s, c in k2_shapes.items()},
+            "profile": prof}
 
 
 def phase_sweep(dev, seg, dose):
@@ -696,19 +698,23 @@ def phase_sweep(dev, seg, dose):
         torch.cuda.synchronize()
         return out
 
+    def sweep():
+        return list(pipeline_map(lambda i: run(ct, ptv, mask), consume, range(n)))
+
     n = 10
     zero_counts()
     t0 = time.perf_counter()
-    outs = list(pipeline_map(lambda i: run(ct, ptv, mask), consume, range(n)))
+    outs = sweep()
     seconds = time.perf_counter() - t0
     launches = read_counts()
+    prof = profiled(sweep, f"bf16 sweep of {n} requests")
     vps = n / seconds
     ok = len(outs) == n and all(bool(torch.isfinite(o).all()) for o in outs)
     log(f"sweep bf16: {n} requests in {seconds} s, sweep_volumes_per_sec {vps}; outputs finite "
         f"{ok}; launches {launches}")
     if not (ok and launches["attention"] > 0 and launches["instance_norm"] > 0):
         raise AssertionError("sweep check failed")
-    return {"sweep_volumes_per_sec": vps, "seconds": seconds, "requests": n}
+    return {"sweep_volumes_per_sec": vps, "seconds": seconds, "requests": n, "profile": prof}
 
 
 def phase_routes(dev, seg, dose, stage1, stage2, serve):
