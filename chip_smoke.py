@@ -28,10 +28,7 @@ Phases, each printing its seconds on a line of its own:
 4. parity   the full-width 128³ serve cascade (12-layer ViT-768 TranSeg over
             96³ windows, then DOSE-PYFER) in float32 with TF32 off, once
             through the kernels and once with the plain versions swapped in,
-            with the K3 routing off and then on; then, the same way, stage 1
-            in dense mode (the same weights in a TranSeg with
-            trained_grid (6, 6, 6) over the whole volume) and the sliding
-            seg with the gaussian blend;
+            with the K3 routing off and then on;
 5. serve    three bfloat16 requests after one warm-up through the same
             entry points, with the kernels' launch counts read around them;
 6. profile  one more bfloat16 request under torch.profiler: device time by
@@ -50,13 +47,17 @@ Phases, each printing its seconds on a line of its own:
 10. routes  three bfloat16 requests with DPT_PALLAS_ATTENTION=0 and three
             with DPT_PALLAS_IN=0, p50 beside serve's: each switch must bring
             its kernel's launches to 0 and leave the other's as in serve;
-11. train   the full-width DOSE-PYFER train step at 128³, batch 1, bfloat16
+11. parity_dense  as parity, in float32: stage 1 in dense mode (the same
+            weights in a TranSeg with trained_grid (6, 6, 6) over the whole
+            volume) and the sliding seg with the gaussian blend (after the
+            timed phases, which so see the state the earlier phases leave);
+12. train   the full-width DOSE-PYFER train step at 128³, batch 1, bfloat16
             compute, float32 parameters, AdamW, net_A frozen, routing on,
             PyTorch's TF32 defaults (cuDNN float32 convolutions in TF32):
             one warm-up and five timed steps on a fixed batch, each step's
             launches and backward recomputes of K1, K2 and K3, peak memory,
             one step under the profiler; then the same with the routing off;
-12. train_parity  one float32 step (TF32 off) from identical weights and
+13. train_parity  one float32 step (TF32 off) from identical weights and
             batch through the kernels and through their plain versions: the
             loss and every gradient leaf;
 
@@ -484,16 +485,21 @@ def seg_parity(name, seg_fn, kernels):
 
 
 def phase_parity(dev, seg, dose, stage1, stage2, kernels):
-    """The cascade with the K3 routing off and on; then stage 1 in dense mode
-    and the sliding seg with the gaussian blend, each in float32 through the
-    kernels against the plain versions."""
+    return {"cudnn": cascade_parity(dev, seg, dose, stage1, stage2, kernels, False),
+            "k3": cascade_parity(dev, seg, dose, stage1, stage2, kernels, True)}
+
+
+def phase_parity_dense(dev, seg, dose, kernels):
+    """Stage 1 in dense mode and the sliding seg with the gaussian blend, each
+    in float32 through the kernels against the plain versions. (A phase of
+    its own after the timed ones, so that those see the state the parent
+    commit's phases leave.)"""
     from torch.func import functional_call
 
     from dose_prediction_tpu_torch.infer.cascade import make_cascade_stages
     from dose_prediction_tpu_torch.infer.sliding_window import sliding_window_inference
 
-    rows = {"cudnn": cascade_parity(dev, seg, dose, stage1, stage2, kernels, False),
-            "k3": cascade_parity(dev, seg, dose, stage1, stage2, kernels, True)}
+    rows = {}
     ct, ptv, _ = seeded_volumes(dev, torch.float32)
     seg_vars = seg.state_dict()
     dense_stage1, _ = make_cascade_stages(dense_seg(dev), dose, seg_mode="dense")
@@ -991,6 +997,8 @@ def main() -> int:
         run("dense", lambda: phase_dense(dev, models["seg"], models["dose"]))
         run("sweep", lambda: phase_sweep(dev, models["seg"], models["dose"]))
         run("routes", lambda: phase_routes(*args, results["serve"]))
+        run("parity_dense", lambda: phase_parity_dense(dev, models["seg"], models["dose"],
+                                                       (k1, k2, k3)))
         del models, stage1, stage2, args
         torch.cuda.empty_cache()
         run("train", lambda: phase_train(dev))

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from dose_prediction_tpu_torch.core.config import FLAGS, K3_ON
 from dose_prediction_tpu_torch.kernels import conv3d as k3
+from dose_prediction_tpu_torch.kernels.autograd import needs_grad
 
 METHODS = ("auto", "k3")
 
@@ -50,7 +51,10 @@ def _biased(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     ``x.dtype`` plus the float32 bias, rounded again."""
     if b is None or x.dtype == torch.float32:
         return conv(x, w, b, **kwargs)
-    return _AddBiasF32.apply(conv(x, w, None, **kwargs), b.float())
+    y, b = conv(x, w, None, **kwargs), b.float()
+    if needs_grad(y, b):
+        return _AddBiasF32.apply(y, b)
+    return y.add_(b.view(1, -1, 1, 1, 1))    # no autograd: without the Function's host cost
 
 
 def _triple(v) -> tuple:
