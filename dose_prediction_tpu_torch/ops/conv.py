@@ -42,7 +42,7 @@ class _AddBiasF32(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g, g.float().sum((0, 2, 3, 4)) if ctx.needs_input_grad[1] else None
+        return g, g.sum((0, 2, 3, 4), dtype=torch.float32) if ctx.needs_input_grad[1] else None
 
 
 def _biased(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,

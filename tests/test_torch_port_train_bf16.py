@@ -19,9 +19,9 @@ The bar for each gradient leaf, with the norms taken over the leaf (L2):
 
     |port bf16 − JAX f32| ≤ 2 · |JAX bf16 − JAX f32| + 1e-3 · |JAX f32|
 
-Three classes of leaves are named and left out of it (CHANGES.md, PR 11,
-gives the analysis). In each, the leaf's own op rounds at the same places
-in both packages, and its gradient in bfloat16 is set by chance:
+Three classes of leaves are named and left out of it (CHANGES.md gives
+the analysis). In each, the leaf's own op rounds at the same places in
+both packages, and its gradient in bfloat16 is set by chance:
 
 - ZERO_GRAD_BIAS: conv biases that feed a norm. Their exact gradient is 0.
 - NORM_AFFINE: the weights and biases of the InstanceNorm, BatchNorm and
