@@ -94,12 +94,14 @@ def test_stage2_dose_matches_jax(cascade):
 
 def test_port_runs_without_jax(tmp_path):
     """The port imports neither jax nor the JAX package: run the reduced
-    cascade, a K3-routed conv and one DOSE-PYFER train step in a fresh
-    interpreter and inspect sys.modules."""
+    cascade (its stages, then make_cascade_fn), pipeline_map, a K3-routed
+    conv and one DOSE-PYFER train step in a fresh interpreter and inspect
+    sys.modules."""
     script = textwrap.dedent(f"""
         import sys
         import torch
-        from dose_prediction_tpu_torch.infer.cascade import make_cascade_stages
+        from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn, make_cascade_stages
+        from dose_prediction_tpu_torch.infer.pipeline import pipeline_map
         from dose_prediction_tpu_torch.models import DosePyfer, TranSeg
         from dose_prediction_tpu_torch.nn.init import init_params
         cfg = {M.CFG!r}
@@ -114,6 +116,10 @@ def test_port_runs_without_jax(tmp_path):
         mask = (torch.rand((1, 48, 48, 48, 1), generator=g) < 0.6).float()
         dose_gy = s2(dose.state_dict(), s1(seg.state_dict(), ct, ptv), mask)
         assert dose_gy.shape == (1, 48, 48, 48, 1) and bool(torch.isfinite(dose_gy).all())
+        run = make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(),
+                              roi_size=(32, 32, 32), sw_batch_size=4)
+        assert torch.equal(run(ct, ptv, mask), dose_gy)
+        assert list(pipeline_map(lambda i: i, lambda i: -i, range(2))) == [0, -1]
         from dose_prediction_tpu_torch import ops
         from dose_prediction_tpu_torch.core.config import FLAGS
         from dose_prediction_tpu_torch.kernels.conv3d import conv3d_k3
