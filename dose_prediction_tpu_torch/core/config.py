@@ -14,8 +14,8 @@ K3_ON = ("1", "tight")
 class Flags:
     # Route the ViT's attention through kernel K1 (kernels/attention.py):
     # the counterpart of the JAX package's use_pallas_attention. '0' takes
-    # the JAX package's einsum route (nn/vit.py::einsum_attention), which
-    # the JAX package takes off the TPU.
+    # K1's plain version (kernels/attention.py::plain_attention), the
+    # counterpart of the einsum route the JAX package takes off the TPU.
     use_k1_attention: bool = os.environ.get("DPT_PALLAS_ATTENTION", "1") == "1"
     # Route InstanceNorm through kernel K2 (kernels/instance_norm.py): the
     # counterpart of the JAX package's use_pallas_instance_norm. '0' takes

@@ -8,7 +8,8 @@ dose_prediction_tpu/nn/vit.py; MONAI 0.7 ViT semantics).
 - Pre-norm blocks: x += attn(ln(x)); x += mlp(ln(x)). QKV is one bias-free
   Linear whose output axis is (qkv, heads, head_dim); attention runs
   through kernel K1's wrapper, or, with ``DPT_PALLAS_ATTENTION=0``
-  (core/config.py), through ``einsum_attention``; the MLP is Linear → exact
+  (core/config.py), through its plain version ``plain_attention``, the
+  counterpart of the JAX einsum route; the MLP is Linear → exact
   GELU → Linear.
 - Returns the final LayerNorm'd tokens and the hidden states after each
   block (before the final norm).
@@ -96,16 +97,6 @@ class PatchEmbeddingBlock(nn.Module):
         return tokens + pos.to(tokens.dtype)
 
 
-def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(Q Kᵀ · Dh^-½) V on ``(N, heads, L, Dh)`` as the JAX package
-    computes it off its kernel (nn/vit.py:71-75): float32 scores of the
-    exact products, scaled, softmax in float32, probabilities cast to the
-    compute dtype, float32 accumulation, cast back."""
-    scores = torch.einsum("nhld,nhmd->nhlm", q.float(), k.float()) * q.shape[-1] ** -0.5
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("nhlm,nhmd->nhld", probs.float(), v.float()).to(q.dtype)
-
-
 class SABlock(nn.Module):
     """Multi-head self-attention (MONAI SABlock)."""
 
@@ -121,7 +112,7 @@ class SABlock(nn.Module):
         n, l, hidden = x.shape
         qkv = self.qkv(x).reshape(n, l, 3, self.heads, hidden // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)      # each (N, heads, L, Dh)
-        out = (k1.fused_attention if FLAGS.use_k1_attention else einsum_attention)(q, k, v)
+        out = (k1.fused_attention if FLAGS.use_k1_attention else k1.plain_attention)(q, k, v)
         return self.out_proj(out.transpose(1, 2).reshape(n, l, hidden))
 
 

@@ -2,10 +2,10 @@
 package's DPT_PALLAS_ATTENTION and DPT_PALLAS_IN, on the CPU.
 
 Each flag is read from the JAX package's variable with its default; on the
-route chooses the kernel's wrapper, off the JAX package's own route:
-nn/vit.py::einsum_attention for attention and ops.instance_norm for
-InstanceNorm. The off routes are held against the JAX layers, which take
-those routes off the TPU: float32 to 1e-5 (one op order apart); bfloat16 to
+route chooses the kernel's wrapper, off the counterpart of the JAX package's
+own route: K1's plain version kernels/attention.py::plain_attention (the JAX
+einsum route) for attention and ops.instance_norm for InstanceNorm. The off
+routes are held against the JAX layers, which take those routes off the TPU: float32 to 1e-5 (one op order apart); bfloat16 to
 one bf16 ulp at the larger of |JAX output| and 2^-8 (the float32 sums may
 round across a bf16 boundary; the bar of tests/test_torch_port_layers.py).
 """
@@ -69,11 +69,12 @@ def test_flags_read_the_jax_variables(env, want):
 def test_attention_flag_chooses_k1_or_the_einsum_route(monkeypatch, on):
     monkeypatch.setattr(FLAGS, "use_k1_attention", on)
     kernel = _calls(monkeypatch, k1, "fused_attention")
-    einsum = _calls(monkeypatch, vit, "einsum_attention")
+    plain = _calls(monkeypatch, k1, "plain_attention")
     block = vit.SABlock(24, 2)
     with torch.no_grad():
         block(torch.randn(1, 8, 24))
-    assert (len(kernel), len(einsum)) == ((1, 0) if on else (0, 1))
+    # on the CPU the kernel's wrapper runs the plain version too
+    assert (len(kernel), len(plain)) == (int(on), 1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
