@@ -78,8 +78,7 @@ def make_cascade_fn(seg_model: torch.nn.Module, seg_variables: Mapping[str, torc
                     dose_model: torch.nn.Module, dose_variables: Mapping[str, torch.Tensor], *,
                     num_oar_classes: int = 8, roi_size: Sequence[int] = (96, 96, 96),
                     sw_batch_size: int = 4, overlap: float = 0.25, dose_scale: float = 70.0,
-                    fuse: bool = False, seg_mode: str = "sliding", aot: bool = False,
-                    input_dtype: torch.dtype | None = None
+                    seg_mode: str = "sliding", input_dtype: torch.dtype | None = None
                     ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
     """The linked serve program (counterpart of the JAX make_cascade_fn,
     infer/cascade.py:95-167): ``run(ct, ptv, dose_mask) -> dose_gy``, with
@@ -88,16 +87,12 @@ def make_cascade_fn(seg_model: torch.nn.Module, seg_variables: Mapping[str, torc
     reference post-processes it (:171-173).
 
     ``input_dtype`` casts ct, ptv and dose_mask before dispatch; the models
-    compute in that dtype with float32 parameters. ``fuse``: in JAX, True
-    traces both stages into one XLA program and False compiles two. Eager
-    PyTorch has no counterpart of one program: either way ``run`` launches
-    stage 1 and then stage 2 asynchronously in one call, with no host
-    synchronisation between them, so the two settings run the same launches.
-    ``aot`` (the JAX package's shipped precompiled executables) is not
-    ported: a precompiled serve path is ROADMAP queue 1 item 7."""
-    if aot:
-        raise NotImplementedError(
-            "aot=True: a precompiled serve path for the port is ROADMAP queue 1 item 7")
+    compute in that dtype with float32 parameters. ``run`` launches stage 1
+    and then stage 2 asynchronously, with no host synchronisation between
+    them. The JAX function's ``fuse`` (one XLA program for both stages, or
+    two) has no counterpart in eager PyTorch, and its ``aot`` (shipped
+    precompiled executables) none yet: a captured serve path is ROADMAP
+    queue 1 item 7."""
     stage1, stage2 = make_cascade_stages(
         seg_model, dose_model, num_oar_classes=num_oar_classes, roi_size=roi_size,
         sw_batch_size=sw_batch_size, overlap=overlap, dose_scale=dose_scale, seg_mode=seg_mode)
