@@ -690,7 +690,9 @@ def phase_dense(dev, seg, dose):
 
 def phase_sweep(dev, seg, dose):
     """bench.py's serve sweep: ten bf16 requests through pipeline_map over
-    make_cascade_fn, request i+1 queued before request i is synchronised."""
+    make_cascade_fn, request i+1 queued before request i is synchronised.
+    Each request records an event after its launches and consume waits on
+    that event: torch.cuda.synchronize() would wait for request i+1 too."""
     from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
     from dose_prediction_tpu_torch.infer.pipeline import pipeline_map
 
@@ -700,12 +702,19 @@ def phase_sweep(dev, seg, dose):
     run(ct, ptv, mask)
     torch.cuda.synchronize()
 
-    def consume(out):
-        torch.cuda.synchronize()
+    def produce(_):
+        out = run(ct, ptv, mask)
+        done = torch.cuda.Event()
+        done.record()
+        return out, done
+
+    def consume(produced):
+        out, done = produced
+        done.synchronize()
         return out
 
     def sweep():
-        return list(pipeline_map(lambda i: run(ct, ptv, mask), consume, range(n)))
+        return list(pipeline_map(produce, consume, range(n)))
 
     n = 10
     zero_counts()
