@@ -23,6 +23,8 @@ parameters; float32. Tolerances:
   1e-6; ``state_nbytes`` equal.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -39,6 +41,9 @@ from dose_prediction_tpu_torch import weights  # noqa: E402
 from dose_prediction_tpu_torch.train import state as S  # noqa: E402
 
 import test_torch_port_models as M  # noqa: E402  (seeded reduced models, JAX import)
+
+JA = importlib.import_module("dose_prediction_tpu.train.adam8bit")
+A8 = importlib.import_module("dose_prediction_tpu_torch.train.adam8bit")
 
 LR, WD = 6.130697604327541e-4, 1.6303111017674179e-4   # train/trainers.py:56-57
 TOL = 1e-6
@@ -321,3 +326,82 @@ def test_reduce_lr_on_plateau_matches_jax(kwargs):
     got = S.ReduceLROnPlateau(base_lr=1e-3, **kwargs)
     assert [got.step(v) for v in values] == [want.step(v) for v in values]
     assert (got.best, got.bad_epochs) == (want.best, want.bad_epochs)
+
+
+# ---------------------------------------------------------------------------
+# adam8bit
+# ---------------------------------------------------------------------------
+
+class _Toy8(torch.nn.Module):
+    """Leaves above min_quantize_size (4096): ``a`` 5120 elements (3 blocks,
+    the last 1024 lanes of padding: the tail block), ``b`` exactly 2
+    blocks; below it: ``c`` and ``d``."""
+
+    def __init__(self):
+        super().__init__()
+        for name, shape in (("a", (64, 80)), ("b", (4096,)), ("c", (100,)), ("d", (3000,))):
+            self.register_parameter(name, torch.nn.Parameter(torch.zeros(shape)))
+
+
+@pytest.mark.parametrize("wd,clip,sched", [(0.0, None, False), (1e-2, 1.0, False),
+                                           (WD, None, True)])
+def test_adam8bit_matches_jax(wd, clip, sched):
+    """Five updates; gradients spread over four decades so the blocks' log
+    grids span them. With ``sched`` the rate is a cosine schedule, read at
+    the update's count as adam8bit.py:141 reads it."""
+    rng = np.random.default_rng(21)
+    model = seeded(_Toy8(), rng)
+    params = _tree((n, p.detach().numpy().copy()) for n, p in model.named_parameters())
+    lr = (lambda mod: mod.cosine_schedule(1e-2, 4)) if sched else (lambda mod: 1e-2)
+    tx = JS.make_optimizer(learning_rate=lr(JS), weight_decay=wd, grad_clip_norm=clip,
+                           kind="adam8bit")
+    opt = S.make_optimizer(model, learning_rate=lr(S), weight_decay=wd, grad_clip_norm=clip,
+                           kind="adam8bit")
+    opt_state = tx.init(params)
+    for _ in range(5):
+        grads = {n: (rng.standard_normal(p.shape) * 10.0 ** rng.uniform(-3, 1, p.shape))
+                 .astype(np.float32) for n, p in model.named_parameters()}
+        updates, opt_state = tx.update(_tree(grads.items()), opt_state, params)
+        params = optax.apply_updates(params, updates)
+        for n, p in model.named_parameters():
+            p.grad = torch.from_numpy(grads[n])
+        opt.step()
+    assert_params(model, _flat(params))
+    state = opt_state[-1] if isinstance(opt_state, tuple) else opt_state
+    assert A8.state_nbytes(opt) == JA.state_nbytes(state) > 0
+    codes = mismatched = 0
+    names = sorted(n for n, _ in model.named_parameters())          # JAX leaf order
+    for i, name in enumerate(names):
+        got = opt.moments(getattr(model, name))
+        jm, jv = state.mu[i], state.nu[i]
+        if not isinstance(jm, JA.Quantized):
+            assert got[0].dtype == torch.float32 and getattr(model, name).numel() < 4096
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(jm), rtol=0, atol=TOL)
+            np.testing.assert_allclose(got[1].numpy(), np.asarray(jv), rtol=1e-5, atol=0)
+            continue
+        assert got[0].values.dtype == torch.int8 and got[1].values.dtype == torch.uint8
+        for g, w in ((got[0].values, jm.values), (got[1].values, jv.values)):
+            diff = g.numpy().astype(np.int32) - np.asarray(w).astype(np.int32)
+            assert g.shape == w.shape and np.abs(diff).max() <= 1, name
+            codes += diff.size
+            mismatched += int(np.count_nonzero(diff))
+        for g, w in ((got[0].scales, jm.scales), (got[1].lo, jv.lo), (got[1].scale, jv.scale)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=0, err_msg=name)
+    print(f"adam8bit codes differing by one step: {mismatched} of {codes}")
+    assert codes == 2 * (3 + 2) * 2048 and mismatched <= codes // 1000
+
+
+def test_adam8bit_tail_block_keeps_pad_lanes_out_of_its_log_bounds():
+    """One leaf of 4097 elements: its third block holds one real lane. That
+    lane's log bounds are its own (lo == hi), not log(1e-30) from the pad
+    lanes, so its v is carried at float32 precision."""
+    model = torch.nn.Module()
+    model.w = torch.nn.Parameter(torch.zeros(4097))
+    opt = S.make_optimizer(model, learning_rate=1e-3, kind="adam8bit")
+    model.w.grad = torch.full((4097,), 0.5)
+    opt.step()
+    _, nu = opt.moments(model.w)
+    assert nu.values.shape == (3, 2048)
+    v_tail = float(torch.exp(nu.lo[2]) - A8.LOG_TINY)
+    assert abs(v_tail - 0.001 * 0.25) <= 1e-6 * 0.001 * 0.25
+    assert float(nu.lo[2]) > -20.0                       # log(1e-30) ≈ -69
