@@ -1,5 +1,5 @@
 """Training losses (counterpart of dose_prediction_tpu/train/losses.py) on
-NCDHW tensors.
+NCDHW tensors (class and channel axis 1), all computed in float32.
 
 Every masked loss is ``sum(err * mask) / max(sum(mask), 1)`` over mask > 0
 voxels, in float32, as the JAX package writes the reference's boolean-index
@@ -10,6 +10,7 @@ the possible-dose mask on the channel axis: ``gt (N, 2, D, H, W)``.
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from dose_prediction_tpu_torch.ops import downsample_pyramid
 
@@ -22,6 +23,16 @@ def _masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def masked_l1(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean |pred − gt| over mask > 0 voxels (loss.py:22-27)."""
     return _masked_mean((pred.float() - gt.float()).abs(), mask)
+
+
+def masked_l1_per_sample(pred: torch.Tensor, gt: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Per-sample masked mean |pred − gt| → (N,) (losses.py:30-38), the
+    batched-validation primitive."""
+    err = (pred.float() - gt.float()).abs()
+    m = (mask > 0).float()
+    axes = tuple(range(1, err.ndim))
+    return (err * m).sum(dim=axes) / m.sum(dim=axes).clamp_min(1.0)
 
 
 def masked_huber(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
@@ -69,3 +80,60 @@ def gen_loss(predictions, gt: torch.Tensor, *, delta1: float = 10.0, delta2: flo
     if cascade and not freeze:
         loss = loss + 0.5 * masked_l1(pred_a, gt_dose, mask)
     return loss
+
+
+def disc_hinge_loss(real_valid: torch.Tensor, fake_valid: torch.Tensor) -> torch.Tensor:
+    """Hinge discriminator loss (DiscLoss, loss.py:44-47; losses.py:115-120)."""
+    return (torch.relu(1.0 - real_valid.float()).mean()
+            + torch.relu(1.0 + fake_valid.float()).mean())
+
+
+def gan_loss(logits: torch.Tensor, target_is_real: bool, *, use_lsgan: bool = True
+             ) -> torch.Tensor:
+    """GANLoss (dosegan.py:12-46; losses.py:123-132): MSE against 1/0 labels
+    (LSGAN) or BCE on the sigmoid with eps 1e-12."""
+    target = 1.0 if target_is_real else 0.0
+    x = logits.float()
+    if use_lsgan:
+        return (x - target).square().mean()
+    p = torch.sigmoid(x)
+    eps = 1e-12
+    return -(target * torch.log(p + eps) + (1 - target) * torch.log(1 - p + eps)).mean()
+
+
+def bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """torch BCEWithLogitsLoss, written as losses.py:135-139:
+    ``mean(max(x, 0) − x·t + log1p(exp(−|x|)))``."""
+    x, t = logits.float(), target.float()
+    return (torch.clamp_min(x, 0) - x * t + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """torch CrossEntropyLoss on (N, C, D, H, W) logits against integer
+    labels (N, D, H, W) (losses.py:141-145)."""
+    logp = torch.log_softmax(logits.float(), dim=1)
+    return -torch.gather(logp, 1, labels.long().unsqueeze(1)).mean()
+
+
+def dice_loss(logits: torch.Tensor, labels: torch.Tensor, *, include_background: bool = True,
+              smooth_nr: float = 1e-5, smooth_dr: float = 1e-5) -> torch.Tensor:
+    """MONAI DiceLoss(to_onehot_y=True, softmax=True) (losses.py:148-167):
+    softmax over classes, one-hot labels, soft dice per (sample, class) over
+    space, then the mean."""
+    n_classes = logits.shape[1]
+    probs = torch.softmax(logits.float(), dim=1)
+    onehot = nn.functional.one_hot(labels.long(), n_classes).movedim(-1, 1).float()
+    if not include_background:
+        probs, onehot = probs[:, 1:], onehot[:, 1:]
+    axes = tuple(range(2, probs.ndim))
+    inter = (probs * onehot).sum(dim=axes)
+    denom = probs.sum(dim=axes) + onehot.sum(dim=axes)
+    return (1.0 - (2.0 * inter + smooth_nr) / (denom + smooth_dr)).mean()
+
+
+def dice_ce_loss(logits: torch.Tensor, labels: torch.Tensor, *, lambda_dice: float = 1.0,
+                 lambda_ce: float = 1.0) -> torch.Tensor:
+    """MONAI DiceCELoss(to_onehot_y=True, softmax=True), the TranSeg loss
+    (train_light_transeg.py:148; losses.py:170-174)."""
+    return (lambda_dice * dice_loss(logits, labels)
+            + lambda_ce * softmax_cross_entropy(logits, labels))
