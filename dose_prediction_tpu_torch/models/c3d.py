@@ -1,5 +1,6 @@
-"""C3D U-Net, the DOSE-PYFER cascade's net_A (counterpart of
-dose_prediction_tpu/models/c3d.py; reference c3d.py BaseUNet :118).
+"""C3D U-Net, the DOSE-PYFER cascade's net_A, and the C3D cascade that
+pretrains it (counterpart of dose_prediction_tpu/models/c3d.py; reference
+c3d.py BaseUNet :118, Model :152).
 
 5 levels, stride-2 downsampling convs, trilinear (align_corners) upsampling,
 Conv + InstanceNorm(affine) + ReLU everywhere. Module names are the
@@ -9,12 +10,14 @@ decoder.decoder_conv_L.S.single_conv.*).
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from dose_prediction_tpu_torch.device import resolve_device
 from dose_prediction_tpu_torch.nn.blocks import SingleConv, UpConv
+from dose_prediction_tpu_torch.nn.layers import Conv3d
 
 DEFAULT_LIST_CH = (-1, 32, 64, 128, 256, 512)
 
@@ -68,3 +71,25 @@ class BaseUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.encoder(x))
+
+
+class CascadeC3D(nn.Module):
+    """Two stacked BaseUNets (c3d.Model :152; JAX models/c3d.py:71-90):
+    ``net_B`` sees ``cat(out_A, x)``; the 1×1 heads ``conv_out_A`` and
+    ``conv_out_B`` give ``(pred_a, pred_b)``, ``out_ch`` channels each.
+    Defaults: 9 input channels (PTV, 7 OARs, CT), one dose channel."""
+
+    def __init__(self, in_ch: int = 9, out_ch: int = 1,
+                 list_ch_A: Sequence[int] = DEFAULT_LIST_CH,
+                 list_ch_B: Sequence[int] = DEFAULT_LIST_CH, device="cuda"):
+        super().__init__()
+        with torch.device(resolve_device(device)):
+            self.net_A = BaseUNet(in_ch, list_ch_A)
+            self.net_B = BaseUNet(in_ch + list_ch_A[1], list_ch_B)
+            self.conv_out_A = Conv3d(list_ch_A[1], out_ch, 1, bias=True)
+            self.conv_out_B = Conv3d(list_ch_B[1], out_ch, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        out_a = self.net_A(x)
+        out_b = self.net_B(torch.cat([out_a, x], dim=1))
+        return self.conv_out_A(out_a), self.conv_out_B(out_b)

@@ -41,11 +41,36 @@ def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
         preds = model(to_ncdhw(batch["input"]), stop_gradient_a=freeze)
         loss = L.gen_loss(preds, to_ncdhw(batch["gt"]), delta1=delta1, delta2=delta2,
                           cascade=True, freeze=freeze)
-        loss.backward()
-        optimizer.step()
-        loss = loss.detach()
-        moving = update_moving_loss(state.moving_loss, float(loss))
-        return dataclasses.replace(state, step=state.step + 1, moving_loss=moving), loss
+        return _apply_update(state, optimizer, loss)
+
+    return step
+
+
+def _apply_update(state: TrainState, optimizer: torch.optim.Optimizer, loss: torch.Tensor
+                  ) -> Tuple[TrainState, torch.Tensor]:
+    """Back-propagate ``loss``, update, and advance the state's count and
+    moving loss (the tail of every JAX step)."""
+    loss.backward()
+    optimizer.step()
+    loss = loss.detach()
+    moving = update_moving_loss(state.moving_loss, float(loss))
+    return dataclasses.replace(state, step=state.step + 1, moving_loss=moving), loss
+
+
+def make_cascade_c3d_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
+                                freeze: bool = False
+                                ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                              Tuple[TrainState, torch.Tensor]]:
+    """The C3D cascade's step (steps.py:122-144; train_light_c3d.py): the
+    masked-L1 cascade loss of ``(pred_a, pred_b)``, net_A's head in it at
+    0.5 unless ``freeze``. Batches as make_pyfer_train_step's."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        pred_a, pred_b = model(to_ncdhw(batch["input"]))
+        loss = L.cascade_l1_loss(pred_a, pred_b, to_ncdhw(batch["gt"]), freeze=freeze)
+        return _apply_update(state, optimizer, loss)
 
     return step
 

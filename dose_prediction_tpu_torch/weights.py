@@ -1,12 +1,12 @@
 """Carry JAX variables of the JAX package's models into the port's modules.
 
 ``jax_to_torch(variables, model)`` maps the flax variable tree of
-``DosePyfer`` or ``TranSeg`` ({'params': ..., 'batch_stats': ...}, nested
+``DosePyfer``, ``TranSeg`` or ``CascadeC3D`` ({'params': ..., 'batch_stats': ...}, nested
 dicts of numpy arrays) onto ``model``'s state dict: every entry of the state
 dict must come from the tree and every leaf of the tree must be used, or it
 raises. The port's module names are the reference torch names, so the key
 maps are the inverse of dose_prediction_tpu/core/torch_import.py's
-``pyfer_key_map`` / ``transeg_key_map``; the port keeps its own copy of
+``pyfer_key_map`` / ``transeg_key_map`` / ``c3d_key_map``; the port keeps its own copy of
 those maps (for the module names the port builds) and of the layout rules:
 
 - Conv3d (O, I, k..) ↔ flax (k.., I, O); ConvTranspose3d (I, O, k..) ↔
@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from dose_prediction_tpu_torch.models import DosePyfer, TranSeg
+from dose_prediction_tpu_torch.models import CascadeC3D, DosePyfer, TranSeg
 
 Path = Tuple[str, ...]
 
@@ -48,16 +48,17 @@ def _c3d_path(key: str) -> Optional[Path]:
     return None
 
 
+# net_A of DOSE-PYFER, net_A and net_B of the C3D cascade
 _C3D_PATTERNS = [
-    (re.compile(r"^(net_A)\.encoder\.encoder_(\d)\.(\d)\.single_conv\.([01])$"),
+    (re.compile(r"^(net_[AB])\.encoder\.encoder_(\d)\.(\d)\.single_conv\.([01])$"),
      lambda m: (m[1], "encoder", f"encoder_{m[2]}_conv{int(m[3]) + 1}",
                 "conv" if m[4] == "0" else "norm")),
-    (re.compile(r"^(net_A)\.decoder\.decoder_conv_(\d)\.(\d)\.single_conv\.([01])$"),
+    (re.compile(r"^(net_[AB])\.decoder\.decoder_conv_(\d)\.(\d)\.single_conv\.([01])$"),
      lambda m: (m[1], "decoder", f"decoder_{m[2]}_conv{int(m[3]) + 1}",
                 "conv" if m[4] == "0" else "norm")),
-    (re.compile(r"^(net_A)\.decoder\.upconv_(\d)\.conv\.([01])$"),
+    (re.compile(r"^(net_[AB])\.decoder\.upconv_(\d)\.conv\.([01])$"),
      lambda m: (m[1], "decoder", f"upconv_{m[2]}", "conv", "conv" if m[3] == "0" else "norm")),
-    (re.compile(r"^(conv_out_A)$"), lambda m: (m[1],)),
+    (re.compile(r"^(conv_out_[AB])$"), lambda m: (m[1],)),
 ]
 
 # the ViT trunk and the UnetrBasicBlock / UnetrPrUpBlock skip encoders;
@@ -137,6 +138,11 @@ def transeg_key_map(module_key: str) -> Optional[Path]:
     return _match(_TRANSEG, module_key)
 
 
+def c3d_key_map(module_key: str) -> Optional[Path]:
+    """Port (= reference) module key of CascadeC3D → flax path."""
+    return _c3d_path(module_key)
+
+
 def is_transposed(module_key: str) -> bool:
     """Modules holding ConvTranspose3d weights: the UnetrPrUpBlock chains and
     the decoder transposed convs."""
@@ -147,6 +153,7 @@ def is_transposed(module_key: str) -> bool:
 _KEY_MAPS: Dict[type, Callable[[str], Optional[Path]]] = {
     DosePyfer: pyfer_key_map,
     TranSeg: transeg_key_map,
+    CascadeC3D: c3d_key_map,
 }
 # torch leaf → (flax collection, flax leaf); 'weight' depends on rank
 _LEAVES = {
@@ -176,7 +183,7 @@ def _leaves(tree: Mapping, prefix: Path = ()) -> Dict[Path, Any]:
 
 
 def jax_to_torch(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """State dict for ``model`` (a DosePyfer or TranSeg) from the JAX
+    """State dict for ``model`` (a DosePyfer, TranSeg or CascadeC3D) from the JAX
     package's variables of the same configuration. Raises if an entry of the
     state dict has no source, a shape differs, or a JAX leaf is left over;
     the result loads with ``model.load_state_dict(sd, strict=True)``."""
