@@ -75,6 +75,25 @@ def make_cascade_c3d_train_step(model: nn.Module, optimizer: torch.optim.Optimiz
     return step
 
 
+def make_transeg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer
+                            ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                          Tuple[TrainState, torch.Tensor]]:
+    """The OAR-TranSeg step (steps.py:174-204; train_light_transeg.py:193-198):
+    DiceCE on crops. ``batch``: ``ct (N, D, H, W, 1)`` and ``labels (N, D, H,
+    W)`` of any integer type (uint8 on the wire), widened to int64 on their
+    device for one_hot and gather. The seg family's BatchNorms update their
+    running statistics."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(to_ncdhw(batch["ct"]))
+        loss = L.dice_ce_loss(logits, batch["labels"].long())
+        return _apply_update(state, optimizer, loss)
+
+    return step
+
+
 def make_pyfer_eval_step(model: nn.Module) -> Callable[[Dict[str, torch.Tensor]], Dict]:
     """``step(batch)``: a full-volume eval-mode forward, the val loss of the
     full-resolution head, the ×70 masked dose score and the post-processed
