@@ -19,6 +19,7 @@ from torch import nn
 
 from dose_prediction_tpu_torch.device import resolve_device
 from dose_prediction_tpu_torch.models.c3d import BaseUNet
+from dose_prediction_tpu_torch.nn import remat
 from dose_prediction_tpu_torch.nn.layers import Conv3d
 from dose_prediction_tpu_torch.nn.unetr import ModifiedUnetrUpBlock, UnetrBasicBlock, UnetrPrUpBlock
 from dose_prediction_tpu_torch.nn.vit import ViT, tokens_to_volume
@@ -47,9 +48,13 @@ class ViTEncoder(nn.Module):
 
 
 class PyMSCDecoder(nn.Module):
-    def __init__(self, feature_size: int, hidden: int, act: str):
+    """Four ModifiedUnetrUpBlock stages; ``remat_blocks`` recomputes each
+    stage's activations in the backward (JAX dose_pyfer.py:83-97)."""
+
+    def __init__(self, feature_size: int, hidden: int, act: str, remat_blocks: bool = False):
         super().__init__()
         fs = feature_size
+        self.remat_blocks = remat_blocks
         self.decoder4 = ModifiedUnetrUpBlock(hidden, fs * 8, act)
         self.decoder3 = ModifiedUnetrUpBlock(fs * 8, fs * 4, act)
         self.decoder2 = ModifiedUnetrUpBlock(fs * 4, fs * 2, act)
@@ -57,10 +62,11 @@ class PyMSCDecoder(nn.Module):
 
     def forward(self, enc: List[torch.Tensor]) -> List[torch.Tensor]:
         e1, e2, e3, e4, e5 = enc
-        dec4 = self.decoder4(e5, e4)
-        dec3 = self.decoder3(dec4, e3)
-        dec2 = self.decoder2(dec3, e2)
-        dec1 = self.decoder1(dec2, e1)
+        call = remat.checkpoint if self.remat_blocks else (lambda block, *a: block(*a))
+        dec4 = call(self.decoder4, e5, e4)
+        dec3 = call(self.decoder3, dec4, e3)
+        dec2 = call(self.decoder2, dec3, e2)
+        dec1 = call(self.decoder1, dec2, e1)
         return [dec1, dec2, dec3, dec4]
 
 
@@ -68,11 +74,12 @@ class MainSubsetModel(nn.Module):
     """net_B: ViT encoder + pyramid decoder + deep-supervision heads."""
 
     def __init__(self, in_ch: int, out_ch: int, img_size, feature_size: int,
-                 hidden: int, mlp_dim: int, num_layers: int, heads: int, act: str):
+                 hidden: int, mlp_dim: int, num_layers: int, heads: int, act: str,
+                 remat_blocks: bool = False):
         super().__init__()
         self.encoder = ViTEncoder(in_ch, img_size, feature_size, hidden, mlp_dim,
                                   num_layers, heads)
-        self.decoder = PyMSCDecoder(feature_size, hidden, act)
+        self.decoder = PyMSCDecoder(feature_size, hidden, act, remat_blocks)
         self.dose_convertors = nn.ModuleList(
             [nn.Sequential(Conv3d(feature_size * 2 ** i, out_ch, 1, bias=True))
              for i in range(4)])
@@ -90,19 +97,21 @@ class DosePyfer(nn.Module):
 
     Defaults are the flagship config (train_light_pyfer.py:73-83): 9 input
     channels, 128³, feature size 16, an 8-layer ViT-768 with 6 heads, Mish.
-    ``img_size`` fixes the ViT's token grid (img_size / 16)."""
+    ``img_size`` fixes the ViT's token grid (img_size / 16).
+    ``remat_blocks`` recomputes each decoder stage in the backward
+    (nn/remat.py); the parameters are the same."""
 
     def __init__(self, in_ch: int = 9, out_ch: int = 1, img_size=128,
                  list_ch_A: Sequence[int] = (-1, 16, 32, 64, 128, 256),
                  feature_size: int = 16, hidden_size: int = 768, mlp_dim: int = 3072,
                  num_layers: int = 8, num_heads: int = 6, act: str = "mish",
-                 device="cuda"):
+                 remat_blocks: bool = False, device="cuda"):
         super().__init__()
         with torch.device(resolve_device(device)):
             self.net_A = BaseUNet(in_ch, list_ch_A)
             self.net_B = MainSubsetModel(in_ch + list_ch_A[1], out_ch, img_size,
                                          feature_size, hidden_size, mlp_dim, num_layers,
-                                         num_heads, act)
+                                         num_heads, act, remat_blocks)
             self.conv_out_A = Conv3d(list_ch_A[1], out_ch, 1, bias=True)
 
     def forward(self, x: torch.Tensor, stop_gradient_a: bool = False

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from dose_prediction_tpu_torch.device import resolve_device
+from dose_prediction_tpu_torch.nn import remat
 from dose_prediction_tpu_torch.nn.unetr import (
     ModifiedUnetOutBlock,
     ModifiedUnetrUpBlock,
@@ -30,14 +31,17 @@ class TranSeg(nn.Module):
     """``forward(x)`` on ``(N, in_ch, D, H, W)`` returns ``(N, out_ch, D, H,
     W)`` logits; (D, H, W) is ``img_size``, or with ``trained_grid`` any
     multiple of the patch. Defaults: 1 input channel, 7 OARs + background,
-    96³ windows, feature size 16, a 12-layer ViT-768 with 12 heads."""
+    96³ windows, feature size 16, a 12-layer ViT-768 with 12 heads.
+    ``remat_blocks`` recomputes each decoder stage in the backward (JAX
+    transeg.py:55-101, nn/remat.py); the parameters are the same."""
 
     def __init__(self, in_ch: int = 1, out_ch: int = 8, img_size=96, feature_size: int = 16,
                  hidden_size: int = 768, mlp_dim: int = 3072, num_layers: int = 12,
                  num_heads: int = 12, act: str = "relu", patch_size: int = 16,
-                 trained_grid=None, device="cuda"):
+                 trained_grid=None, remat_blocks: bool = False, device="cuda"):
         super().__init__()
         self.num_layers = num_layers
+        self.remat_blocks = remat_blocks
         fs = feature_size
         with torch.device(resolve_device(device)):
             self.vit = ViT(in_ch, img_size, patch_size, hidden_size, mlp_dim, num_layers,
@@ -59,7 +63,8 @@ class TranSeg(nn.Module):
         enc2 = self.encoder2(tokens_to_volume(hidden[i], grid))
         enc3 = self.encoder3(tokens_to_volume(hidden[2 * i], grid))
         enc4 = self.encoder4(tokens_to_volume(hidden[3 * i], grid))
-        dec3 = self.decoder5(tokens_to_volume(z, grid), enc4)
-        dec2 = self.decoder4(dec3, enc3)
-        dec1 = self.decoder3(dec2, enc2)
-        return self.out(self.decoder2(dec1, enc1))
+        call = remat.checkpoint if self.remat_blocks else (lambda block, *a: block(*a))
+        dec3 = call(self.decoder5, tokens_to_volume(z, grid), enc4)
+        dec2 = call(self.decoder4, dec3, enc3)
+        dec1 = call(self.decoder3, dec2, enc2)
+        return self.out(call(self.decoder2, dec1, enc1))

@@ -15,6 +15,7 @@ from torch import nn
 from dose_prediction_tpu_torch import ops
 from dose_prediction_tpu_torch.core.config import FLAGS
 from dose_prediction_tpu_torch.kernels import instance_norm as k2
+from dose_prediction_tpu_torch.nn import remat
 
 
 class Conv3d(nn.Conv3d):
@@ -99,13 +100,14 @@ class InstanceNorm3d(nn.InstanceNorm3d):
 
 class BatchNorm3d(nn.BatchNorm3d):
     """BatchNorm3d: running statistics in eval, batch statistics (and a
-    running-statistics update) in training."""
+    running-statistics update) in training. A checkpoint's recompute
+    (nn/remat.py) leaves the running statistics as the forward left them."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y, new_mean, new_var = ops.batch_norm(
             x, self.weight, self.bias, self.running_mean, self.running_var,
             training=self.training, momentum=self.momentum, eps=self.eps)
-        if self.training:
+        if self.training and remat.updates_batch_stats():
             with torch.no_grad():
                 self.running_mean.copy_(new_mean)
                 self.running_var.copy_(new_var)

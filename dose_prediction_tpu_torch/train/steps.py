@@ -1,12 +1,14 @@
-"""DOSE-PYFER train and eval steps (counterpart of
-dose_prediction_tpu/train/steps.py::make_pyfer_train_step, :24-84, and
-make_pyfer_eval_step, :87-…; reference train_light_pyfer.py:122-174).
+"""Train and eval steps (counterpart of dose_prediction_tpu/train/steps.py):
+the DOSE-PYFER step (:24-84) and eval step (:87-119), the C3D cascade's
+step (:122-144) and the OAR-TranSeg step (:174-204); reference
+train_light_{pyfer,c3d,transeg}.py.
 
 Batches keep the JAX package's channels-last layout at this boundary:
 ``input (N, D, H, W, 9)`` and ``gt (N, D, H, W, 2)`` (dose ÷ 70, possible-dose
 mask); the steps permute once to NCDHW. The model computes in the dtype of
-``batch['input']`` with float32 parameters. Not ported yet: ``remat``
-(torch.utils.checkpoint), the ``packed`` feed and ``donate``.
+``batch['input']`` with float32 parameters. Not ported: the ``packed``
+feed (it waits for data/packed.py) and ``donate`` (the steps update in
+place).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from dose_prediction_tpu_torch.evaluation.metrics import postprocess_prediction
+from dose_prediction_tpu_torch.nn import remat as R
 from dose_prediction_tpu_torch.train import losses as L
 from dose_prediction_tpu_torch.train.state import TrainState, update_moving_loss
 
@@ -27,18 +30,25 @@ def to_ncdhw(t: torch.Tensor) -> torch.Tensor:
 
 
 def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
-                          delta1: float = 10.0, delta2: float = 8.0, freeze: bool = True
+                          delta1: float = 10.0, delta2: float = 8.0, freeze: bool = True,
+                          remat: bool = False
                           ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                         Tuple[TrainState, torch.Tensor]]:
     """``step(state, batch) -> (state, loss)``: GenLoss deep supervision over
     the cascade output, net_A frozen by default (run without autograd). The
     model's parameters, BatchNorm statistics and the optimizer are updated in
-    place; the returned state carries the next step count and moving loss."""
+    place; the returned state carries the next step count and moving loss.
+    ``remat`` recomputes the whole model call in the backward (steps.py:54-55,
+    ``jax.checkpoint``; nn/remat.py), with BatchNorm statistics updated once."""
+
+    def apply(x: torch.Tensor):
+        return model(x, stop_gradient_a=freeze)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        preds = model(to_ncdhw(batch["input"]), stop_gradient_a=freeze)
+        x = to_ncdhw(batch["input"])
+        preds = R.checkpoint(apply, x) if remat else apply(x)
         loss = L.gen_loss(preds, to_ncdhw(batch["gt"]), delta1=delta1, delta2=delta2,
                           cascade=True, freeze=freeze)
         return _apply_update(state, optimizer, loss)
