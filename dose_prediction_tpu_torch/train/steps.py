@@ -107,8 +107,10 @@ def make_transeg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer
 def make_pyfer_eval_step(model: nn.Module) -> Callable[[Dict[str, torch.Tensor]], Dict]:
     """``step(batch)``: a full-volume eval-mode forward, the val loss of the
     full-resolution head, the ×70 masked dose score and the post-processed
-    prediction (NDHWC, Gy). The JAX step's batched-validation branch
-    (``batch['valid']``, for a data-parallel mesh) is not ported."""
+    prediction (NDHWC, Gy). With ``batch['valid']`` (B,), the batched
+    validation of steps.py:100-115 (several patients a program, pad rows
+    weighted 0): only ``val_loss_mean``, ``dose_score_mean`` (per-sample
+    masked L1s weighted by validity) and ``n_valid``."""
 
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -118,6 +120,14 @@ def make_pyfer_eval_step(model: nn.Module) -> Callable[[Dict[str, torch.Tensor]]
         gt = to_ncdhw(batch["gt"])
         gt_dose, mask = gt[:, 0:1], gt[:, 1:2]
         post = postprocess_prediction(pred, mask)
+        valid = batch.get("valid")
+        if valid is not None:
+            v = valid.float()
+            per_loss = L.masked_l1_per_sample(pred, gt_dose, mask)
+            per_score = L.masked_l1_per_sample(post, 70.0 * gt_dose, mask)
+            n = v.sum().clamp_min(1.0)
+            return {"val_loss_mean": (per_loss * v).sum() / n,
+                    "dose_score_mean": (per_score * v).sum() / n, "n_valid": v.sum()}
         return {"val_loss": L.gen_loss(pred, gt, mode="val"),
                 "dose_score": L.masked_l1(post, 70.0 * gt_dose, mask),
                 "prediction": post.permute(0, 2, 3, 4, 1)}

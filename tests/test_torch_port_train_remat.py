@@ -129,3 +129,29 @@ def test_checkpoint_is_a_plain_call_without_autograd():
     remat.checkpoint(fn, x).sum().backward()        # forward, then one recompute
     assert calls == [True, True, False]
     assert torch.allclose(x.grad, 2 * torch.ones(3).exp() ** 2)
+
+
+def test_batched_eval_matches_jax():
+    """Three samples, the last a pad row (valid 0): the scalars only."""
+    model = M.port_dose()
+    variables, _ = M.to_jax(model, M.jax_dose(), TI.import_pyfer, (1, M.SIZE, M.SIZE, M.SIZE, 9))
+    xs, gts = zip(*(T.batch(seed=s) for s in (5, 6, 7)))
+    x, gt = np.concatenate(xs), np.concatenate(gts)
+    valid = np.array([1, 1, 0], np.int32)
+    jstate = JS.TrainState(step=0, params=variables["params"],
+                           batch_stats=variables["batch_stats"], opt_state=None,
+                           moving_loss=0.0)
+    want = JSTEP.make_pyfer_eval_step(M.jax_dose())(jstate, {"input": x, "gt": gt,
+                                                             "valid": valid})
+    got = steps.make_pyfer_eval_step(model)({"input": torch.from_numpy(x),
+                                             "gt": torch.from_numpy(gt),
+                                             "valid": torch.from_numpy(valid)})
+    assert sorted(got) == sorted(want) == ["dose_score_mean", "n_valid", "val_loss_mean"]
+    assert float(got["n_valid"]) == float(want["n_valid"]) == 2.0
+    assert abs(float(got["val_loss_mean"]) - float(want["val_loss_mean"])) <= 1e-4
+    assert abs(float(got["dose_score_mean"]) - float(want["dose_score_mean"])) <= 70 * 1e-4
+    # the pad row is weighted out: the mean over the two valid samples alone
+    two = steps.make_pyfer_eval_step(model)({"input": torch.from_numpy(x[:2]),
+                                             "gt": torch.from_numpy(gt[:2]),
+                                             "valid": torch.ones(2)})
+    assert abs(float(two["val_loss_mean"]) - float(got["val_loss_mean"])) <= 1e-6
