@@ -9,12 +9,14 @@ Phases, each printing its seconds on a line of its own:
             limit as nvidia-smi reports them;
 2. build    build the CUDA kernels (one nvcc process per csrc/*.cu, all
             in parallel, then one link);
-3. kernels  hold K1 (attention, at the sliding TranSeg's, DOSE-PYFER's and
-            the dense TranSeg's shapes), K2 (instance norm, at the eleven
-            shapes a serve request gives it in bfloat16, the dense TranSeg's
-            among them, and two in float32) and K3
+3. kernels  hold K1 (attention, at the sliding TranSeg's, DOSE-PYFER's,
+            the dense TranSeg's and the TranSeg train step's shapes), K2
+            (instance norm, at the eleven shapes a serve request gives it in
+            bfloat16, the dense TranSeg's among them, the ten of the TranSeg
+            and C3D train steps, and two in float32) and K3
             (same-size 3x3x3 conv, at the eight shapes of the C3D, DOSE-PYFER
-            and TranSeg convs it takes) against their plain PyTorch
+            and TranSeg convs it takes in a serve_k3 request and the six of
+            the routed train steps) against their plain PyTorch
             versions, in float32 and bfloat16, and time kernel, plain
             version and one PyTorch library call computing the same function
             (a yardstick the port never calls), beside the least time the
@@ -56,10 +58,27 @@ Phases, each printing its seconds on a line of its own:
             PyTorch's TF32 defaults (cuDNN float32 convolutions in TF32):
             one warm-up and five timed steps on a fixed batch, each step's
             launches and backward recomputes of K1, K2 and K3, peak memory,
-            one step under the profiler; then the same with the routing off;
+            one step under the profiler (its launches beside the per-leaf
+            Adam's of PR 11); then the same with the routing off;
 13. train_parity  one float32 step (TF32 off) from identical weights and
             batch through the kernels and through their plain versions: the
             loss and every gradient leaf;
+14. train_seg  the full-width TranSeg (12-layer ViT-768, 12 heads, 8
+            classes) train step on one seeded 96³ crop, bfloat16 compute,
+            AdamW, K3 routing on: one warm-up and five timed steps, the
+            launches and recomputes per step by kernel, peak memory, one
+            step under the profiler;
+15. train_c3d  the full-width C3D cascade step at 128³, batch 1, bfloat16,
+            split encoder/decoder rates on a cosine schedule, K3 routing on:
+            three timed steps after a warm-up, the same readings, each
+            update's rates beside the schedule's closed form;
+16. train_options  the DOSE-PYFER step of phase 12 with remat, then
+            remat_blocks, then grad_accum=2, then adam8bit: p50, peak memory,
+            optimizer state bytes; the remat steps' first loss against the
+            plain step's, grad_accum's parameters unchanged after its first
+            call;
+17. train_seg_parity  one float32 TranSeg step as phase 13 holds the
+            DOSE-PYFER step, with the K3 routing off and on;
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -88,25 +107,43 @@ SEED = 0
 DOSE_TOL_OF_SCALE = 1e-3     # f32 cascade: |dose_kernels - dose_plain| ≤ 1e-3 × 70 Gy
 LABEL_AGREEMENT_MIN = 0.999
 
-# TranSeg windows, DOSE-PYFER, the dense TranSeg at 128³ (8³ tokens)
-K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (1, 12, 512, 64)]
+# TranSeg windows, DOSE-PYFER, the dense TranSeg at 128³ (8³ tokens), the
+# TranSeg train step (one 96³ crop)
+K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (1, 12, 512, 64), (1, 12, 216, 64)]
 # every shape a bf16 serve request gives K2: the TranSeg windows' (8 per
 # call) decoder levels, then DOSE-PYFER's at 128³ (the dense TranSeg's five
-# shapes are among these: the dense phase fails on any other); float32 at
-# the first two
+# shapes are among these: the dense phase fails on any other); then the
+# TranSeg train step's (one 96³ crop) and the C3D cascade's at 128³ (counted
+# on the CPU with meta tensors, tests/test_torch_port_train_shapes.py);
+# float32 at the first two
 K2_SHAPES = [(8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
              (8, 32, 24, 24, 24), (8, 128, 12, 12, 12), (1, 16, 128, 128, 128),
              (1, 32, 64, 64, 64), (1, 64, 32, 32, 32), (1, 32, 32, 32, 32),
-             (1, 128, 16, 16, 16), (1, 256, 8, 8, 8)]
+             (1, 128, 16, 16, 16), (1, 256, 8, 8, 8),
+             (1, 16, 96, 96, 96), (1, 32, 48, 48, 48), (1, 64, 24, 24, 24),
+             (1, 32, 24, 24, 24), (1, 128, 12, 12, 12),
+             (1, 32, 128, 128, 128), (1, 64, 64, 64, 64), (1, 128, 32, 32, 32),
+             (1, 256, 16, 16, 16), (1, 512, 8, 8, 8)]
+K2_SERVE_SHAPES = K2_SHAPES[:11]      # each must take the single-read path
 K2_F32_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96)]
 # every shape a bf16 serve_k3 request gives K3: C3D / DOSE-PYFER levels 1-3
 # at 128³, the TranSeg windows' levels at 96³, then the decoders' two
-# narrower convs (appended, so that K3_SHAPES[3] stays the kernels line's)
+# narrower convs (appended, so that K3_SHAPES[3] stays the kernels line's);
+# then the routed TranSeg train step's and C3D cascade's
 K3_SHAPES = [(1, 16, 128, 128, 128), (1, 32, 64, 64, 64), (1, 64, 32, 32, 32),
              (8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
-             (8, 32, 24, 24, 24), (1, 32, 32, 32, 32)]
+             (8, 32, 24, 24, 24), (1, 32, 32, 32, 32),
+             (1, 16, 96, 96, 96), (1, 32, 48, 48, 48), (1, 64, 24, 24, 24),
+             (1, 32, 24, 24, 24), (1, 32, 128, 128, 128), (1, 64, 64, 64, 64)]
 TRAIN_LR, TRAIN_WD = 6.130697604327541e-4, 1.6303111017674179e-4   # train/trainers.py:56-57
 TRAIN_STEPS = 5
+SEG_STEPS, C3D_STEPS, OPTION_STEPS = 5, 3, 3
+# train_c3d: CascadeC3DTrainer's split rates on a cosine schedule
+# (train/trainers.py:766-792), a horizon short enough to move in the run
+C3D_LR_ENCODER, C3D_LR_DECODER, C3D_T_MAX = 3e-4, 1e-3, 6
+# the launches in one profiled train step, routing on, before the
+# multi-tensor Adam: the "other" group of PERF.md §5 (PR 11)
+PR11_TRAIN_OTHER_LAUNCHES = 5579
 TRAIN_PARITY_NOISE = 1e-6
 # train_parity: conv biases of the Conv31 blocks feed a norm, so their exact
 # gradient is 0 and both sides give rounding noise there
@@ -317,7 +354,8 @@ def check_k2(k2, F, g, dev, shape, dtype):
         lambda x, s, b: F.instance_norm(x, weight=s, bias=b, eps=1e-5),
         (x, scale, bias), dtype, nbytes=2 * x.numel() * x.element_size(),
         ops=8 * x.numel(), iters=20 if x.numel() < 2 ** 24 else 10, graphs=True)
-    if path != k2.SINGLE_READ or k2.instance_norm_act.two_kernel_launches > before:
+    two_kernel = path != k2.SINGLE_READ or k2.instance_norm_act.two_kernel_launches > before
+    if two_kernel and shape in K2_SERVE_SHAPES:
         raise AssertionError(f"K2 {shape}: a serve shape took the two-kernel path")
     row.update(path=path, chunk=chunk, chunks_per_plane=-(-s // chunk), resident=resident)
     forced = {}
@@ -623,7 +661,10 @@ def profiled(fn, label: str):
     for us, count, name in sorted(kernels, reverse=True)[:12]:
         log(f"profile {label} kernel {us / 1e3:.3f} ms x{count}: {name[:110]}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
-            "groups_ms": {g: v[0] / 1e3 for g, v in groups.items()}}
+            "idle_share": 1 - busy_us / wall_us,
+            "groups_ms": {g: v[0] / 1e3 for g, v in groups.items()},
+            "groups_launches": {g: v[1] for g, v in groups.items()},
+            "launches": sum(v[1] for v in groups.values())}
 
 
 def phase_profile(dev, seg, dose, stage1, stage2, route_k3=False):
@@ -757,14 +798,14 @@ def phase_routes(dev, seg, dose, stage1, stage2, serve):
     return rows
 
 
-def seeded_pyfer(dev):
+def seeded_pyfer(dev, **kwargs):
     """A full-width DOSE-PYFER drawn from one seed: two calls give identical
-    weights."""
+    weights (``remat_blocks`` changes no parameter)."""
     from dose_prediction_tpu_torch.models import DosePyfer
     from dose_prediction_tpu_torch.nn.init import init_params
 
     g = torch.Generator(dev).manual_seed(SEED + 3)
-    return perturb_norms([init_params(DosePyfer(device=dev), g)], g)[0]
+    return perturb_norms([init_params(DosePyfer(device=dev, **kwargs), g)], g)[0]
 
 
 def seeded_batch(dev, dtype):
@@ -782,14 +823,16 @@ def seeded_batch(dev, dtype):
             "gt": torch.stack([dose, mask], dim=-1)}
 
 
-def make_trainer(dev):
+def make_trainer(dev, *, remat=False, remat_blocks=False, kind="adamw", grad_accum=1):
     from dose_prediction_tpu_torch.train import state as S
     from dose_prediction_tpu_torch.train import steps
 
-    model = seeded_pyfer(dev)
+    model = seeded_pyfer(dev, remat_blocks=remat_blocks)
     opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD,
-                           freeze_labels=S.cascade_freeze_labels(model), kind="adamw")
-    step = steps.make_pyfer_train_step(model, opt, delta1=10.0, delta2=8.0, freeze=True)
+                           freeze_labels=S.cascade_freeze_labels(model), kind=kind,
+                           grad_accum=grad_accum)
+    step = steps.make_pyfer_train_step(model, opt, delta1=10.0, delta2=8.0, freeze=True,
+                                       remat=remat)
     return model, step, S.TrainState(model, opt)
 
 
@@ -856,6 +899,12 @@ def train_steps_both_routes(dev):
     p50_off = sorted(times_off)[len(times_off) // 2]
     log(f"train bf16 (K3 routing off, cuDNN): step seconds {times_off}, p50 {p50_off} s; "
         f"K3 launches {[r['launches']['conv3d_k3'] for r in rows_off]}")
+    for label, pr in (("routing on", prof), ("routing off", prof_off)):
+        if pr is not None:
+            log(f"train bf16 ({label}) under the profiler, multi-tensor Adam: "
+                f"{pr['launches']} kernel launches in the step, {pr['groups_launches'].get('other', 0)} "
+                f"in the 'other' group (PR 11, per-leaf Adam, routing on: "
+                f"{PR11_TRAIN_OTHER_LAUNCHES}); idle share {pr['idle_share']:.3f}")
     ok = ok and all(r["launches"]["conv3d_k3"] == 0 and math.isfinite(r["loss"])
                     for r in rows_off)
     if not ok:
@@ -889,30 +938,18 @@ def noisy_plain_kernels(k1, k2, k3, rel: float, seed: int, dev):
         yield
 
 
-def phase_train_parity(dev, kernels):
-    """One float32 step (TF32 off, routing on) from identical weights and
-    batch: through the kernels, through their plain versions, and through
-    the plain versions with TRAIN_PARITY_NOISE relative noise on their
-    outputs (the order of the kernels' own float32 deviation from their
-    plain versions in the kernels phase). The loss must agree to a relative 1e-5.
-    A gradient leaf must agree to a max abs of 1e-3 × its max |g|, or, where
-    the step itself amplifies rounding noise past that, to 2 × the worst
-    leaf-relative deviation that the noise run shows (the model's
-    normalisations turn 1e-6 forward differences into percent-level
-    differences of some leaves, kernels or not), with a floor of 2e-6 × the
-    model's largest |g|. Conv biases that feed a norm have a zero gradient
-    in exact arithmetic and must be below 1e-5 × the largest on both sides
-    (tests/test_torch_port_train.py states the first and last limits on
-    the CPU)."""
-    import re
-
+def parity_runs(make, batch, kernels, route_k3, dev):
+    """One float32 step of ``make()`` (a fresh model, step and state, the same
+    weights each call) on ``batch``: through the kernels, through their
+    plain versions, and through the plain versions with TRAIN_PARITY_NOISE
+    relative noise on their outputs. Each run's loss, gradients and kernel
+    launches."""
     k1, k2, k3 = kernels
-    batch = seeded_batch(dev, torch.float32)
     runs = {}
     for name, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels(*kernels)),
                       ("noise", noisy_plain_kernels(k1, k2, k3, TRAIN_PARITY_NOISE, SEED, dev))):
-        model, step, state = make_trainer(dev)
-        with k3_routing(True), ctx:
+        model, step, state = make()
+        with k3_routing(route_k3), ctx:
             zero_counts()
             _, loss = step(state, batch)
             torch.cuda.synchronize()
@@ -920,6 +957,23 @@ def phase_train_parity(dev, kernels):
                  if p.grad is not None}
         runs[name] = (float(loss), grads, read_counts())
         del model, step, state
+    return runs
+
+
+def check_step_parity(label, runs, route_k3):
+    """The kernels run against the plain run (parity_runs). The loss must
+    agree to a relative 1e-5. A gradient leaf must agree to a max abs of
+    1e-3 × its max |g|, or, where the step itself amplifies rounding noise
+    past that, to 2 × the worst leaf-relative deviation that the noise run
+    shows (the model's normalisations turn 1e-6 forward differences into
+    percent-level differences of some leaves, kernels or not), with a floor
+    of 2e-6 × the model's largest |g|. Conv biases that feed a norm have a
+    zero gradient in exact arithmetic and must be below 1e-5 × the largest
+    on both sides (tests/test_torch_port_train.py states the first and last
+    limits on the CPU). The kernel run must launch K1 (where the model has
+    attention), K2, and K3 exactly where ``route_k3``."""
+    import re
+
     (loss_k, grads_k, launches_k), (loss_p, grads_p, _), (_, grads_n, _) = (
         runs["kernels"], runs["plain"], runs["noise"])
     g_max = max(g.abs().max().item() for g in grads_p.values())
@@ -940,18 +994,229 @@ def phase_train_parity(dev, kernels):
     failed += [n for n in zeros if max(grads_k[n].abs().max().item(),
                                        grads_p[n].abs().max().item()) > 1e-5 * g_max]
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"train_parity f32 (TF32 off, K3 routing on): loss kernels {loss_k} plain {loss_p}, "
+    route = "K3 routing on" if route_k3 else "K3 routing off"
+    log(f"{label} f32 (TF32 off, {route}): loss kernels {loss_k} plain {loss_p}, "
         f"relative diff {rel:.3g} (limit 1e-5); {len(grads_p)} gradient leaves, largest |g| "
         f"{g_max:.4g}; worst leaf err / its max|g|: kernels vs plain "
         f"{rel_err(grads_k, worst_k):.3g} ({worst_k}), noise run vs plain {noise_level:.3g} "
         f"({worst_n}); {over_1e3} of {len(leaves)} leaves over 1e-3, limit "
         f"max(1e-3, {2 * noise_level:.3g}); {len(zeros)} zero-gradient biases; leaves over "
         f"their limit: {failed[:5]}; kernel-run launches {launches_k}")
-    if set(grads_k) != set(grads_p) or rel > 1e-5 or failed or min(launches_k.values()) == 0:
-        raise AssertionError("train_parity failed")
+    routed = launches_k["conv3d_k3"] > 0 if route_k3 else launches_k["conv3d_k3"] == 0
+    if (set(grads_k) != set(grads_p) or rel > 1e-5 or failed or not routed
+            or launches_k["instance_norm"] == 0):
+        raise AssertionError(f"{label} parity failed ({route})")
     return {"loss_rel_diff": rel, "worst_leaf_rel_err": rel_err(grads_k, worst_k),
             "noise_worst_leaf_rel_err": noise_level, "leaves_over_1e-3": over_1e3,
-            "leaves": len(grads_p)}
+            "leaves": len(grads_p), "launches": launches_k}
+
+
+def phase_train_parity(dev, kernels):
+    """One float32 DOSE-PYFER step (TF32 off, routing on) from identical
+    weights and batch, by check_step_parity's rule."""
+    runs = parity_runs(lambda: make_trainer(dev), seeded_batch(dev, torch.float32), kernels,
+                       True, dev)
+    row = check_step_parity("train_parity", runs, True)
+    if row["launches"]["attention"] == 0:
+        raise AssertionError("train_parity: K1 was not launched")
+    return row
+
+
+def seeded_seg_batch(dev, dtype):
+    """One 96³ crop: a CT in ``dtype`` and uint8 labels of the 8 classes,
+    NDHWC as the TranSeg step takes them."""
+    g = torch.Generator(dev).manual_seed(SEED + 5)
+    ct = torch.randn((1, 96, 96, 96, 1), generator=g, device=dev)
+    labels = torch.randint(0, 8, (1, 96, 96, 96), generator=g, device=dev).to(torch.uint8)
+    return {"ct": ct.to(dtype), "labels": labels}
+
+
+def make_seg_trainer(dev):
+    """The full-width TranSeg as the serve path builds it (12-layer ViT-768,
+    12 heads, feature size 16, 8 classes, seg family), weights from one
+    seed, and AdamW at TRAIN_LR / TRAIN_WD (TranSegTrainer,
+    train/trainers.py:1025-1026)."""
+    from dose_prediction_tpu_torch.models import TranSeg
+    from dose_prediction_tpu_torch.nn.init import init_params
+    from dose_prediction_tpu_torch.train import state as S
+    from dose_prediction_tpu_torch.train import steps
+
+    g = torch.Generator(dev).manual_seed(SEED + 6)
+    model = perturb_norms([init_params(TranSeg(out_ch=8, device=dev), g)], g)[0]
+    opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+    return model, steps.make_transeg_train_step(model, opt), S.TrainState(model, opt)
+
+
+def make_c3d_trainer(dev):
+    """The full-width C3D cascade (list_ch (-1, 32, 64, 128, 256, 512) for
+    both U-Nets, 9 input channels) with the split encoder/decoder rates on
+    a cosine schedule, as CascadeC3DTrainer builds them."""
+    from dose_prediction_tpu_torch.models import CascadeC3D
+    from dose_prediction_tpu_torch.nn.init import init_params
+    from dose_prediction_tpu_torch.train import state as S
+    from dose_prediction_tpu_torch.train import steps
+
+    g = torch.Generator(dev).manual_seed(SEED + 7)
+    model = perturb_norms([init_params(CascadeC3D(device=dev), g)], g)[0]
+    opt = S.make_split_lr_optimizer(
+        model, lr_encoder=S.cosine_schedule(C3D_LR_ENCODER, C3D_T_MAX),
+        lr_decoder=S.cosine_schedule(C3D_LR_DECODER, C3D_T_MAX), weight_decay=TRAIN_WD)
+    return model, steps.make_cascade_c3d_train_step(model, opt), S.TrainState(model, opt)
+
+
+def train_readings(name, dev, step, state, batch, n, label):
+    """One warm-up and ``n`` timed steps (timed_steps), the peak memory, one
+    more step under the profiler; logs the steps and returns the readings."""
+    state, loss0, rows = timed_steps(dev, step, state, batch, n)
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = profiled(lambda: step(state, batch), label)
+    times = [r["s"] for r in rows]
+    losses = [loss0] + [r["loss"] for r in rows]
+    p50 = sorted(times)[len(times) // 2]
+    log(f"{name}: step seconds {times}, p50 {p50} s; losses (warm-up first) {losses}; "
+        f"launches per step {rows[-1]['launches']}, backward recomputes per step "
+        f"{rows[-1]['recomputes']}; peak memory {peak / 2 ** 30:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: a loss is not finite")
+    return state, {"p50_s": p50, "times_s": times, "losses": losses, "peak_gib": peak / 2 ** 30,
+                   "launches_per_step": rows[-1]["launches"],
+                   "recomputes_per_step": rows[-1]["recomputes"], "profile": prof}
+
+
+def phase_train_seg(dev):
+    """The full-width TranSeg step on one 96³ crop, bf16 compute, float32
+    parameters, K3 routing on, PyTorch's TF32 defaults: every kernel of the
+    path must launch and be recomputed in every step."""
+    model, step, state = make_seg_trainer(dev)
+    batch = seeded_seg_batch(dev, torch.bfloat16)
+    with torch_default_tf32(), k3_routing(True):
+        _, row = train_readings("train_seg bf16 (K3 routing on)", dev, step, state, batch,
+                                SEG_STEPS, "bf16 TranSeg train step (K3 routing on)")
+    if min(row["launches_per_step"].values()) == 0 or min(row["recomputes_per_step"].values()) == 0:
+        raise AssertionError(f"train_seg: a kernel of the path was not launched / recomputed "
+                             f"({row['launches_per_step']}, {row['recomputes_per_step']})")
+    return row
+
+
+def phase_train_c3d(dev):
+    """The full-width C3D cascade step at 128³, batch 1, bf16, K3 routing on,
+    split rates on a cosine schedule: each update's rate beside the
+    schedule's closed form (torch CosineAnnealingLR)."""
+    model, step, state = make_c3d_trainer(dev)
+    batch = seeded_batch(dev, torch.bfloat16)
+    opt = state.optimizer
+    applied = []
+
+    def step_and_rate(state, batch):
+        state, loss = step(state, batch)
+        applied.append((opt.count, [g["last_lr"] for g in opt.param_groups]))
+        return state, loss
+
+    with torch_default_tf32(), k3_routing(True):
+        _, row = train_readings("train_c3d bf16 (K3 routing on)", dev, step_and_rate, state,
+                                batch, C3D_STEPS, "bf16 C3D train step (K3 routing on)")
+    worst = 0.0
+    for count, rates in applied:
+        t = min(count - 1, C3D_T_MAX)
+        want = [0.5 * base * (1 + math.cos(math.pi * t / C3D_T_MAX))
+                for base in (C3D_LR_ENCODER, C3D_LR_DECODER)]
+        worst = max(worst, *(abs(r - w) / w for r, w in zip(rates, want)))
+        log(f"train_c3d update {count}: rates applied (encoder, decoder) {rates}, "
+            f"cosine schedule at count {count - 1} {want}")
+    launches = row["launches_per_step"]
+    if (launches["attention"] != 0 or launches["instance_norm"] == 0
+            or launches["conv3d_k3"] == 0 or worst > 1e-6):
+        raise AssertionError(f"train_c3d check failed (launches {launches}, worst rate "
+                             f"relative error {worst})")
+    row["rates"] = applied
+    return row
+
+
+def optimizer_state_bytes(opt) -> int:
+    """Bytes of the optimizer's state: Adam's moments (and grad_accum's
+    buffers) per leaf, or adam8bit's block state."""
+    from dose_prediction_tpu_torch.train.adam8bit import Adam8bit, state_nbytes
+
+    extra = sum(t.numel() * t.element_size() for st in opt.state.values()
+                for t in st.values() if torch.is_tensor(t))
+    return extra + (state_nbytes(opt) if isinstance(opt, Adam8bit) else 0)
+
+
+def phase_train_options(dev):
+    """Full-width DOSE-PYFER steps at 128³ as the train phase builds them,
+    one option at a time: remat, remat_blocks, grad_accum=2, adam8bit. The
+    remat runs' first loss must equal the plain step's on the same weights
+    and batch (train_parity's relative 1e-5); grad_accum=2 must leave every
+    parameter unchanged after its first call."""
+    batch = seeded_batch(dev, torch.bfloat16)
+    rows = {}
+    with torch_default_tf32(), k3_routing(True):
+        model, step, state = make_trainer(dev)
+        _, plain_loss = step(state, batch)
+        plain_loss = float(plain_loss)
+        plain_bytes = optimizer_state_bytes(state.optimizer)
+        del model, step, state
+        torch.cuda.empty_cache()
+        for name, kwargs in (("remat", dict(remat=True)), ("remat_blocks", dict(remat_blocks=True)),
+                             ("grad_accum=2", dict(grad_accum=2)),
+                             ("adam8bit", dict(kind="adam8bit"))):
+            model, step, state = make_trainer(dev, **kwargs)
+            unchanged = None
+            if name == "grad_accum=2":        # the first call accumulates only
+                before = [p.detach().clone() for p in model.parameters() if p.requires_grad]
+                state, _ = step(state, batch)
+                unchanged = state.optimizer.count == 0 and all(
+                    torch.equal(p, b) for p, b in
+                    zip((p for p in model.parameters() if p.requires_grad), before))
+                del before
+            state, loss0, timed = timed_steps(dev, step, state, batch, OPTION_STEPS)
+            peak = torch.cuda.max_memory_allocated(dev)
+            times = [r["s"] for r in timed]
+            row = {"p50_s": sorted(times)[len(times) // 2], "times_s": times,
+                   "losses": [loss0] + [r["loss"] for r in timed], "peak_gib": peak / 2 ** 30,
+                   "optimizer_state_bytes": optimizer_state_bytes(state.optimizer),
+                   "launches_per_step": timed[-1]["launches"]}
+            ok = all(math.isfinite(x) for x in row["losses"])
+            if name.startswith("remat"):
+                row["first_loss_rel_diff"] = abs(loss0 - plain_loss) / abs(plain_loss)
+                ok = ok and row["first_loss_rel_diff"] <= 1e-5
+            if unchanged is not None:
+                row["unchanged_after_first_call"] = unchanged
+                ok = ok and unchanged
+            log(f"train_options {name}: step seconds {times}, p50 {row['p50_s']} s; losses "
+                f"(warm-up first) {row['losses']}; peak memory {row['peak_gib']:.2f} GiB; "
+                f"optimizer state {row['optimizer_state_bytes'] / 2 ** 30:.3f} GiB (AdamW "
+                f"{plain_bytes / 2 ** 30:.3f} GiB); launches per step {row['launches_per_step']}"
+                + (f"; first loss vs the plain step's {plain_loss}: relative diff "
+                   f"{row['first_loss_rel_diff']:.3g} (limit 1e-5)"
+                   if "first_loss_rel_diff" in row else "")
+                + (f"; parameters unchanged after the first call: {unchanged}"
+                   if unchanged is not None else ""))
+            rows[name] = row
+            del model, step, state
+            torch.cuda.empty_cache()
+            if not ok:
+                raise AssertionError(f"train_options {name} check failed")
+    rows["plain_first_loss"] = plain_loss
+    rows["adamw_state_bytes"] = plain_bytes
+    return rows
+
+
+def phase_train_seg_parity(dev, kernels):
+    """One float32 full-width TranSeg step (TF32 off) through the kernels
+    against the plain versions, by check_step_parity's rule, with the K3
+    routing off and then on."""
+    batch = seeded_seg_batch(dev, torch.float32)
+    rows = {}
+    for route_k3 in (False, True):
+        runs = parity_runs(lambda: make_seg_trainer(dev), batch, kernels, route_k3, dev)
+        rows["k3" if route_k3 else "cudnn"] = check_step_parity("train_seg_parity", runs,
+                                                                route_k3)
+        if runs["kernels"][2]["attention"] == 0:
+            raise AssertionError("train_seg_parity: K1 was not launched")
+        del runs
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -1013,6 +1278,13 @@ def main() -> int:
         run("train", lambda: phase_train(dev))
         torch.cuda.empty_cache()
         run("train_parity", lambda: phase_train_parity(dev, (k1, k2, k3)))
+        for name, fn in (("train_seg", lambda: phase_train_seg(dev)),
+                         ("train_c3d", lambda: phase_train_c3d(dev)),
+                         ("train_options", lambda: phase_train_options(dev)),
+                         ("train_seg_parity", lambda: phase_train_seg_parity(dev, (k1, k2, k3)))):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            run(name, fn)
     except Exception:
         return 1
 
@@ -1022,7 +1294,11 @@ def main() -> int:
         f"sweep_volumes_per_sec {results['sweep']['sweep_volumes_per_sec']}; p50 with "
         + ", ".join(f"{k} {v['p50_s']} s" for k, v in results["routes"].items())
         + f"; train step p50 {results['train']['p50_s']} s with K3 routing, "
-        f"{results['train']['p50_s_routing_off']} s without; total "
+        f"{results['train']['p50_s_routing_off']} s without; train_seg p50 "
+        f"{results['train_seg']['p50_s']} s, train_c3d p50 {results['train_c3d']['p50_s']} s; "
+        + ", ".join(f"{k} p50 {v['p50_s']} s" for k, v in results["train_options"].items()
+                    if isinstance(v, dict))
+        + f"; total "
         f"{time.perf_counter() - t_start:.1f} s; on {smi}")
     kernels = []
     for name, source, replaces, shape, phase in (

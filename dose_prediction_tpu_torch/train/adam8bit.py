@@ -159,7 +159,7 @@ class Adam8bit(_Optimizer):
         b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
         t = torch.tensor(float(self.count), dtype=torch.float32)
         b1t, b2t = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** t) for b in (b1, b2))
-        lr = self.lr_at(group, self.count)
+        lr = group["last_lr"] = self.lr_at(group, self.count)
 
         def adam(m, v, g, flat, idx):
             m = b1 * m + (1 - b1) * g

@@ -87,7 +87,8 @@ class _Optimizer(torch.optim.Optimizer):
     optimizer (optax's ``count``), global-norm clipping in optax's order,
     gradient accumulation as ``optax.MultiSteps`` and the plateau's
     adjustable learning rate. Subclasses write ``_update(params, grads)``
-    for one group's trainable leaves (a gradient of None is zeros)."""
+    for one group's trainable leaves (a gradient of None is zeros) and
+    leave the rate they applied in the group's ``last_lr``."""
 
     def __init__(self, params, defaults: dict, *, grad_clip_norm: Optional[float] = None,
                  grad_accum: int = 1, injectable: bool = False):
@@ -221,7 +222,8 @@ class Adam(_Optimizer):
         torch._foreach_div_(u, den)
         if wd:
             torch._foreach_add_(u, torch._foreach_mul(params, wd))
-        torch._foreach_mul_(u, -self.lr_at(group, t - 1))
+        group["last_lr"] = self.lr_at(group, t - 1)
+        torch._foreach_mul_(u, -group["last_lr"])
         torch._foreach_add_(params, u)
 
 

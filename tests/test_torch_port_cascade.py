@@ -95,7 +95,9 @@ def test_stage2_dose_matches_jax(cascade):
 def test_port_runs_without_jax(tmp_path):
     """The port imports neither jax nor the JAX package: run the reduced
     cascade (its stages, then make_cascade_fn), pipeline_map, a K3-routed
-    conv and one DOSE-PYFER train step in a fresh interpreter and inspect
+    conv, one DOSE-PYFER train step, one C3D cascade step with the split
+    rates on a cosine schedule and one TranSeg step with remat_blocks,
+    adam8bit and grad_accum in a fresh interpreter and inspect
     sys.modules."""
     script = textwrap.dedent(f"""
         import sys
@@ -135,6 +137,20 @@ def test_port_runs_without_jax(tmp_path):
         state, loss = step(S.TrainState(dose, opt),
                            dict(input=s1(seg.state_dict(), ct, ptv), gt=gt))
         assert state.step == 1 and bool(torch.isfinite(loss))
+        from dose_prediction_tpu_torch.models import CascadeC3D
+        c3d = CascadeC3D(list_ch_A={M.LIST_CH!r}, list_ch_B={M.LIST_CH!r}, device="cpu")
+        opt = S.make_split_lr_optimizer(c3d, lr_encoder=S.cosine_schedule(1e-4, 5),
+                                        lr_decoder=1e-4)
+        state, loss = steps.make_cascade_c3d_train_step(c3d, opt)(
+            S.TrainState(c3d, opt), dict(input=s1(seg.state_dict(), ct, ptv)[:, :32, :32, :32],
+                                         gt=gt[:, :32, :32, :32]))
+        assert bool(torch.isfinite(loss))
+        seg_r = TranSeg(img_size=32, remat_blocks=True, device="cpu", **cfg)
+        opt = S.make_optimizer(seg_r, learning_rate=1e-4, kind="adam8bit", grad_accum=2)
+        state, loss = steps.make_transeg_train_step(seg_r, opt)(
+            S.TrainState(seg_r, opt), dict(ct=ct[:, :32, :32, :32],
+                                           labels=torch.zeros((1, 32, 32, 32), dtype=torch.uint8)))
+        assert bool(torch.isfinite(loss))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "dose_prediction_tpu"))
         print("FORBIDDEN", bad)

@@ -52,10 +52,11 @@ def card():
 
 # the main path's two shapes, then edge lengths (one key, one partial tile,
 # one key past a tile, one past eight tiles) at every head dim, then the
-# dense TranSeg's shape at 128³ (8³ tokens, 12 heads of 64)
+# dense TranSeg's shape at 128³ (8³ tokens, 12 heads of 64) and the TranSeg
+# train step's (one 96³ crop: block shape (2, 2))
 ATTENTION_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (2, 3, 70, 32)] + [
     (1, 3, length, dh) for length in (1, 16, 65, 513) for dh in (32, 64, 128)] + [
-    (1, 12, 512, 64)]
+    (1, 12, 512, 64), (1, 12, 216, 64)]
 
 
 def check_attention(card, shape, dtype):
@@ -278,7 +279,8 @@ def test_off_switches_stop_their_kernel_on_card(card, monkeypatch, switch):
 K3_CASES = [((2, 16, 5, 7, 13), True), ((1, 32, 9, 10, 20), False), ((1, 64, 4, 8, 16), True),
             ((3, 16, 6, 17, 33), True), ((1, 32, 6, 16, 24), True), ((1, 16, 4, 8, 48), False),
             ((1, 64, 1, 9, 12), True), ((2, 32, 2, 13, 7), True), ((8, 64, 3, 8, 16), True),
-            ((1, 16, 3, 33, 13), False)]
+            ((1, 16, 3, 33, 13), False),
+            ((1, 16, 96, 96, 96), True)]     # the routed TranSeg train step's first level
 
 
 def k3_inputs(card, shape, dtype, bias=True):
@@ -416,3 +418,65 @@ def test_train_step_on_card(card, monkeypatch):
         assert bool(torch.isfinite(loss))
         losses.append(float(loss))
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_instance_norm_at_the_c3d_train_step_shape_on_card(card, dtype):
+    """K2 at (1, 32, 128³), the C3D cascade's first level, on the path its
+    planner chooses for the card."""
+    shape = (1, 32, 128, 128, 128)
+    chunk, resident = k2.capacity(card.index or 0, dtype, True)
+    two_kernel = k2.plan(math.prod(shape[2:]), chunk, resident) != k2.SINGLE_READ
+    check_instance_norm(card, seeded_volume(card, shape, dtype), "relu", two_kernel=two_kernel)
+
+
+class _Leaves(torch.nn.Module):
+    """Leaves above adam8bit's min_quantize_size (4096): 5120 elements (the
+    last block padded) and 8192; below it: 100 and 3000."""
+
+    def __init__(self):
+        super().__init__()
+        for name, shape in (("a", (64, 80)), ("b", (8192,)), ("c", (100,)), ("d", (3000,))):
+            self.register_parameter(name, torch.nn.Parameter(torch.zeros(shape)))
+
+
+def optimizer_on(device, kind, seed=0):
+    """Three updates of ``kind`` with freeze-free AdamW weight decay, a
+    cosine schedule and clip 1.0, on fixed seeded parameters and gradients
+    (drawn on the CPU, then moved)."""
+    g = torch.Generator().manual_seed(seed)
+    model = _Leaves()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    grads = [[torch.randn(p.shape, generator=g) * 10.0 ** (torch.rand(p.shape, generator=g) * 4 - 3)
+              for p in model.parameters()] for _ in range(3)]
+    model = model.to(device)
+    opt = S.make_optimizer(model, learning_rate=S.cosine_schedule(1e-2, 4), weight_decay=1e-2,
+                           grad_clip_norm=1.0, kind=kind)
+    for step_grads in grads:
+        for p, gr in zip(model.parameters(), step_grads):
+            p.grad = gr.to(device)
+        opt.step()
+    return [p.detach().cpu() for p in model.parameters()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adamw", "adam8bit"])
+def test_optimizers_on_card_match_the_cpu(card, kind):
+    """The multi-tensor Adam and adam8bit on CUDA tensors against the same
+    three updates on the CPU. Adam: within 1e-6 (parameters of order 1;
+    the card's and the CPU's elementwise operations round alike, the clip's
+    norm sums in another order). adam8bit: the float32 log and exp of the
+    two devices may differ in a last bit, which can move a code by one step
+    where a value lies on a rounding boundary: all but 0.1 % of the
+    elements within 1e-6, and every element within 3 × 5 × lr (one step
+    moves an element by at most about 3 · lr)."""
+    cpu, gpu = optimizer_on("cpu", kind), optimizer_on(card, kind)
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(cpu, gpu)])
+    if kind == "adamw":
+        assert diffs.max().item() <= 1e-6
+    else:
+        assert (diffs > 1e-6).float().mean().item() <= 1e-3
+        assert diffs.max().item() <= 3 * 5 * 1e-2
