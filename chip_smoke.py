@@ -610,9 +610,11 @@ def phase_serve(dev, seg, dose, stage1, stage2, route_k3=False):
 
 
 # kernel-name fragments by group, first match wins (cuDNN's convolutions are
-# implicit GEMMs, so they are matched before the matmul fragments)
+# implicit GEMMs, so they are matched before the matmul fragments; the
+# optimizer's multi_tensor_apply_kernel before K2's apply_kernel)
 KERNEL_GROUPS = (("K3 conv3d_k3", ("conv3d_k3",)),
                  ("K1 attention", ("attention_fwd",)),
+                 ("multi-tensor optimizer", ("multi_tensor_apply",)),
                  ("K2 instance norm", ("instance_norm_kernel", "stats_kernel",
                                        "apply_kernel")),
                  ("memset (K2's counters among them)", ("memset",)),
@@ -902,9 +904,11 @@ def train_steps_both_routes(dev):
     for label, pr in (("routing on", prof), ("routing off", prof_off)):
         if pr is not None:
             log(f"train bf16 ({label}) under the profiler, multi-tensor Adam: "
-                f"{pr['launches']} kernel launches in the step, {pr['groups_launches'].get('other', 0)} "
-                f"in the 'other' group (PR 11, per-leaf Adam, routing on: "
-                f"{PR11_TRAIN_OTHER_LAUNCHES}); idle share {pr['idle_share']:.3f}")
+                f"{pr['launches']} kernel launches in the step, "
+                f"{pr['groups_launches'].get('other', 0)} in the 'other' group and "
+                f"{pr['groups_launches'].get('multi-tensor optimizer', 0)} multi-tensor "
+                f"(PR 11, per-leaf Adam, routing on: {PR11_TRAIN_OTHER_LAUNCHES} in 'other', "
+                f"the optimizer's among them); idle share {pr['idle_share']:.3f}")
     ok = ok and all(r["launches"]["conv3d_k3"] == 0 and math.isfinite(r["loss"])
                     for r in rows_off)
     if not ok:
@@ -1144,20 +1148,17 @@ def optimizer_state_bytes(opt) -> int:
 
 def phase_train_options(dev):
     """Full-width DOSE-PYFER steps at 128³ as the train phase builds them,
-    one option at a time: remat, remat_blocks, grad_accum=2, adam8bit. The
-    remat runs' first loss must equal the plain step's on the same weights
-    and batch (train_parity's relative 1e-5); grad_accum=2 must leave every
-    parameter unchanged after its first call."""
+    the plain step first, then one option at a time: remat, remat_blocks,
+    grad_accum=2, adam8bit. The remat runs' first loss must equal the plain
+    step's on the same weights and batch (train_parity's relative 1e-5);
+    grad_accum=2 must leave every parameter unchanged after its first
+    call."""
     batch = seeded_batch(dev, torch.bfloat16)
     rows = {}
+    plain_loss = plain_bytes = None
     with torch_default_tf32(), k3_routing(True):
-        model, step, state = make_trainer(dev)
-        _, plain_loss = step(state, batch)
-        plain_loss = float(plain_loss)
-        plain_bytes = optimizer_state_bytes(state.optimizer)
-        del model, step, state
-        torch.cuda.empty_cache()
-        for name, kwargs in (("remat", dict(remat=True)), ("remat_blocks", dict(remat_blocks=True)),
+        for name, kwargs in (("plain", {}), ("remat", dict(remat=True)),
+                             ("remat_blocks", dict(remat_blocks=True)),
                              ("grad_accum=2", dict(grad_accum=2)),
                              ("adam8bit", dict(kind="adam8bit"))):
             model, step, state = make_trainer(dev, **kwargs)
@@ -1177,6 +1178,8 @@ def phase_train_options(dev):
                    "optimizer_state_bytes": optimizer_state_bytes(state.optimizer),
                    "launches_per_step": timed[-1]["launches"]}
             ok = all(math.isfinite(x) for x in row["losses"])
+            if name == "plain":
+                plain_loss, plain_bytes = loss0, row["optimizer_state_bytes"]
             if name.startswith("remat"):
                 row["first_loss_rel_diff"] = abs(loss0 - plain_loss) / abs(plain_loss)
                 ok = ok and row["first_loss_rel_diff"] <= 1e-5
@@ -1197,8 +1200,6 @@ def phase_train_options(dev):
             torch.cuda.empty_cache()
             if not ok:
                 raise AssertionError(f"train_options {name} check failed")
-    rows["plain_first_loss"] = plain_loss
-    rows["adamw_state_bytes"] = plain_bytes
     return rows
 
 
@@ -1296,8 +1297,7 @@ def main() -> int:
         + f"; train step p50 {results['train']['p50_s']} s with K3 routing, "
         f"{results['train']['p50_s_routing_off']} s without; train_seg p50 "
         f"{results['train_seg']['p50_s']} s, train_c3d p50 {results['train_c3d']['p50_s']} s; "
-        + ", ".join(f"{k} p50 {v['p50_s']} s" for k, v in results["train_options"].items()
-                    if isinstance(v, dict))
+        + ", ".join(f"{k} p50 {v['p50_s']} s" for k, v in results["train_options"].items())
         + f"; total "
         f"{time.perf_counter() - t_start:.1f} s; on {smi}")
     kernels = []

@@ -62,11 +62,11 @@ class PyMSCDecoder(nn.Module):
 
     def forward(self, enc: List[torch.Tensor]) -> List[torch.Tensor]:
         e1, e2, e3, e4, e5 = enc
-        call = remat.checkpoint if self.remat_blocks else (lambda block, *a: block(*a))
-        dec4 = call(self.decoder4, e5, e4)
-        dec3 = call(self.decoder3, dec4, e3)
-        dec2 = call(self.decoder2, dec3, e2)
-        dec1 = call(self.decoder1, dec2, e1)
+        on = self.remat_blocks
+        dec4 = remat.checkpoint(self.decoder4, e5, e4, enabled=on)
+        dec3 = remat.checkpoint(self.decoder3, dec4, e3, enabled=on)
+        dec2 = remat.checkpoint(self.decoder2, dec3, e2, enabled=on)
+        dec1 = remat.checkpoint(self.decoder1, dec2, e1, enabled=on)
         return [dec1, dec2, dec3, dec4]
 
 

@@ -63,8 +63,8 @@ class TranSeg(nn.Module):
         enc2 = self.encoder2(tokens_to_volume(hidden[i], grid))
         enc3 = self.encoder3(tokens_to_volume(hidden[2 * i], grid))
         enc4 = self.encoder4(tokens_to_volume(hidden[3 * i], grid))
-        call = remat.checkpoint if self.remat_blocks else (lambda block, *a: block(*a))
-        dec3 = call(self.decoder5, tokens_to_volume(z, grid), enc4)
-        dec2 = call(self.decoder4, dec3, enc3)
-        dec1 = call(self.decoder3, dec2, enc2)
-        return self.out(call(self.decoder2, dec1, enc1))
+        on = self.remat_blocks
+        dec3 = remat.checkpoint(self.decoder5, tokens_to_volume(z, grid), enc4, enabled=on)
+        dec2 = remat.checkpoint(self.decoder4, dec3, enc3, enabled=on)
+        dec1 = remat.checkpoint(self.decoder3, dec2, enc2, enabled=on)
+        return self.out(remat.checkpoint(self.decoder2, dec1, enc1, enabled=on))

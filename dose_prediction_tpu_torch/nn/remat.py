@@ -28,10 +28,10 @@ def updates_batch_stats() -> bool:
     return not _RECOMPUTING.get()
 
 
-def checkpoint(fn: Callable, *args: torch.Tensor):
+def checkpoint(fn: Callable, *args: torch.Tensor, enabled: bool = True):
     """``fn(*args)`` with its activations recomputed in the backward; where
-    autograd records nothing, a plain call."""
-    if not torch.is_grad_enabled():
+    autograd records nothing, or not ``enabled``, a plain call."""
+    if not (enabled and torch.is_grad_enabled()):
         return fn(*args)
     calls = [0]
 

@@ -48,7 +48,7 @@ def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         x = to_ncdhw(batch["input"])
-        preds = R.checkpoint(apply, x) if remat else apply(x)
+        preds = R.checkpoint(apply, x, enabled=remat)
         loss = L.gen_loss(preds, to_ncdhw(batch["gt"]), delta1=delta1, delta2=delta2,
                           cascade=True, freeze=freeze)
         return _apply_update(state, optimizer, loss)
