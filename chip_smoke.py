@@ -88,6 +88,7 @@ from seeds on the card. Any failed phase exits non-zero without a result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -961,6 +962,7 @@ def parity_runs(make, batch, kernels, route_k3, dev):
                  if p.grad is not None}
         runs[name] = (float(loss), grads, read_counts())
         del model, step, state
+        free_memory()
     return runs
 
 
@@ -1136,6 +1138,14 @@ def phase_train_c3d(dev):
     return row
 
 
+def free_memory() -> None:
+    """Collect the reference cycles a dropped trainer leaves (its step
+    closes over the model and the optimizer), then return the cached
+    blocks: the next run's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def optimizer_state_bytes(opt) -> int:
     """Bytes of the optimizer's state: Adam's moments (and grad_accum's
     buffers) per leaf, or adam8bit's block state."""
@@ -1197,7 +1207,7 @@ def phase_train_options(dev):
                    if unchanged is not None else ""))
             rows[name] = row
             del model, step, state
-            torch.cuda.empty_cache()
+            free_memory()
             if not ok:
                 raise AssertionError(f"train_options {name} check failed")
     return rows
@@ -1216,7 +1226,7 @@ def phase_train_seg_parity(dev, kernels):
         if runs["kernels"][2]["attention"] == 0:
             raise AssertionError("train_seg_parity: K1 was not launched")
         del runs
-        torch.cuda.empty_cache()
+        free_memory()
     return rows
 
 
@@ -1283,7 +1293,7 @@ def main() -> int:
                          ("train_c3d", lambda: phase_train_c3d(dev)),
                          ("train_options", lambda: phase_train_options(dev)),
                          ("train_seg_parity", lambda: phase_train_seg_parity(dev, (k1, k2, k3)))):
-            torch.cuda.empty_cache()
+            free_memory()
             torch.cuda.reset_peak_memory_stats(dev)
             run(name, fn)
     except Exception:
