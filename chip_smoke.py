@@ -72,11 +72,11 @@ Phases, each printing its seconds on a line of its own:
             split encoder/decoder rates on a cosine schedule, K3 routing on:
             three timed steps after a warm-up, the same readings, each
             update's rates beside the schedule's closed form;
-16. train_options  the DOSE-PYFER step of phase 12 with remat, then
-            remat_blocks, then grad_accum=2, then adam8bit: p50, peak memory,
-            optimizer state bytes; the remat steps' first loss against the
-            plain step's, grad_accum's parameters unchanged after its first
-            call;
+16. train_options  the DOSE-PYFER step of phase 12 plain, then with
+            remat, remat_blocks, grad_accum=2 and adam8bit: p50, peak
+            memory, optimizer state bytes; the remat steps' first loss
+            against the plain step's, grad_accum's parameters unchanged
+            after its first call;
 17. train_seg_parity  one float32 TranSeg step as phase 13 holds the
             DOSE-PYFER step, with the K3 routing off and on;
 
@@ -1084,20 +1084,20 @@ def train_readings(name, dev, step, state, batch, n, label):
         f"{rows[-1]['recomputes']}; peak memory {peak / 2 ** 30:.2f} GiB")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: a loss is not finite")
-    return state, {"p50_s": p50, "times_s": times, "losses": losses, "peak_gib": peak / 2 ** 30,
-                   "launches_per_step": rows[-1]["launches"],
-                   "recomputes_per_step": rows[-1]["recomputes"], "profile": prof}
+    return {"p50_s": p50, "times_s": times, "losses": losses, "peak_gib": peak / 2 ** 30,
+            "launches_per_step": rows[-1]["launches"],
+            "recomputes_per_step": rows[-1]["recomputes"], "profile": prof}
 
 
 def phase_train_seg(dev):
     """The full-width TranSeg step on one 96³ crop, bf16 compute, float32
     parameters, K3 routing on, PyTorch's TF32 defaults: every kernel of the
     path must launch and be recomputed in every step."""
-    model, step, state = make_seg_trainer(dev)
+    _, step, state = make_seg_trainer(dev)
     batch = seeded_seg_batch(dev, torch.bfloat16)
     with torch_default_tf32(), k3_routing(True):
-        _, row = train_readings("train_seg bf16 (K3 routing on)", dev, step, state, batch,
-                                SEG_STEPS, "bf16 TranSeg train step (K3 routing on)")
+        row = train_readings("train_seg bf16 (K3 routing on)", dev, step, state, batch,
+                             SEG_STEPS, "bf16 TranSeg train step (K3 routing on)")
     if min(row["launches_per_step"].values()) == 0 or min(row["recomputes_per_step"].values()) == 0:
         raise AssertionError(f"train_seg: a kernel of the path was not launched / recomputed "
                              f"({row['launches_per_step']}, {row['recomputes_per_step']})")
@@ -1108,7 +1108,7 @@ def phase_train_c3d(dev):
     """The full-width C3D cascade step at 128³, batch 1, bf16, K3 routing on,
     split rates on a cosine schedule: each update's rate beside the
     schedule's closed form (torch CosineAnnealingLR)."""
-    model, step, state = make_c3d_trainer(dev)
+    _, step, state = make_c3d_trainer(dev)
     batch = seeded_batch(dev, torch.bfloat16)
     opt = state.optimizer
     applied = []
@@ -1119,8 +1119,8 @@ def phase_train_c3d(dev):
         return state, loss
 
     with torch_default_tf32(), k3_routing(True):
-        _, row = train_readings("train_c3d bf16 (K3 routing on)", dev, step_and_rate, state,
-                                batch, C3D_STEPS, "bf16 C3D train step (K3 routing on)")
+        row = train_readings("train_c3d bf16 (K3 routing on)", dev, step_and_rate, state,
+                             batch, C3D_STEPS, "bf16 C3D train step (K3 routing on)")
     worst = 0.0
     for count, rates in applied:
         t = min(count - 1, C3D_T_MAX)

@@ -41,33 +41,13 @@ from dose_prediction_tpu_torch import weights  # noqa: E402
 from dose_prediction_tpu_torch.train import state as S  # noqa: E402
 
 import test_torch_port_models as M  # noqa: E402  (seeded reduced models, JAX import)
+from test_torch_port_train import _Toy, _tree  # noqa: E402  (DOSE-PYFER's names)
 
 JA = importlib.import_module("dose_prediction_tpu.train.adam8bit")
 A8 = importlib.import_module("dose_prediction_tpu_torch.train.adam8bit")
 
 LR, WD = 6.130697604327541e-4, 1.6303111017674179e-4   # train/trainers.py:56-57
 TOL = 1e-6
-
-
-class _Toy(torch.nn.Module):
-    """Parameter names under net_A, conv_out_A and net_B, as in DOSE-PYFER."""
-
-    def __init__(self):
-        super().__init__()
-        self.net_A = torch.nn.Linear(3, 4)
-        self.conv_out_A = torch.nn.Linear(4, 1)
-        self.net_B = torch.nn.Sequential(torch.nn.Linear(5, 6), torch.nn.Linear(6, 2))
-
-
-def _tree(named):
-    tree = {}
-    for name, value in named:
-        node = tree
-        *path, leaf = name.split(".")
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = jnp.asarray(value)
-    return tree
 
 
 def _flat(tree):
