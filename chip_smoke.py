@@ -79,6 +79,27 @@ Phases, each printing its seconds on a line of its own:
             after its first call;
 17. train_seg_parity  one float32 TranSeg step as phase 13 holds the
             DOSE-PYFER step, with the K3 routing off and on;
+18. data    a synthetic OpenKBP cohort of four 128³ patients written to a
+            temporary directory by make_synthetic_dataset, whether the
+            native library built (and the compiler's output if not), the
+            cohort loaded through the native and the numpy reader (equal),
+            every patient packed, the native bf16 dose augment and seg
+            gather against the numpy chain and the card's unpack against
+            the CPU's (bit for bit), the unpack's device ms, the host
+            seconds and bytes of one batch of each feed (float32, bfloat16,
+            packed);
+19. train_feed  the DOSE-PYFER step of phase 12 fed from that cohort
+            through device_prefetch(size=2) (pinned memory, a copy stream),
+            once per feed: one warm-up and five steps, the step p50, the
+            waits for the batch and at the step's float(loss), launches per
+            step (the packed feed's equal to the bfloat16 feed's), the idle
+            share of one profiled step, the first losses; then two TranSeg
+            steps on bf16 96³ crops from seg_batches; then one float32 step
+            (TF32 off) on each of the float32 and packed feeds' first batch
+            from the same weights: the losses within 2e-3, the bar of
+            tests/test_packed_feed.py, which holds them in float32 (in bf16
+            compute the packed CT's second rounding moves the loss more; the
+            gap there is printed);
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -93,6 +114,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -150,6 +172,13 @@ TRAIN_PARITY_NOISE = 1e-6
 # gradient is 0 and both sides give rounding noise there
 ZERO_GRAD_BIAS = r"conv_block\.cov_\.(conv_[37]\.0\.conv\.[03]|conv\.0)\.bias$"
 ACTS = ["identity", "relu", "leakyrelu", "mish", "gelu"]
+# data and train_feed: the synthetic cohort, the steps per feed, the packed
+# feed's first loss against the float32 feed's (tests/test_packed_feed.py:107-132)
+DATA_PATIENTS, DATA_SHAPE, SEG_CROP = 4, (128, 128, 128), (96, 96, 96)
+FEED_STEPS, FEED_SEG_STEPS = 5, 2
+PACKED_LOSS_TOL = 2e-3
+# (shift, flip mask, rot90 k) at which the native gathers are held
+AUGMENT_DECISIONS = [(0.0, 0, 0), (0.05, 5, 1), (-0.03, 2, 3), (0.07, 7, 2)]
 
 
 def log(msg: str) -> None:
@@ -826,7 +855,8 @@ def seeded_batch(dev, dtype):
             "gt": torch.stack([dose, mask], dim=-1)}
 
 
-def make_trainer(dev, *, remat=False, remat_blocks=False, kind="adamw", grad_accum=1):
+def make_trainer(dev, *, remat=False, remat_blocks=False, kind="adamw", grad_accum=1,
+                 packed=False, dtype=None):
     from dose_prediction_tpu_torch.train import state as S
     from dose_prediction_tpu_torch.train import steps
 
@@ -835,7 +865,7 @@ def make_trainer(dev, *, remat=False, remat_blocks=False, kind="adamw", grad_acc
                            freeze_labels=S.cascade_freeze_labels(model), kind=kind,
                            grad_accum=grad_accum)
     step = steps.make_pyfer_train_step(model, opt, delta1=10.0, delta2=8.0, freeze=True,
-                                       remat=remat)
+                                       remat=remat, packed=packed, dtype=dtype)
     return model, step, S.TrainState(model, opt)
 
 
@@ -1230,6 +1260,284 @@ def phase_train_seg_parity(dev, kernels):
     return rows
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two tensors of one dtype and shape, equal bit for bit (on the host)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    if view is not None:
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def patients_equal(a, b) -> bool:
+    """Two loaded patients with the same arrays, bit for bit."""
+    def same(x, y):
+        return x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+
+    return (a.patient_id == b.patient_id and tuple(a.spacing) == tuple(b.spacing)
+            and all(same(getattr(a, f), getattr(b, f))
+                    for f in ("ct", "ptv", "oars", "dose", "real_dose", "dose_mask"))
+            and sorted(a.structures) == sorted(b.structures)
+            and all(same(a.structures[k], b.structures[k]) for k in b.structures))
+
+
+def feed_builders(ds):
+    """The three feeds of the DOSE-PYFER step, each an endless epoch from a
+    seed: float32 (the numpy chain), bfloat16 (the native gather) and
+    packed."""
+    from dose_prediction_tpu_torch.data import packed as PK
+    from dose_prediction_tpu_torch.data import pipeline as PL
+
+    n = 64
+    return {"float32": lambda seed: PL.dose_batches(ds, seed=seed, num_samples_per_epoch=n),
+            "bfloat16": lambda seed: PL.dose_batches(ds, seed=seed, native_bf16=True,
+                                                     num_samples_per_epoch=n),
+            "packed": lambda seed: PK.packed_dose_batches(ds, seed=seed,
+                                                          num_samples_per_epoch=n)}
+
+
+def check_native_augment(ds) -> int:
+    """The native bf16 dose augment and seg gather against the numpy chain
+    cast to bf16, bit for bit, at every decision of AUGMENT_DECISIONS on two
+    patients (two seg crops each); returns the number of checks."""
+    import numpy as np
+
+    from dose_prediction_tpu_torch.data import native as N
+    from dose_prediction_tpu_torch.data import transforms as T
+
+    def bf16(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+    checks = 0
+    for p in ds.patients[:2]:
+        inp, gt = p.model_input, p.gt
+        for d in AUGMENT_DECISIONS:
+            out = N.augment_dose_bf16(inp, gt, decisions=d)
+            ref_inp, ref_gt = T.apply_dose_augment(inp, gt, *d)
+            if out is None or not (same_bits(out[0], bf16(ref_inp))
+                                   and same_bits(out[1], bf16(ref_gt))):
+                raise AssertionError(f"data: native dose augment differs at {d}")
+            checks += 1
+        labels = np.ascontiguousarray(p.oars_label_encoded, np.uint8)
+        ct = np.ascontiguousarray(p.ct, np.float32)
+        for start in T.seg_crop_starts(ct.shape, labels, np.random.default_rng(SEED),
+                                       crop=SEG_CROP, num_samples=2):
+            sl = tuple(slice(a, a + c) for a, c in zip(start, SEG_CROP))
+            for d in AUGMENT_DECISIONS:
+                out = N.augment_seg_bf16(ct, labels, start, SEG_CROP, d)
+                ref_ct, ref_lab = T.apply_seg_augment(ct[sl], labels[sl], *d)
+                if out is None or not (same_bits(out[0], bf16(ref_ct))
+                                       and np.array_equal(out[1], ref_lab)):
+                    raise AssertionError(f"data: native seg gather differs at {start}, {d}")
+                checks += 1
+    return checks
+
+
+def phase_data(dev, root):
+    """A synthetic 128³ OpenKBP cohort through the port's data path: written,
+    loaded through the native and the numpy reader (equal), packed; the
+    native gathers and the card's unpack held against their plain versions
+    bit for bit; the host seconds and bytes of one batch of each feed."""
+    from dose_prediction_tpu_torch.data import native as N
+    from dose_prediction_tpu_torch.data import packed as PK
+    from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
+    from dose_prediction_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    pattern = make_synthetic_dataset(root, n_patients=DATA_PATIENTS, shape=DATA_SHAPE, seed=SEED)
+    row = {"write_s": time.perf_counter() - t0, "native_built": N.native_available()}
+    if row["native_built"]:
+        log(f"data: native library built and loaded ({N.library_path().name})")
+    else:
+        log("data: the native library did not build, so the numpy path was used; "
+            f"the compiler said:\n{N.native_build_error()}")
+    t0 = time.perf_counter()
+    ds = OpenKBPDataset(pattern, keep_structures=True)
+    row["load_native_s"] = time.perf_counter() - t0
+    with mock.patch.object(N, "get_lib", lambda: None):
+        t0 = time.perf_counter()
+        ds_numpy = OpenKBPDataset(pattern, keep_structures=True)
+        row["load_numpy_s"] = time.perf_counter() - t0
+    if not all(map(patients_equal, ds.patients, ds_numpy.patients)):
+        raise AssertionError("data: the native reader's cohort differs from the numpy reader's")
+    del ds_numpy
+    t0 = time.perf_counter()
+    packs = [PK.pack_patient(p) for p in ds.patients]
+    row["pack_s"] = time.perf_counter() - t0
+    if any(pk is None for pk in packs):
+        raise AssertionError("data: a synthetic patient declined packing")
+    row["native_checks"] = check_native_augment(ds) if row["native_built"] else 0
+    # the card's unpack against the CPU's: four samples, every rot90 k, each flip axis
+    batch = {k: torch.stack([pk[k] for pk in packs]) for k in PK.PACKED_KEYS}
+    batch["flip"] = torch.tensor([1, 2, 4, 7], dtype=torch.int32)
+    batch["rot_k"] = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    batch["shift"] = torch.tensor([0.05, -0.02, 0.0, 0.1], dtype=torch.float32)
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    cpu, card = PK.unpack_dose_batch(batch), PK.unpack_dose_batch(on_card)
+    torch.cuda.synchronize()
+    if not all(same_bits(card[k], cpu[k]) for k in cpu):
+        raise AssertionError("data: the unpack on the card differs from the CPU's")
+    one = {k: v[:1] for k, v in on_card.items()}
+    row["unpack_ms"] = time_ms(lambda: PK.unpack_dose_batch(one), 20)
+    del cpu, card, on_card, one
+    row["feeds"] = {}
+    for name, make in feed_builders(ds).items():
+        it, times = make(SEED + 1), []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            b = next(it)
+            times.append(time.perf_counter() - t0)
+        row["feeds"][name] = {"host_s": sorted(times)[1], "times_s": times,
+                              "nbytes": PK.packed_batch_nbytes(b)}
+    log(f"data: {DATA_PATIENTS} patients at {DATA_SHAPE} written in {row['write_s']:.2f} s, "
+        f"loaded in {row['load_native_s']:.3f} s (native reader) and "
+        f"{row['load_numpy_s']:.3f} s (numpy reader), equal; packed in {row['pack_s']:.3f} s; "
+        f"{row['native_checks']} native augment checks bit-equal; unpack on the card bit-equal "
+        f"to the CPU's, {row['unpack_ms']:.4f} ms at batch 1; one batch on the host: "
+        + ", ".join(f"{k} {v['host_s']:.4f} s (of {[round(t, 4) for t in v['times_s']]}), "
+                    f"{v['nbytes']} bytes" for k, v in row["feeds"].items()))
+    row["dataset"] = ds
+    return row
+
+
+@contextlib.contextmanager
+def timed_syncs():
+    """Record (start, end) of every float() of a CUDA tensor: the train
+    steps read their loss with one (train/steps.py, _apply_update), which
+    waits for the device."""
+    syncs, original = [], torch.Tensor.__float__
+
+    def timed(self):
+        if not self.is_cuda:
+            return original(self)
+        t0 = time.perf_counter()
+        value = original(self)
+        syncs.append((t0, time.perf_counter()))
+        return value
+
+    with mock.patch.object(torch.Tensor, "__float__", timed):
+        yield syncs
+
+
+def fed_steps(label, step, state, feed, n):
+    """One warm-up and ``n`` timed steps, each on the next batch of
+    ``feed``: per step its seconds, the wait for the batch, the host's time
+    from the batch to the loss read, the wait at that read and the launches;
+    then one more step, its batch's wait included, under the profiler."""
+    state, loss0 = step(state, next(feed))
+    torch.cuda.synchronize()
+    rows = []
+    with timed_syncs() as syncs:
+        for _ in range(n):
+            zero_counts()
+            t0 = time.perf_counter()
+            batch = next(feed)
+            t1 = time.perf_counter()
+            state, loss = step(state, batch)
+            s0, s1 = syncs[-1]               # the step's last host read: its loss
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rows.append({"s": t2 - t0, "batch_wait_s": t1 - t0, "enqueue_s": s0 - t1,
+                         "loss_sync_s": s1 - s0, "loss": loss, "launches": read_counts()})
+    for r in rows:
+        r["loss"] = float(r["loss"])
+    prof = profiled(lambda: step(state, next(feed)), f"bf16 train step on the {label} feed")
+    p50 = sorted(r["s"] for r in rows)[len(rows) // 2]
+    return {"p50_s": p50, "first_loss": float(loss0), "steps": rows,
+            "launches_per_step": rows[-1]["launches"],
+            "idle_share": None if prof is None else prof["idle_share"], "profile": prof}
+
+
+def first_losses_float32(dev, ds) -> dict:
+    """The first loss of one float32 step (TF32 off, cuDNN convolutions) on
+    the float32 and on the packed feed's first batch, from the same seeded
+    weights: the configuration in which tests/test_packed_feed.py holds the
+    two feeds to PACKED_LOSS_TOL."""
+    losses = {}
+    for name in ("float32", "packed"):
+        model, step, state = make_trainer(dev, packed=name == "packed")
+        batch = {k: v.to(dev) for k, v in next(feed_builders(ds)[name](SEED)).items()}
+        losses[name] = float(step(state, batch)[1])
+        del model, step, state, batch
+        free_memory()
+    return losses
+
+
+def phase_train_feed(dev, data):
+    """The full-width DOSE-PYFER step of phase 12 (bf16 compute, float32
+    parameters, AdamW, net_A frozen, K3 routing on) fed from the data
+    phase's cohort through device_prefetch(size=2), once per feed; then two
+    TranSeg steps on bf16 96³ crops from seg_batches; then the packed feed's
+    first loss against the float32 feed's in float32 compute."""
+    from dose_prediction_tpu_torch.data import pipeline as PL
+
+    ds, smi = data["dataset"], nvidia_smi()
+    rows = {}
+    with torch_default_tf32(), k3_routing(True):
+        for name, make in feed_builders(ds).items():
+            model, step, state = make_trainer(dev, packed=name == "packed", dtype=torch.bfloat16)
+            feed = PL.device_prefetch(make(SEED), size=2, device=dev)
+            try:
+                row = fed_steps(name, step, state, feed, FEED_STEPS)
+            finally:
+                feed.close()
+            row.update(data["feeds"][name])
+            rows[name] = row
+            log(f"train_feed {name}: step p50 {row['p50_s']} s (steps "
+                f"{[r['s'] for r in row['steps']]}); waits for the batch "
+                f"{[r['batch_wait_s'] for r in row['steps']]} s; host to the loss read "
+                f"{[r['enqueue_s'] for r in row['steps']]} s; wait at float(loss) "
+                f"{[r['loss_sync_s'] for r in row['steps']]} s; launches per step "
+                f"{row['launches_per_step']}; idle share {row['idle_share']}; first loss "
+                f"{row['first_loss']}; host {row['host_s']} s and {row['nbytes']} bytes a "
+                f"batch; on {smi}")
+            del model, step, state, feed
+            free_memory()
+        _, step, state = make_seg_trainer(dev)
+        feed = PL.device_prefetch(PL.seg_batches(ds, crop=SEG_CROP, batch_size=1, seed=SEED,
+                                                 feed_dtype="bfloat16"), size=2, device=dev)
+        seg = []
+        try:
+            for _ in range(FEED_SEG_STEPS):
+                zero_counts()
+                t0 = time.perf_counter()
+                batch = next(feed)
+                if batch["ct"].dtype != torch.bfloat16 or batch["ct"].shape != (1, *SEG_CROP, 1):
+                    raise AssertionError(f"train_feed: seg batch {batch['ct'].dtype} "
+                                         f"{tuple(batch['ct'].shape)}")
+                state, loss = step(state, batch)
+                torch.cuda.synchronize()
+                seg.append({"s": time.perf_counter() - t0, "loss": float(loss),
+                            "launches": read_counts()})
+        finally:
+            feed.close()
+        log(f"train_feed TranSeg on bf16 96³ crops: {seg}; on {smi}")
+        rows["transeg"] = seg
+        del step, state, feed
+    # in bf16 compute the packed CT is rounded to bf16 twice (on the host,
+    # then after the shift), the float32 feed's once: a reading, not held
+    gap_bf16 = abs(rows["packed"]["first_loss"] - rows["float32"]["first_loss"])
+    rows["first_loss_float32"] = first_losses_float32(dev, ds)
+    f32 = rows["first_loss_float32"]
+    diff = abs(f32["packed"] - f32["float32"])
+    log(f"train_feed: first loss, bf16 compute: packed {rows['packed']['first_loss']}, "
+        f"float32 feed {rows['float32']['first_loss']}, bfloat16 feed "
+        f"{rows['bfloat16']['first_loss']}: packed - float32 {gap_bf16:.3g}; float32 compute "
+        f"(TF32 off): packed {f32['packed']}, float32 feed {f32['float32']}: |diff| "
+        f"{diff:.3g} (limit {PACKED_LOSS_TOL})")
+    launches = {k: [r["launches"] for r in rows[k]["steps"]]
+                for k in ("float32", "bfloat16", "packed")}
+    ok = (diff <= PACKED_LOSS_TOL and launches["packed"] == launches["bfloat16"]
+          and all(min(x.values()) > 0 for v in launches.values() for x in v)
+          and all(math.isfinite(r["loss"]) for k in launches for r in rows[k]["steps"])
+          and all(math.isfinite(r["loss"]) and r["launches"]["attention"] > 0 for r in seg))
+    if not ok:
+        raise AssertionError(f"train_feed check failed (packed loss diff {diff}, launches "
+                             f"{launches})")
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1296,6 +1604,11 @@ def main() -> int:
             free_memory()
             torch.cuda.reset_peak_memory_stats(dev)
             run(name, fn)
+        free_memory()
+        with tempfile.TemporaryDirectory() as root:
+            run("data", lambda: phase_data(dev, root))
+        run("train_feed", lambda: phase_train_feed(dev, results["data"]))
+        del results["data"]["dataset"]
     except Exception:
         return 1
 
@@ -1308,6 +1621,9 @@ def main() -> int:
         f"{results['train']['p50_s_routing_off']} s without; train_seg p50 "
         f"{results['train_seg']['p50_s']} s, train_c3d p50 {results['train_c3d']['p50_s']} s; "
         + ", ".join(f"{k} p50 {v['p50_s']} s" for k, v in results["train_options"].items())
+        + "; train step p50 fed by "
+        + ", ".join(f"{k} {results['train_feed'][k]['p50_s']} s" for k in ("float32", "bfloat16",
+                                                                           "packed"))
         + f"; total "
         f"{time.perf_counter() - t_start:.1f} s; on {smi}")
     kernels = []

@@ -6,19 +6,22 @@ train_light_{pyfer,c3d,transeg}.py.
 Batches keep the JAX package's channels-last layout at this boundary:
 ``input (N, D, H, W, 9)`` and ``gt (N, D, H, W, 2)`` (dose ÷ 70, possible-dose
 mask); the steps permute once to NCDHW. The model computes in the dtype of
-``batch['input']`` with float32 parameters. Not ported: the ``packed``
-feed (it waits for data/packed.py) and ``donate`` (the steps update in
-place).
+``batch['input']`` with float32 parameters, or in the step's ``dtype`` where
+one is given (the JAX model's ``dtype`` attribute). With ``packed=True`` the
+DOSE-PYFER and C3D steps take the packed feed (data/packed.py, steps.py:69-70
+and :132-133): unpacked and augmented in float32 on the batch's device, then
+cast once to ``dtype``. Not ported: ``donate`` (the steps update in place).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from dose_prediction_tpu_torch.data.packed import unpack_dose_batch
 from dose_prediction_tpu_torch.evaluation.metrics import postprocess_prediction
 from dose_prediction_tpu_torch.nn import remat as R
 from dose_prediction_tpu_torch.train import losses as L
@@ -29,9 +32,20 @@ def to_ncdhw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 4, 1, 2, 3).contiguous()
 
 
+def _dose_feed(batch: Dict[str, torch.Tensor], packed: bool, dtype: Optional[torch.dtype]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's NCDHW input in ``dtype`` (the input's own when None) and
+    the NCDHW gt, from a float32, bf16 or (``packed``) packed batch."""
+    if packed:
+        batch = unpack_dose_batch(batch)
+    x = batch["input"] if dtype is None else batch["input"].to(dtype)
+    return to_ncdhw(x), to_ncdhw(batch["gt"])
+
+
 def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
                           delta1: float = 10.0, delta2: float = 8.0, freeze: bool = True,
-                          remat: bool = False
+                          remat: bool = False, packed: bool = False,
+                          dtype: Optional[torch.dtype] = None
                           ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                         Tuple[TrainState, torch.Tensor]]:
     """``step(state, batch) -> (state, loss)``: GenLoss deep supervision over
@@ -39,7 +53,9 @@ def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     model's parameters, BatchNorm statistics and the optimizer are updated in
     place; the returned state carries the next step count and moving loss.
     ``remat`` recomputes the whole model call in the backward (steps.py:54-55,
-    ``jax.checkpoint``; nn/remat.py), with BatchNorm statistics updated once."""
+    ``jax.checkpoint``; nn/remat.py), with BatchNorm statistics updated once.
+    ``packed`` takes the packed feed; ``dtype`` is the dtype the model
+    computes in (module docstring)."""
 
     def apply(x: torch.Tensor):
         return model(x, stop_gradient_a=freeze)
@@ -47,10 +63,9 @@ def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        x = to_ncdhw(batch["input"])
+        x, gt = _dose_feed(batch, packed, dtype)
         preds = R.checkpoint(apply, x, enabled=remat)
-        loss = L.gen_loss(preds, to_ncdhw(batch["gt"]), delta1=delta1, delta2=delta2,
-                          cascade=True, freeze=freeze)
+        loss = L.gen_loss(preds, gt, delta1=delta1, delta2=delta2, cascade=True, freeze=freeze)
         return _apply_update(state, optimizer, loss)
 
     return step
@@ -68,18 +83,21 @@ def _apply_update(state: TrainState, optimizer: torch.optim.Optimizer, loss: tor
 
 
 def make_cascade_c3d_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
-                                freeze: bool = False
+                                freeze: bool = False, packed: bool = False,
+                                dtype: Optional[torch.dtype] = None
                                 ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                               Tuple[TrainState, torch.Tensor]]:
     """The C3D cascade's step (steps.py:122-144; train_light_c3d.py): the
     masked-L1 cascade loss of ``(pred_a, pred_b)``, net_A's head in it at
-    0.5 unless ``freeze``. Batches as make_pyfer_train_step's."""
+    0.5 unless ``freeze``. Batches, ``packed`` and ``dtype`` as
+    make_pyfer_train_step's."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        pred_a, pred_b = model(to_ncdhw(batch["input"]))
-        loss = L.cascade_l1_loss(pred_a, pred_b, to_ncdhw(batch["gt"]), freeze=freeze)
+        x, gt = _dose_feed(batch, packed, dtype)
+        pred_a, pred_b = model(x)
+        loss = L.cascade_l1_loss(pred_a, pred_b, gt, freeze=freeze)
         return _apply_update(state, optimizer, loss)
 
     return step

@@ -96,9 +96,12 @@ def test_port_runs_without_jax(tmp_path):
     """The port imports neither jax nor the JAX package: run the reduced
     cascade (its stages, then make_cascade_fn), pipeline_map, a K3-routed
     conv, one DOSE-PYFER train step, one C3D cascade step with the split
-    rates on a cosine schedule and one TranSeg step with remat_blocks,
-    adam8bit and grad_accum in a fresh interpreter and inspect
-    sys.modules."""
+    rates on a cosine schedule, every module of the data path (a synthetic
+    cohort through the native reader, the bf16 dose and seg feeds, the
+    packed feed through device_prefetch into a bf16 C3D step) and one
+    TranSeg step with remat_blocks, adam8bit and grad_accum in a fresh
+    interpreter and inspect sys.modules: no jax, flax, ml_dtypes or JAX
+    package module."""
     script = textwrap.dedent(f"""
         import sys
         import torch
@@ -145,6 +148,24 @@ def test_port_runs_without_jax(tmp_path):
             S.TrainState(c3d, opt), dict(input=s1(seg.state_dict(), ct, ptv)[:, :32, :32, :32],
                                          gt=gt[:, :32, :32, :32]))
         assert bool(torch.isfinite(loss))
+        import importlib, pkgutil
+        import dose_prediction_tpu_torch.data as D
+        for info in pkgutil.iter_modules(D.__path__):
+            importlib.import_module("dose_prediction_tpu_torch.data." + info.name)
+        from dose_prediction_tpu_torch.data import native as N
+        from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
+        from dose_prediction_tpu_torch.data.packed import packed_dose_batches
+        from dose_prediction_tpu_torch.data.pipeline import device_prefetch, dose_batches, seg_batches
+        from dose_prediction_tpu_torch.data.synthetic import make_synthetic_dataset
+        ds = OpenKBPDataset(make_synthetic_dataset({str(tmp_path / "cohort")!r}, n_patients=2,
+                                                   shape=(32, 32, 32)))
+        assert N.native_available(), N.native_build_error()
+        assert next(dose_batches(ds, native_bf16=True))["input"].dtype == torch.bfloat16
+        assert next(seg_batches(ds, crop=(16, 16, 16), feed_dtype="bfloat16"))["ct"].dtype == torch.bfloat16
+        packed = next(device_prefetch(packed_dose_batches(ds), device="cpu"))
+        state, loss = steps.make_cascade_c3d_train_step(c3d, opt, packed=True, dtype=torch.bfloat16)(
+            S.TrainState(c3d, opt), packed)
+        assert bool(torch.isfinite(loss))
         seg_r = TranSeg(img_size=32, remat_blocks=True, device="cpu", **cfg)
         opt = S.make_optimizer(seg_r, learning_rate=1e-4, kind="adam8bit", grad_accum=2)
         state, loss = steps.make_transeg_train_step(seg_r, opt)(
@@ -152,7 +173,8 @@ def test_port_runs_without_jax(tmp_path):
                                            labels=torch.zeros((1, 32, 32, 32), dtype=torch.uint8)))
         assert bool(torch.isfinite(loss))
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "dose_prediction_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_dtypes",
+                                            "dose_prediction_tpu"))
         print("FORBIDDEN", bad)
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,

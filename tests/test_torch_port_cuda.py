@@ -480,3 +480,63 @@ def test_optimizers_on_card_match_the_cpu(card, kind):
     else:
         assert (diffs > 1e-6).float().mean().item() <= 1e-3
         assert diffs.max().item() <= 3 * 5 * 1e-2
+
+
+def host_batches(n, made=None):
+    """``n`` seeded host batches in the dose feed's dtypes (float32, bf16,
+    uint8), made on the CPU."""
+    g = torch.Generator().manual_seed(0)
+    for i in range(n):
+        if made is not None:
+            made.append(i)
+        yield {"input": torch.randn((1, 32, 32, 32, 9), generator=g),
+               "gt": torch.rand((1, 32, 32, 32, 2), generator=g).to(torch.bfloat16),
+               "labels": torch.randint(0, 8, (1, 32, 32, 32), generator=g).to(torch.uint8),
+               "i": torch.tensor([i], dtype=torch.int32)}
+
+
+@pytest.mark.cuda
+def test_device_prefetch_on_card(card):
+    """Pinned copies on a side stream: every batch on the card, in order,
+    equal to its host batch, usable on the compute stream at once (a kernel
+    reads it before any synchronisation); an early break ends the worker."""
+    from dose_prediction_tpu_torch.data.pipeline import device_prefetch
+
+    want = list(host_batches(8))
+    got = []
+    for batch in device_prefetch(host_batches(8), size=2, device=card):
+        assert all(v.device.type == "cuda" for v in batch.values())
+        got.append({k: (v.float() * 2).cpu() if v.is_floating_point() else v.cpu()
+                    for k, v in batch.items()})
+    assert [int(b["i"]) for b in got] == list(range(8))
+    for g_, w in zip(got, want):
+        for k, v in w.items():
+            assert torch.equal(g_[k], v.float() * 2 if v.is_floating_point() else v), k
+    made = []
+    it = device_prefetch(host_batches(100, made), size=2, device=card)
+    next(it)
+    it.close()
+    assert len(made) <= 1 + 2 + 1
+
+
+@pytest.mark.cuda
+def test_unpack_on_card_matches_the_cpu(card):
+    """The packed feed's unpack and augmentation on the card against the
+    CPU's, bit for bit, for every flip mask and rot90 k."""
+    from dose_prediction_tpu_torch.data.packed import unpack_dose_batch
+
+    g = torch.Generator().manual_seed(1)
+    n, s = 32, 24
+    batch = {"ct": (torch.randn((n, s, s, s), generator=g) * 0.5).to(torch.bfloat16),
+             "dose": torch.rand((n, s, s, s), generator=g).to(torch.bfloat16),
+             "ptv": torch.tensor([0, 56, 63, 70, 119, 189], dtype=torch.uint8)[
+                 torch.randint(0, 6, (n, s, s, s), generator=g)],
+             "mask_bits": torch.randint(0, 256, (n, s, s, s), generator=g).to(torch.uint8),
+             "shift": torch.rand(n, generator=g) * 0.2 - 0.1,
+             "flip": torch.arange(n, dtype=torch.int32) % 8,
+             "rot_k": torch.arange(n, dtype=torch.int32) // 8}
+    cpu = unpack_dose_batch(batch)
+    gpu = unpack_dose_batch({k: v.to(card) for k, v in batch.items()})
+    for k in ("input", "gt"):
+        assert gpu[k].device.type == "cuda"
+        assert torch.equal(gpu[k].cpu().view(torch.int32), cpu[k].view(torch.int32)), k
