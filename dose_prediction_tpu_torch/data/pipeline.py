@@ -33,6 +33,10 @@ from dose_prediction_tpu_torch.data.transforms import (
 from dose_prediction_tpu_torch.device import resolve_device
 
 Batch = Dict[str, torch.Tensor]
+# how long device_prefetch waits for its worker to end after the consumer
+# stops: the worker finishes the batch in its hands first (a 128³ float32
+# batch is built in well under a second)
+JOIN_TIMEOUT_S = 60.0
 
 
 def _local_row_range(batch_size: int, process_rows) -> tuple:
@@ -256,8 +260,10 @@ def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
     CPU (``device='cpu'``) the tensors are passed on with no stream.
 
     An exception in the worker is raised in the consumer. When the consumer
-    stops early (a break, ``close()``, an exception), the worker is released
-    and the staged batches are dropped."""
+    stops early (a break, ``close()``, an exception), the worker is released,
+    the staged batches are dropped and the generator waits for the worker
+    thread to end (at most ``JOIN_TIMEOUT_S``), so that once ``close()``
+    returns no batch is held in its hands."""
     dev = resolve_device(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
     sentinel = object()
@@ -296,7 +302,7 @@ def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
         finally:
             offer(sentinel)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=worker, name="device_prefetch", daemon=True)
     t.start()
     try:
         while True:
@@ -315,7 +321,12 @@ def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
     finally:
         # normal exit, an early break or an exception in the consumer:
         # release the worker and every staged batch
+        # the worker gives up within one offer() timeout once ``stop`` is
+        # set, after the batch in its hands; wait for that, so that it holds
+        # nothing, then drop the staged batches. Draining first would free a
+        # slot to a blocked put, and the worker would build one batch more.
         stop.set()
+        t.join(JOIN_TIMEOUT_S)
         try:
             while True:
                 q.get_nowait()

@@ -14,7 +14,6 @@ exact.
 """
 
 import threading
-import time
 from unittest import mock
 
 import ml_dtypes
@@ -365,18 +364,20 @@ def test_device_prefetch_raises_the_workers_error():
 
 def test_device_prefetch_releases_the_worker_after_an_early_break():
     """After a break the worker stops taking batches (at most ``size`` staged
-    plus one in its hands) and its thread ends."""
-    before = threading.active_count()
+    plus one in its hands), and its thread has ended once ``close()``
+    returns. The thread is watched by identity: the process's thread count
+    also moves with other tests' threads under pytest-xdist."""
     made = []
+    before = set(threading.enumerate())
     it = PL.device_prefetch(numbered(1000, made=made), size=2, device="cpu")
     for b in it:
         if int(b["i"]) == 3:
             break
+    workers = [t for t in threading.enumerate()
+               if t not in before and t.name == "device_prefetch"]
+    assert len(workers) == 1
     it.close()
-    deadline = time.monotonic() + 10
-    while threading.active_count() > before and time.monotonic() < deadline:
-        time.sleep(0.02)
-    assert threading.active_count() == before
+    assert not workers[0].is_alive()
     assert len(made) <= 4 + 2 + 1
 
 
