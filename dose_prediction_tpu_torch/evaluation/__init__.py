@@ -1,1 +1,1 @@
-"""Evaluation helpers used on the serve path."""
+"""Evaluation: the OpenKBP metrics (host and device halves), seg metrics and plots."""
