@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from dose_prediction_tpu_torch.device import resolve_device
+from dose_prediction_tpu_torch.models.spec import records_config
 from dose_prediction_tpu_torch.nn.blocks import SingleConv, UpConv
 from dose_prediction_tpu_torch.nn.layers import Conv3d
 
@@ -79,6 +80,7 @@ class CascadeC3D(nn.Module):
     ``conv_out_B`` give ``(pred_a, pred_b)``, ``out_ch`` channels each.
     Defaults: 9 input channels (PTV, 7 OARs, CT), one dose channel."""
 
+    @records_config
     def __init__(self, in_ch: int = 9, out_ch: int = 1,
                  list_ch_A: Sequence[int] = DEFAULT_LIST_CH,
                  list_ch_B: Sequence[int] = DEFAULT_LIST_CH, device="cuda"):

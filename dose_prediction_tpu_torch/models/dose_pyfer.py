@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from dose_prediction_tpu_torch.device import resolve_device
+from dose_prediction_tpu_torch.models.spec import records_config
 from dose_prediction_tpu_torch.models.c3d import BaseUNet
 from dose_prediction_tpu_torch.nn import remat
 from dose_prediction_tpu_torch.nn.layers import Conv3d
@@ -101,6 +102,7 @@ class DosePyfer(nn.Module):
     ``remat_blocks`` recomputes each decoder stage in the backward
     (nn/remat.py); the parameters are the same."""
 
+    @records_config
     def __init__(self, in_ch: int = 9, out_ch: int = 1, img_size=128,
                  list_ch_A: Sequence[int] = (-1, 16, 32, 64, 128, 256),
                  feature_size: int = 16, hidden_size: int = 768, mlp_dim: int = 3072,

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from dose_prediction_tpu_torch.device import resolve_device
+from dose_prediction_tpu_torch.models.spec import records_config
 from dose_prediction_tpu_torch.nn import remat
 from dose_prediction_tpu_torch.nn.unetr import (
     ModifiedUnetOutBlock,
@@ -35,6 +36,7 @@ class TranSeg(nn.Module):
     ``remat_blocks`` recomputes each decoder stage in the backward (JAX
     transeg.py:55-101, nn/remat.py); the parameters are the same."""
 
+    @records_config
     def __init__(self, in_ch: int = 1, out_ch: int = 8, img_size=96, feature_size: int = 16,
                  hidden_size: int = 768, mlp_dim: int = 3072, num_layers: int = 12,
                  num_heads: int = 12, act: str = "relu", patch_size: int = 16,

@@ -182,6 +182,68 @@ class Adam8bit(_Optimizer):
             g = flat.gather("g", [grads[i] for i in idx])
             lay["mu_s"], lay["nu_s"] = adam(lay["mu_s"], lay["nu_s"], g, flat, idx)
 
+    def state_dict(self) -> dict:
+        """The base state dict with the 8-bit moments: the int8 and uint8
+        codes and their float32 scales as they are (a restore is bit for
+        bit); None before the first update."""
+        sd = super().state_dict()
+        lay = self._layout
+        sd["moments"] = None if lay is None else {
+            "quant": list(lay["quant"]), "small": list(lay["small"]),
+            **{k: lay[k]._asdict() for k in ("mu", "nu") if k in lay},
+            **{k: {"values": lay[k]} for k in ("mu_s", "nu_s") if k in lay}}
+        return sd
+
+    def _moment_shapes(self) -> dict:
+        """(shape, dtype) of each moment tensor the first update makes for
+        the trainable leaves, by name and field."""
+        params, bs = self._groups()[0][1], self.block_size
+        quant = [i for i, p in enumerate(params) if p.numel() >= self.min_quantize_size]
+        small = [i for i, p in enumerate(params) if p.numel() < self.min_quantize_size]
+        out = {"quant": quant, "small": small}
+        if quant:
+            n = sum(-(-params[i].numel() // bs) for i in quant)
+            f32 = ((n,), torch.float32)
+            out["mu"] = {"values": ((n, bs), torch.int8), "scales": f32}
+            out["nu"] = {"values": ((n, bs), torch.uint8), "lo": f32, "scale": f32}
+        if small:
+            n = sum(params[i].numel() for i in small)
+            out["mu_s"] = out["nu_s"] = {"values": ((n,), torch.float32)}
+        return out
+
+    def check_state_dict(self, state_dict: dict) -> None:
+        super().check_state_dict(state_dict)
+        saved = state_dict.get("moments")
+        if saved is None:
+            return
+        want = self._moment_shapes()
+        for k, fields in want.items():
+            if k in ("quant", "small"):
+                if saved.get(k) != fields:
+                    raise ValueError(f"adam8bit state: {k} leaves {saved.get(k)}, want {fields}")
+                continue
+            for f, (shape, dtype) in fields.items():
+                v = saved.get(k, {}).get(f)
+                if v is None or tuple(v.shape) != shape or v.dtype != dtype:
+                    got = None if v is None else (tuple(v.shape), v.dtype)
+                    raise ValueError(f"adam8bit state {k}.{f}: {got}, want {(shape, dtype)}")
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        saved = state_dict.get("moments")
+        self._layout = None
+        if saved is None:
+            return
+        params = self._groups()[0][1]
+        self._init_layout(params)
+        lay, dev = self._layout, params[0].device
+        for k, cls in (("mu", Quantized), ("nu", LogQuantized)):
+            if k in lay:
+                lay[k] = cls(**{f: v.to(dev) for f, v in saved[k].items()})
+        for k in ("mu_s", "nu_s"):
+            if k in lay:
+                lay[k] = saved[k]["values"].to(dev)
+
     def moments(self, p: torch.Tensor):
         """The moments of trainable leaf ``p``: (Quantized, LogQuantized) of
         its blocks, or (m, v) in float32; None before the first update."""

@@ -104,6 +104,46 @@ class _Optimizer(torch.optim.Optimizer):
     def _groups(self):
         return [(g, [p for p in g["params"] if p.requires_grad]) for g in self.param_groups]
 
+    # -- checkpoints: the optimizer's whole state, as optax's opt_state ------
+    def state_dict(self) -> dict:
+        """torch's state dict (each leaf's moments and accumulators, the
+        groups' hyperparameters) with the optimizer's class, its update
+        count and MultiSteps' mini_step. A schedule (a callable learning
+        rate) is stored as None: the restored optimizer keeps its own, which
+        the restored count drives; a plateau's float rate is stored."""
+        sd = super().state_dict()
+        for g in sd["param_groups"]:
+            if callable(g.get("lr")):
+                g["lr"] = None
+        sd.update(kind=type(self).__name__, count=self.count, mini_step=self.mini_step)
+        return sd
+
+    def check_state_dict(self, state_dict: dict) -> None:
+        """Raise ValueError unless ``state_dict`` is this optimizer's kind
+        over groups of the same sizes, with each leaf's state shaped as the
+        leaf; nothing is changed."""
+        if state_dict.get("kind") != type(self).__name__:
+            raise ValueError(f"optimizer state of a {state_dict.get('kind')!r}, "
+                             f"but this optimizer is a {type(self).__name__!r}")
+        saved = [len(g["params"]) for g in state_dict["param_groups"]]
+        mine = [len(g["params"]) for g in self.param_groups]
+        if saved != mine:
+            raise ValueError(f"optimizer groups of {saved} leaves, but this one has {mine}")
+        params = [p for g in self.param_groups for p in g["params"]]
+        for i, st in state_dict["state"].items():
+            for k, v in st.items():
+                if torch.is_tensor(v) and v.shape != params[i].shape:
+                    raise ValueError(f"optimizer state {k!r} of leaf {i}: shape "
+                                     f"{tuple(v.shape)}, leaf {tuple(params[i].shape)}")
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.check_state_dict(state_dict)
+        groups = [{**g, "lr": cur["lr"]} if g.get("lr") is None else dict(g)
+                  for g, cur in zip(state_dict["param_groups"], self.param_groups)]
+        super().load_state_dict({"state": state_dict["state"], "param_groups": groups})
+        self.count = int(state_dict["count"])
+        self.mini_step = int(state_dict["mini_step"])
+
     def lr_at(self, group: dict, count: int) -> float:
         """The group's learning rate at update count ``count``, as a float
         that float32 holds exactly."""
