@@ -1,0 +1,608 @@
+"""The port's command line (counterpart of dose_prediction_tpu/cli/main.py).
+
+    python -m dose_prediction_tpu_torch train pyfer --data 'data/pt_*' --val-data ...
+    python -m dose_prediction_tpu_torch train c3d|transeg ...
+    python -m dose_prediction_tpu_torch eval --data ... --ckpt ckpt/last.pt [--device-metrics]
+    python -m dose_prediction_tpu_torch seg-eval|predict|infer|score|import-torch ...
+
+Everything runs on the card (``--device cuda``, the default) unless the
+caller passes ``--device cpu``; a missing card is an error, never a silent
+CPU run. ``--device`` takes the place of the JAX CLI's ``--platform``.
+Choices the port does not have yet (other models, TranSeg block families,
+the separable k7, meshes, and the subcommands linked-eval, tune, kfold,
+bench and doctor) are refused with the ROADMAP item that brings them;
+nothing falls back to another model.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+from pathlib import Path
+
+# the pyfer-tuned default (train_light_pyfer.py:296)
+_DEFAULT_LR = 0.0006130697604327541
+# ROADMAP queue 1 items of what the port refuses
+_MODEL_ZOO = "ROADMAP queue 1 item 6 (the rest of the model zoo)"
+_INFRA = "ROADMAP queue 1 item 7 (parallel and serve infrastructure)"
+_UNPORTED_COMMANDS = {
+    "linked-eval": "ROADMAP queue 1 item 6 (train/linked.py)",
+    "tune": "ROADMAP queue 1 item 6 (train/tune.py)",
+    "kfold": "ROADMAP queue 1 item 6 (train/kfold.py)",
+    "bench": "ROADMAP queue 1 item 1 (bench_gpu.py)",
+    "doctor": _INFRA,
+}
+_DOSE_MODELS = ["pyfer", "c3d", "hdunet", "dosegan", "vitgan", "exp"]
+_PORTED_DOSE_MODELS = ("pyfer", "c3d")
+SMALL_LIST_CH = (-1, 2, 4, 8, 16, 32)
+SEG_PATCH = 16   # TranSeg's ViT patch: the dense seg's token grid is roi // 16
+# model-constructor arguments that may differ between training and
+# evaluation or serving: they change execution, not the learned function
+_EXEC_ONLY_FIELDS = {"remat_blocks", "trained_grid"}
+
+
+def refuse(what: str, roadmap: str) -> SystemExit:
+    return SystemExit(f"{what} is not ported to dose_prediction_tpu_torch yet: {roadmap}. "
+                      "The JAX package (python -m dose_prediction_tpu) has it.")
+
+
+def resolve_optimizer(explicit, model_name) -> str:
+    """adam8bit for pyfer (the reference trains the flagship with bnb
+    Adam8bit, train_light_pyfer.py:12,195), adamw otherwise; an explicit
+    flag wins (:26-33)."""
+    if explicit:
+        return explicit
+    return "adam8bit" if model_name == "pyfer" else "adamw"
+
+
+def default_flagship_model(act="mish", remat_blocks=False, small=False, img_size=128,
+                           device="cuda"):
+    """The DosePyfer of ``train pyfer`` (:36-56): the reference's tuned
+    config, or at ``small`` the reduced-width development model. The port
+    builds only the multi-scale decoder (multiS_conv=True), and the dtype is
+    the input's (``infer --serve-dtype``)."""
+    from dose_prediction_tpu_torch.models import DosePyfer
+
+    if small:
+        return DosePyfer(out_ch=1, list_ch_A=SMALL_LIST_CH, feature_size=2, hidden_size=24,
+                         mlp_dim=48, num_layers=4, num_heads=2, act=act,
+                         remat_blocks=remat_blocks, img_size=img_size, device=device)
+    return DosePyfer(act=act, remat_blocks=remat_blocks, img_size=img_size, device=device)
+
+
+def default_seg_model(out_ch=8, block_family="seg", trained_grid=None, remat_blocks=False,
+                      k7_mode="dense", small=False, img_size=96, device="cuda"):
+    """The TranSeg of ``train transeg`` (:59-75). Only the 'seg' block
+    family with dense k7 convolutions is ported."""
+    if block_family != "seg":
+        raise refuse(f"--block-family {block_family}", _MODEL_ZOO)
+    if k7_mode != "dense":
+        raise refuse(f"--k7-mode {k7_mode}", _MODEL_ZOO)
+    from dose_prediction_tpu_torch.models import TranSeg
+
+    if small:
+        return TranSeg(out_ch=out_ch, feature_size=2, hidden_size=24, mlp_dim=48,
+                       num_layers=4, num_heads=2, trained_grid=trained_grid,
+                       remat_blocks=remat_blocks, img_size=img_size, device=device)
+    return TranSeg(out_ch=out_ch, trained_grid=trained_grid, remat_blocks=remat_blocks,
+                   img_size=img_size, device=device)
+
+
+def small_c3d(device="cuda"):
+    from dose_prediction_tpu_torch.models import CascadeC3D
+
+    return CascadeC3D(out_ch=1, list_ch_A=SMALL_LIST_CH, list_ch_B=SMALL_LIST_CH, device=device)
+
+
+def _run_config_path(ckpt_path) -> Path | None:
+    """The run_config.json beside a slot: in its directory, or in the
+    checkpoint directory above ``monitored/``."""
+    p = Path(ckpt_path)
+    cands = [p, p.parent] + ([p.parent.parent] if p.parent.name == "monitored" else [])
+    for cand in cands:
+        if (cand / "run_config.json").exists():
+            return cand / "run_config.json"
+    return None
+
+
+def _check_ckpt_config(ckpt_path, *models) -> None:
+    """Eval/serve twin of the train resume guard (:83-127): each model is
+    checked against the recorded configuration of its class in the
+    checkpoint's run_config.json; a checkpoint without one (an import-torch
+    output) is not checked. ``DPT_SKIP_CONFIG_CHECK=1`` overrides."""
+    if os.environ.get("DPT_SKIP_CONFIG_CHECK") == "1":
+        return
+    from dose_prediction_tpu_torch.models.spec import model_spec
+
+    f = _run_config_path(ckpt_path)
+    if f is None:
+        return
+    try:
+        stored = json.loads(f.read_text())
+    except (OSError, ValueError):
+        return
+    recorded = {m.get("model"): m.get("config", {}) for m in stored.get("models", [])}
+    for model in models:
+        name = type(model).__name__
+        if name not in recorded:
+            continue
+        want = {k: v for k, v in recorded[name].items() if k not in _EXEC_ONLY_FIELDS}
+        have = {k: v for k, v in model_spec(model).items() if k not in _EXEC_ONLY_FIELDS}
+        diffs = sorted(k for k in set(want) | set(have) if want.get(k) != have.get(k))
+        if diffs:
+            detail = ", ".join(f"{k}: trained {want.get(k)!r} vs now {have.get(k)!r}"
+                               for k in diffs)
+            raise SystemExit(
+                f"checkpoint {ckpt_path} was trained with a different {name} configuration: "
+                f"{detail}. The weights would load either way, so continuing would score or "
+                "serve the WRONG architecture. Pass the recorded flags, or set "
+                "DPT_SKIP_CONFIG_CHECK=1 to override.")
+
+
+def _add_common(p: argparse.ArgumentParser):
+    p.add_argument("--data", required=True, help="glob for patient dirs, e.g. 'data/pt_*'")
+    p.add_argument("--val-data", default=None)
+    p.add_argument("--size", type=int, default=None, help="limit #patients")
+    p.add_argument("--epochs", type=int, default=1300)
+    p.add_argument("--check-val", type=int, default=5)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--lr", type=float, default=_DEFAULT_LR)
+    p.add_argument("--weight-decay", type=float, default=0.00016303111017674179)
+    p.add_argument("--optimizer", choices=["adamw", "adam8bit"], default=None,
+                   help="default: adam8bit for pyfer, adamw otherwise")
+    p.add_argument("--ckpt-dir", default="checkpoints")
+    p.add_argument("--log-dir", default="logs")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--mesh", default=None,
+                   help=f"a device mesh, e.g. 'data=4': not ported ({_INFRA})")
+    p.add_argument("--model-size", choices=["full", "small"], default="full",
+                   help="'small' = reduced-width dev model for smoke runs and tests")
+    p.add_argument("--feed-dtype", choices=["float32", "bfloat16", "packed"],
+                   default="float32",
+                   help="bfloat16 = native fused augmentation, half the host-to-card "
+                        "bytes; packed = bit-packed masks, unpacked and augmented on "
+                        "the card (data/packed.py)")
+    p.add_argument("--save-per-epoch", type=int, default=None,
+                   help="every N epochs also write a never-rotated 'iter_<step>' slot")
+    p.add_argument("--samples-per-epoch", type=int, default=None,
+                   help="fix the epoch at N samples, cycling through the shuffled cohort")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="average k micro-batch gradients per update")
+    p.add_argument("--remat-blocks", action="store_true",
+                   help="per-block recompute in the decoders: less activation memory")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the first epoch here")
+
+
+def _add_unported(sub, name: str, help_text: str):
+    sub.add_parser(name, help=f"{help_text} (not ported: {_UNPORTED_COMMANDS[name]})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="dose_prediction_tpu_torch",
+                                 description="Dose prediction on an NVIDIA GPU (PyTorch/CUDA)")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where models run; 'cuda' (default) needs a card and never falls "
+                         "back to the CPU")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    tr = sub.add_parser("train", help="train a model")
+    tr.add_argument("model", choices=["pyfer", "c3d", "hdunet", "transeg", "dosegan",
+                                      "vitgan", "exp"],
+                    help="ported: pyfer, c3d, transeg")
+    _add_common(tr)
+    tr.add_argument("--pretrained-c3d", default=None,
+                    help="a trained C3D cascade (a slot of this package, or a reference "
+                         "torch checkpoint .pkl/.pt/.pth/.ckpt) for net_A surgery")
+    tr.add_argument("--no-freeze", action="store_true")
+    tr.add_argument("--delta1", type=float, default=10.0)
+    tr.add_argument("--delta2", type=float, default=8.0)
+    tr.add_argument("--act", choices=["relu", "mish"], default="mish",
+                    help="pyfer decoder activation (tuned default mish)")
+    tr.add_argument("--mode-model", type=int, choices=[0, 1], default=1,
+                    help="seg task: 1 = TranSeg; 0 = plain UNETR (not ported)")
+    tr.add_argument("--block-family", choices=["seg", "old", "ablation"], default="seg",
+                    help="TranSeg conv-block flavor (ported: seg)")
+    tr.add_argument("--k7-mode", choices=["dense", "separable"], default="dense",
+                    help="seg decoder k7 flavor (ported: dense)")
+    tr.add_argument("--private-data", action="store_true",
+                    help="seg task: --data is the private 13-OAR head dataset")
+    tr.add_argument("--roi", type=int, default=96,
+                    help="seg task: training crop and validation window")
+    tr.add_argument("--lr-encoder", type=float, default=None, help="c3d: encoder rate")
+    tr.add_argument("--lr-decoder", type=float, default=None, help="c3d: decoder rate")
+    tr.add_argument("--scheduler", choices=["multistep", "cosine", "plateau"], default=None,
+                    help="c3d rate schedule (horizons in optimizer steps)")
+    tr.add_argument("--milestones", type=int, nargs="*", default=[])
+    tr.add_argument("--gamma", type=float, default=0.1)
+    tr.add_argument("--t-max", type=int, default=None, help="cosine horizon (steps)")
+    tr.add_argument("--eta-min", type=float, default=0.0)
+
+    ev = sub.add_parser("eval", help="OpenKBP scoring sweep of a dose checkpoint")
+    _add_common(ev)
+    ev.add_argument("--model", choices=_DOSE_MODELS, default="pyfer",
+                    help="ported: pyfer, c3d")
+    ev.add_argument("--ckpt", required=True, help="a slot file, e.g. <ckpt-dir>/last.pt")
+    ev.add_argument("--act", choices=["relu", "mish"], default="mish")
+    ev.add_argument("--device-metrics", action="store_true",
+                    help="score on the device: only scalars and the IVS curve leave it")
+    ev.add_argument("--plots-dir", default=None,
+                    help="per-patient DVH figures and slice triptychs (needs matplotlib)")
+
+    se = sub.add_parser("seg-eval", help="OAR segmentation sweep: sliding-window Dice, "
+                                         "HD95 and DiceCE val loss")
+    _add_common(se)
+    se.add_argument("--ckpt", required=True)
+    se.add_argument("--mode-model", type=int, choices=[0, 1], default=1)
+    se.add_argument("--block-family", choices=["seg", "old", "ablation"], default="seg")
+    se.add_argument("--k7-mode", choices=["dense", "separable"], default="dense")
+    se.add_argument("--sw-batch", type=int, default=4)
+    se.add_argument("--roi", type=int, default=96)
+    se.add_argument("--private-data", action="store_true")
+
+    inf = sub.add_parser("infer", help="linked cascade inference on one patient")
+    inf.add_argument("--patient", required=True, help="patient directory")
+    inf.add_argument("--seg-ckpt", required=True)
+    inf.add_argument("--dose-ckpt", required=True)
+    inf.add_argument("--out", required=True, help="output dose .nii.gz")
+    inf.add_argument("--seg-mode", choices=["sliding", "dense"], default="sliding")
+    inf.add_argument("--model-size", choices=["full", "small"], default="full")
+    inf.add_argument("--roi", type=int, default=96,
+                     help="the ROI the seg checkpoint was trained at")
+    inf.add_argument("--block-family", choices=["seg", "old", "ablation"], default="seg")
+    inf.add_argument("--k7-mode", choices=["dense", "separable"], default="dense")
+    inf.add_argument("--serve-dtype", choices=["float32", "bfloat16"], default="float32",
+                     help="'bfloat16' = bf16 activations (parameters stay float32), "
+                          "8 windows a batch")
+
+    pr = sub.add_parser("predict", help="dose predictions for a cohort as NIfTI files")
+    _add_common(pr)
+    pr.add_argument("--model", choices=_DOSE_MODELS, default="pyfer", help="ported: pyfer, c3d")
+    pr.add_argument("--ckpt", required=True)
+    pr.add_argument("--act", choices=["relu", "mish"], default="mish")
+    pr.add_argument("--out-dir", required=True,
+                    help="one <out-dir>/<patient_id>/dose.nii.gz per patient")
+
+    it = sub.add_parser("import-torch",
+                        help="a reference torch checkpoint (NetworkTrainer .pkl, Lightning "
+                             ".ckpt or a bare state dict) into a slot file")
+    it.add_argument("--kind", required=True,
+                    choices=["c3d", "pyfer", "transeg", "unetr", "resnet10", "hdunet",
+                             "dosegan-g", "dosegan-d", "vitgan-g", "exp-gen"],
+                    help="ported: c3d, pyfer, transeg")
+    it.add_argument("--act", choices=["relu", "mish"], default="mish")
+    it.add_argument("--src", required=True, help="torch checkpoint path")
+    it.add_argument("--dest", required=True, help="output slot file")
+    it.add_argument("--model-size", choices=["full", "small"], default="full")
+    it.add_argument("--block-family", choices=["seg", "old", "ablation"], default="old",
+                    help="the transeg flavor the source was trained with (ported: seg)")
+    it.add_argument("--volume-size", type=int, default=128, help="pyfer volume (its ViT grid)")
+    it.add_argument("--roi", type=int, default=96, help="transeg window")
+    it.add_argument("--strict", action="store_true",
+                    help="fail unless every model entry is covered by the source")
+
+    op = sub.add_parser("openkbp-prepare",
+                        help="the official OpenKBP CSV release into the NIfTI layout "
+                             "(host only)")
+    op.add_argument("--csv-dir", required=True)
+    op.add_argument("--out-dir", required=True)
+    op.add_argument("--pattern", default="pt_*")
+    op.add_argument("--ct-offset", type=float, default=0.0)
+    op.add_argument("--assume-spacing", default=None, metavar="D,H,W")
+
+    sc = sub.add_parser("score", help="directory-based OpenKBP scoring of saved "
+                                      "predictions (host only)")
+    sc.add_argument("--pred-dir", required=True)
+    sc.add_argument("--gt-dir", required=True)
+
+    _add_unported(sub, "linked-eval", "cohort end-to-end cascade scoring")
+    _add_unported(sub, "tune", "ASHA hyperparameter search")
+    _add_unported(sub, "kfold", "k-fold cross validation")
+    _add_unported(sub, "bench", "the 128³ cascade latency benchmark")
+    _add_unported(sub, "doctor", "deployment health report")
+    return ap
+
+
+def _load_into(model, state_dict, what: str) -> None:
+    """Load a checkpoint's state dict into ``model``, or exit naming what
+    differs (the JAX CLI's _graft_variables, :857-881)."""
+    mine = model.state_dict()
+    missing = sorted(set(mine) - set(state_dict))[:5]
+    extra = sorted(set(state_dict) - set(mine))[:5]
+    if missing or extra:
+        raise SystemExit(f"checkpoint does not match the constructed {what} architecture "
+                         f"(check --model/--model-size/--act): missing {missing}, "
+                         f"unexpected {extra}")
+    bad = [(k, tuple(state_dict[k].shape), tuple(v.shape)) for k, v in mine.items()
+           if tuple(state_dict[k].shape) != tuple(v.shape)]
+    if bad:
+        raise SystemExit(f"checkpoint shapes do not match the constructed {what} "
+                         f"architecture (check --model-size): {bad[:5]}")
+    model.load_state_dict(state_dict, strict=True)
+
+
+def _read_slot(path):
+    from dose_prediction_tpu_torch.core.checkpoint import (
+        restore_checkpoint,
+        variables_from_checkpoint,
+    )
+
+    return variables_from_checkpoint(restore_checkpoint(path))
+
+
+def _refuse_unported(args) -> None:
+    """Refuse, before any device work, a choice the port does not have."""
+    if args.cmd in _UNPORTED_COMMANDS:
+        raise refuse(f"the {args.cmd} subcommand", _UNPORTED_COMMANDS[args.cmd])
+    model = args.model if args.cmd in ("train", "eval", "predict") else None
+    if model is not None and model not in _PORTED_DOSE_MODELS + ("transeg",):
+        raise refuse(f"the {model} model", _MODEL_ZOO)
+    if args.cmd == "import-torch" and args.kind not in ("c3d", "pyfer", "transeg"):
+        raise refuse(f"--kind {args.kind}", _MODEL_ZOO)
+    seg = args.cmd in ("seg-eval", "infer") or model == "transeg" or (
+        args.cmd == "import-torch" and args.kind == "transeg")
+    if seg and getattr(args, "mode_model", 1) == 0:
+        raise refuse("--mode-model 0 (UNETR)", _MODEL_ZOO)
+    if seg and args.block_family != "seg":
+        raise refuse(f"--block-family {args.block_family}", _MODEL_ZOO)
+    if seg and getattr(args, "k7_mode", "dense") != "dense":
+        raise refuse(f"--k7-mode {args.k7_mode}", _MODEL_ZOO)
+    if getattr(args, "mesh", None):
+        raise refuse("--mesh", _INFRA)
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args, extra = parser.parse_known_args(argv)
+    _refuse_unported(args)
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+
+    if args.cmd == "openkbp-prepare":
+        from dose_prediction_tpu_torch.data.openkbp_prepare import prepare_cohort
+
+        spacing = None
+        if args.assume_spacing:
+            try:
+                spacing = tuple(float(s) for s in args.assume_spacing.split(","))
+            except ValueError:
+                raise SystemExit("--assume-spacing wants three numbers: D,H,W")
+            if len(spacing) != 3 or any(not (s > 0) for s in spacing):
+                raise SystemExit("--assume-spacing wants three POSITIVE values: D,H,W")
+        n = prepare_cohort(args.csv_dir, args.out_dir, pattern=args.pattern,
+                           ct_offset=args.ct_offset, default_spacing=spacing)
+        print(json.dumps({"patients_converted": n, "out_dir": args.out_dir}))
+        return 0
+
+    if args.cmd == "score":
+        from dose_prediction_tpu_torch.evaluation.metrics import score_prediction_dirs
+
+        dose_dif, dvh_dif, metric_means = score_prediction_dirs(args.pred_dir, args.gt_dir)
+        if math.isnan(dose_dif):
+            print("score: no scorable patients: <pred-dir> must hold "
+                  "<patient_id>/dose.nii.gz and <gt-dir> (a plain directory, not a glob) "
+                  "matching <patient_id>/ folders with dose.nii.gz and "
+                  "possible_dose_mask.nii.gz", file=sys.stderr)
+            return 1
+        print(json.dumps({"dose_score": dose_dif, "dvh_score": dvh_dif,
+                          "metrics": metric_means}, indent=2))
+        return 0
+
+    import torch
+
+    from dose_prediction_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    if getattr(args, "plots_dir", None):
+        from dose_prediction_tpu_torch.evaluation.plots import PlotsUnavailable, pyplot
+
+        try:
+            pyplot()
+        except PlotsUnavailable as e:
+            raise SystemExit(str(e))
+
+    from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
+    from dose_prediction_tpu_torch.train import trainers as T
+
+    small = getattr(args, "model_size", "full") == "small"
+
+    def make_cfg(model_name=None) -> "T.TrainConfig":
+        return T.TrainConfig(
+            max_epochs=args.epochs, check_val=args.check_val, batch_size=args.batch_size,
+            learning_rate=args.lr, weight_decay=args.weight_decay, ckpt_dir=args.ckpt_dir,
+            log_dir=args.log_dir, seed=args.seed, max_steps=args.max_steps,
+            optimizer=resolve_optimizer(args.optimizer, model_name),
+            delta1=getattr(args, "delta1", 10.0), delta2=getattr(args, "delta2", 8.0),
+            freeze_net_a=not getattr(args, "no_freeze", False),
+            feed_dtype=args.feed_dtype, samples_per_epoch=args.samples_per_epoch,
+            save_per_epoch=args.save_per_epoch, grad_accum=args.grad_accum,
+            remat_blocks=args.remat_blocks, profile_dir=args.profile_dir,
+            lr_encoder=getattr(args, "lr_encoder", None),
+            lr_decoder=getattr(args, "lr_decoder", None),
+            scheduler=getattr(args, "scheduler", None),
+            milestones=tuple(getattr(args, "milestones", []) or []),
+            gamma=getattr(args, "gamma", 0.1), t_max=getattr(args, "t_max", None),
+            eta_min=getattr(args, "eta_min", 0.0), device=str(device))
+
+    def pyfer_model(shape, seed):
+        return T.seeded(seed, lambda: default_flagship_model(
+            act=getattr(args, "act", "mish"), remat_blocks=getattr(args, "remat_blocks", False),
+            small=small, img_size=tuple(shape), device=device))
+
+    def transeg_model(seed, out_ch=8, trained_grid=None, roi=None):
+        roi = roi or args.roi
+        return T.seeded(seed, lambda: default_seg_model(
+            out_ch=out_ch, block_family=args.block_family, trained_grid=trained_grid,
+            remat_blocks=getattr(args, "remat_blocks", False),
+            k7_mode=getattr(args, "k7_mode", "dense"),
+            small=small, img_size=(roi,) * 3, device=device))
+
+    def build_dose_trainer(model_name: str, cfg, shape):
+        """One construction path for train, eval and predict, so that a
+        train → eval round trip rebuilds the same architecture."""
+        ex = (1, *shape, 9)
+        if model_name == "pyfer":
+            pre = None
+            if getattr(args, "pretrained_c3d", None):
+                if args.pretrained_c3d.endswith((".pkl", ".pth", ".ckpt")):
+                    from dose_prediction_tpu_torch.core.torch_import import (
+                        load_torch_checkpoint,
+                    )
+
+                    pre = load_torch_checkpoint(args.pretrained_c3d)
+                else:
+                    pre = _read_slot(args.pretrained_c3d)
+                if not any(k.startswith(("net_A.", "conv_out_A.")) for k in pre):
+                    raise SystemExit(f"--pretrained-c3d {args.pretrained_c3d}: no net_A or "
+                                     "conv_out_A entry to copy (not a C3D cascade?)")
+            return T.PyferTrainer(cfg, model=pyfer_model(shape, cfg.seed),
+                                  pretrained_c3d_params=pre, example_shape=ex)
+        model = T.seeded(cfg.seed, lambda: small_c3d(device)) if small else None
+        return T.CascadeC3DTrainer(cfg, model=model, example_shape=ex)
+
+    if args.cmd == "import-torch":
+        from dose_prediction_tpu_torch.core.checkpoint import merge_partial, save_checkpoint
+        from dose_prediction_tpu_torch.core.torch_import import load_torch_checkpoint
+
+        if args.kind == "transeg":
+            model = transeg_model(0, roi=args.roi)
+        elif args.kind == "pyfer":
+            model = pyfer_model((args.volume_size,) * 3, 0)
+        else:
+            from dose_prediction_tpu_torch.models import CascadeC3D
+
+            model = small_c3d(device) if small else CascadeC3D(device=device)
+        # the reference's strict=False surgery (dose_pyfer.py:394-407): an
+        # entry the source lacks keeps the model's own initialization
+        merged, stats = merge_partial(model.state_dict(), load_torch_checkpoint(args.src),
+                                      verbose=False)
+        print(f"[import-torch] {args.kind}: copied {stats['copied']} / inside "
+              f"{stats['inside']}, missing {stats['missing']}, unused {stats['unused']}")
+        if args.strict and (stats["missing"] or stats["copied"] < stats["inside"]):
+            print(f"[import-torch] --strict: {stats['missing']} entries not covered by the "
+                  f"source, {stats['inside'] - stats['copied']} skipped on shape mismatch",
+                  file=sys.stderr)
+            return 1
+        model.load_state_dict(merged, strict=True)
+        save_checkpoint(args.dest, {k: v.cpu() for k, v in model.state_dict().items()})
+        print(f"[import-torch] wrote {args.dest}")
+        return 0
+
+    if args.cmd == "train":
+        cfg = make_cfg(args.model)
+        if args.model == "transeg":
+            if args.private_data:
+                from dose_prediction_tpu_torch.data.private_seg import PrivateSegDataset
+
+                train_ds = PrivateSegDataset(args.data, split="train").as_seg()
+                val_ds = PrivateSegDataset(args.val_data or args.data, split="val").as_seg()
+                num_classes = 14
+            else:
+                train_ds = OpenKBPDataset(args.data, size=args.size)
+                val_ds = (OpenKBPDataset(args.val_data, keep_structures=True)
+                          if args.val_data else None)
+                num_classes = 8
+            trainer = T.TranSegTrainer(cfg, model=transeg_model(cfg.seed, out_ch=num_classes),
+                                       crop=(args.roi,) * 3, num_classes=num_classes)
+            trainer.fit(train_ds, val_ds)
+            return 0
+        train_ds = OpenKBPDataset(args.data, size=args.size)
+        val_ds = (OpenKBPDataset(args.val_data, keep_structures=True)
+                  if args.val_data else None)
+        # the ViT's token grid follows the data, not an assumed 128³
+        trainer = build_dose_trainer(args.model, cfg, train_ds.patients[0].ct.shape)
+        trainer.fit(train_ds, val_ds)
+        return 0
+
+    def restored_dose_trainer(model_name: str, shape):
+        """A trainer of ``model_name`` holding the weights of args.ckpt (a
+        trainer slot or an import-torch output) and its ``predict_fn(batch)
+        -> Gy prediction`` (:883-934)."""
+        tr = build_dose_trainer(model_name, make_cfg(model_name), shape)
+        _check_ckpt_config(args.ckpt, tr.model)
+        _load_into(tr.model, _read_slot(args.ckpt), "model")
+        if model_name == "pyfer":
+            return tr, lambda batch: tr.eval_step(batch)["prediction"]
+        from dose_prediction_tpu_torch.evaluation.metrics import postprocess_prediction
+
+        return tr, lambda batch: postprocess_prediction(tr.predict(batch["input"]),
+                                                        batch["gt"][..., 1:2])
+
+    if args.cmd == "eval":
+        ds = OpenKBPDataset(args.data, size=args.size, keep_structures=True)
+        trainer, _ = restored_dose_trainer(args.model, ds.patients[0].ct.shape)
+        results = trainer.test(ds, device_metrics=args.device_metrics,
+                               plots_dir=args.plots_dir)
+        print(json.dumps({k: v for k, v in results.items() if k != "per_patient"}, indent=2))
+        return 0
+
+    if args.cmd == "seg-eval":
+        if args.private_data:
+            from dose_prediction_tpu_torch.data.private_seg import PrivateSegDataset
+
+            ds = PrivateSegDataset(args.data, split="val").as_seg()
+            num_classes = 14
+        else:
+            ds = OpenKBPDataset(args.data, size=args.size, keep_structures=True)
+            num_classes = 8
+        tr = T.TranSegTrainer(make_cfg(), model=transeg_model(args.seed, out_ch=num_classes),
+                              crop=(args.roi,) * 3, num_classes=num_classes)
+        _check_ckpt_config(args.ckpt, tr.model)
+        _load_into(tr.model, _read_slot(args.ckpt), "seg model")
+        dice, hd95, val_loss = tr.validate(ds, sw_batch_size=args.sw_batch)
+        print(json.dumps({"dice_metric": dice, "hd95_metric": hd95, "val_loss": val_loss},
+                         indent=2))
+        return 0
+
+    if args.cmd == "predict":
+        from dose_prediction_tpu_torch.data.nifti import write_nifti
+
+        ds = OpenKBPDataset(args.data, size=args.size)
+        _, predict_fn = restored_dose_trainer(args.model, ds.patients[0].ct.shape)
+        out_root = Path(args.out_dir)
+        for p in ds.patients:
+            batch = {"input": torch.from_numpy(p.model_input[None]).to(device),
+                     "gt": torch.from_numpy(p.gt[None]).to(device)}
+            pred = predict_fn(batch).cpu().numpy()[0, ..., 0]
+            out = out_root / p.patient_id
+            out.mkdir(parents=True, exist_ok=True)
+            write_nifti(out / "dose.nii.gz", pred, spacing=p.spacing)
+            print(f"wrote {out / 'dose.nii.gz'}")
+        return 0
+
+    if args.cmd == "infer":
+        from dose_prediction_tpu_torch.data.nifti import write_nifti
+        from dose_prediction_tpu_torch.data.openkbp import load_patient
+        from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
+        p = load_patient(args.patient)
+        serve_bf16 = args.serve_dtype == "bfloat16"
+        # dense mode: the token grid of the ROI the checkpoint was trained at
+        grid = (args.roi // SEG_PATCH,) * 3 if args.seg_mode == "dense" else None
+        seg = transeg_model(0, trained_grid=grid)
+        dose = pyfer_model(p.ct.shape, 0)
+        _check_ckpt_config(args.seg_ckpt, seg)
+        _check_ckpt_config(args.dose_ckpt, dose)
+        _load_into(seg, _read_slot(args.seg_ckpt), "seg model")
+        _load_into(dose, _read_slot(args.dose_ckpt), "dose model")
+        run = make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(),
+                              roi_size=(args.roi,) * 3, seg_mode=args.seg_mode,
+                              sw_batch_size=8 if serve_bf16 else 4,
+                              input_dtype=torch.bfloat16 if serve_bf16 else None)
+
+        def volume(a):
+            return torch.from_numpy(a[None, ..., None]).to(device)
+
+        out = run(volume(p.ct), volume(p.ptv), volume(p.dose_mask))
+        write_nifti(args.out, out.float().cpu().numpy()[0, ..., 0], spacing=p.spacing)
+        print(f"wrote {args.out}")
+        return 0
+
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -274,7 +274,7 @@ def _try_resume(ckpt: C.CheckpointManager, template: Dict[str, Any],
     return restored, int(restored["epoch"]) + 1
 
 
-def _seeded(seed: int, build: Callable[[], torch.nn.Module]) -> torch.nn.Module:
+def seeded(seed: int, build: Callable[[], torch.nn.Module]) -> torch.nn.Module:
     """A model built with torch's generators seeded from ``seed``."""
     with torch.random.fork_rng(devices=range(torch.cuda.device_count())):
         torch.manual_seed(seed)
@@ -290,7 +290,7 @@ class PyferTrainer:
         _refuse_mesh(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.model = model if model is not None else _seeded(cfg.seed, lambda: DosePyfer(
+        self.model = model if model is not None else seeded(cfg.seed, lambda: DosePyfer(
             img_size=tuple(example_shape[1:4]), remat_blocks=cfg.remat_blocks,
             device=self.device))
         if pretrained_c3d_params is not None:
@@ -470,7 +470,7 @@ class CascadeC3DTrainer:
         _refuse_mesh(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.model = model if model is not None else _seeded(
+        self.model = model if model is not None else seeded(
             cfg.seed, lambda: CascadeC3D(device=self.device))
         if plateau is None and cfg.scheduler == "plateau":
             plateau = S.ReduceLROnPlateau(base_lr=cfg.learning_rate)
@@ -601,7 +601,7 @@ class TranSegTrainer:
         self.device = resolve_device(cfg.device)
         self.crop = tuple(crop)
         self.num_classes = num_classes
-        self.model = model if model is not None else _seeded(cfg.seed, lambda: TranSeg(
+        self.model = model if model is not None else seeded(cfg.seed, lambda: TranSeg(
             out_ch=num_classes, img_size=self.crop, remat_blocks=cfg.remat_blocks,
             device=self.device))
         if pretrained_params is not None:
