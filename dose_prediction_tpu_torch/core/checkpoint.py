@@ -28,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -114,9 +113,7 @@ def variables_from_checkpoint(tree: Any) -> Dict[str, torch.Tensor]:
 class CheckpointManager:
     """Best-k rotation by a monitored metric, the 'last' crash-resume slot,
     named slots and archival snapshots (the JAX CheckpointManager, :88-268;
-    ModelCheckpoint(save_last, monitor), train_light_pyfer.py:307-312).
-
-    ``writes`` keeps (slot name, seconds, bytes) of each write."""
+    ModelCheckpoint(save_last, monitor), train_light_pyfer.py:307-312)."""
 
     def __init__(self, directory: str | Path, *, max_to_keep: int = 3,
                  monitor: str = "dose_score", mode: str = "max"):
@@ -128,16 +125,6 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.monitor = monitor
         self.mode = mode
-        self.writes: list = []
-
-    @property
-    def directory(self) -> Path:
-        return self._dir
-
-    def _write(self, path: Path, tree: Any) -> None:
-        t0 = time.perf_counter()
-        nbytes = save_checkpoint(path, tree)
-        self.writes.append((path.name, time.perf_counter() - t0, nbytes))
 
     # -- monitored saves -----------------------------------------------------
     def _index(self) -> Dict[int, Dict[str, float]]:
@@ -163,7 +150,7 @@ class CheckpointManager:
         """Monitored save of ``tree`` at ``step``; then only the best
         ``max_to_keep`` by ``monitor`` stay."""
         self._monitored.mkdir(exist_ok=True)
-        self._write(self._monitored / f"{int(step)}{SUFFIX}", tree)
+        save_checkpoint(self._monitored / f"{int(step)}{SUFFIX}", tree)
         index = self._index()
         index[int(step)] = {k: float(v) for k, v in metrics.items()}
         keep = self._ranked(index)[:self.max_to_keep]
@@ -208,7 +195,7 @@ class CheckpointManager:
 
     def save_named(self, name: str, tree: Any) -> None:
         """Overwrite the slot ``<dir>/<name>.pt``."""
-        self._write(self.named_path(name), tree)
+        save_checkpoint(self.named_path(name), tree)
 
     def restore_named(self, name: str, target: Optional[Any] = None) -> Any:
         path = self.named_path(name)
@@ -252,9 +239,6 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Every write has finished when its call returns: nothing to wait for."""
-
-    def close(self) -> None:
-        """Nothing is held open."""
 
 
 # ---------------------------------------------------------------------------

@@ -615,24 +615,19 @@ class TranSegTrainer:
         self.logger = MetricLogger(cfg.log_dir, run_name="transeg")
         self.ckpt = C.CheckpointManager(cfg.ckpt_dir, monitor="val_loss", mode="min")
 
-    @torch.no_grad()
-    def sliding_logits(self, volume: torch.Tensor, sw_batch_size: int = 4) -> torch.Tensor:
-        """(1, classes, D, H, W) logits of a (1, 1, D, H, W) volume over ROI
-        windows of the crop's size, the model in eval mode."""
-        self.model.eval()
-        return sliding_window_inference(volume, self.model, roi_size=self.crop,
-                                        sw_batch_size=sw_batch_size,
-                                        out_channels=self.num_classes)
-
     def validate(self, val_ds: OpenKBPDataset, *, sw_batch_size: int = 4):
         """(Dice, HD95, val loss) over the cohort (train_light_transeg.py:205-242):
         the val loss is the DiceCE of the sliding-window logits."""
         dices, hds, vlosses = [], [], []
+        self.model.eval()
 
+        @torch.no_grad()
         def produce(p):
             gt_labels = np.asarray(p.oars_label_encoded)
             vol = torch.from_numpy(np.ascontiguousarray(p.ct[None, None], np.float32))
-            logits = self.sliding_logits(vol.to(self.device), sw_batch_size)
+            logits = sliding_window_inference(vol.to(self.device), self.model,
+                                              roi_size=self.crop, sw_batch_size=sw_batch_size,
+                                              out_channels=self.num_classes)
             labels = torch.from_numpy(gt_labels[None].astype(np.int64)).to(self.device)
             vloss = L.dice_ce_loss(logits, labels)
             return p, gt_labels, _to_host({"labels": logits.argmax(dim=1), "vloss": vloss})

@@ -59,8 +59,7 @@ class MetricLogger:
 
 class EpochTimer:
     """Train / data-loading / validation wall time per epoch (TrainerTime,
-    network_trainer.py:73-83). ``steps`` keeps each tick-tock of the train
-    bucket, so a caller can read the step times of an epoch."""
+    network_trainer.py:73-83)."""
 
     def __init__(self):
         self.reset()
@@ -69,7 +68,6 @@ class EpochTimer:
         self.train_s = 0.0
         self.loader_s = 0.0
         self.val_s = 0.0
-        self.steps: list = []
         self._t0: Optional[float] = None
 
     def tick(self):
@@ -78,8 +76,6 @@ class EpochTimer:
     def tock(self, bucket: str):
         dt = time.perf_counter() - (self._t0 or time.perf_counter())
         setattr(self, bucket + "_s", getattr(self, bucket + "_s") + dt)
-        if bucket == "train":
-            self.steps.append(dt)
         self._t0 = None
 
     def report(self) -> str:

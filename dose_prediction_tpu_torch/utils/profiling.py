@@ -59,7 +59,7 @@ class StepTimer:
     def start(self):
         self._t0 = time.perf_counter()
 
-    def stop(self, result=None):
+    def stop(self):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         self.samples.append(time.perf_counter() - (self._t0 or time.perf_counter()))

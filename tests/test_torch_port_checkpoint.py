@@ -102,7 +102,7 @@ def test_monitored_saves_keep_the_best_by_mode(tmp_path, mode, keep):
     for step, score in enumerate([1.0, 3.0, 2.0, 5.0, 4.0]):
         mgr.save(step, {"state": state, "epoch": step}, {"score": score})
     assert mgr.all_steps() == keep
-    assert sorted(p.name for p in (mgr.directory / "monitored").glob("*.pt")) == \
+    assert sorted(p.name for p in (tmp_path / "monitored").glob("*.pt")) == \
         [f"{s}.pt" for s in keep]
     best = {"max": 3, "min": 0}[mode]
     assert mgr.best_step() == best and mgr.latest_step() == keep[-1]
