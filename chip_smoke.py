@@ -100,6 +100,25 @@ Phases, each printing its seconds on a line of its own:
             tests/test_packed_feed.py, which holds them in float32 (in bf16
             compute the packed CT's second rounding moves the loss more; the
             gap there is printed);
+20. trainer the CLI (python -m dose_prediction_tpu_torch) in this process at
+            full width on that cohort, float32 compute at PyTorch's TF32
+            defaults, as the CLI trains: train pyfer (adam8bit, the packed
+            feed, three patients, validating on the fourth, two epochs):
+            step p50 from its EpochTimer, the loader waits, validation
+            seconds, each checkpoint write's seconds and bytes, K1 and K2
+            launches per step (equal to a float32 make_pyfer_train_step's),
+            the slots on disk; the same with --epochs 3 (it must resume at
+            epoch 2 with the step count carried on); one epoch with
+            DPT_PALLAS_CONV=1 (K3 launched every step); eval of the best
+            slot with the host and the device metrics (both sweeps timed;
+            the scores within the bars of tests/test_losses_metrics.py);
+            predict, then score (the dose score within 1e-4 of eval's);
+            train transeg (two steps on 96³ crops), then infer in bf16,
+            sliding and dense, each NIfTI bit-equal to make_cascade_fn's
+            output from the same restored weights; train c3d (cosine, split
+            rates) and eval --model c3d; a subprocess train pyfer stopped by
+            SIGTERM after its first step, which must exit 0 with a 'last'
+            slot that a rerun resumes from;
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -112,6 +131,7 @@ import contextlib
 import gc
 import json
 import math
+import signal
 import subprocess
 import sys
 import tempfile
@@ -179,6 +199,11 @@ FEED_STEPS, FEED_SEG_STEPS = 5, 2
 PACKED_LOSS_TOL = 2e-3
 # (shift, flip mask, rot90 k) at which the native gathers are held
 AUGMENT_DECISIONS = [(0.0, 0, 0), (0.05, 5, 1), (-0.03, 2, 3), (0.07, 7, 2)]
+# trainer: eval's device metrics against its host metrics, the bars of
+# tests/test_losses_metrics.py:252-254; score's dose score against eval's
+EVAL_DOSE_REL, EVAL_DVH_REL, EVAL_IVS_RTOL, EVAL_IVS_ATOL = 1e-4, 1e-3, 1e-4, 1e-5
+SCORE_DOSE_REL = 1e-4
+SIGTERM_WAIT_S = 420
 
 
 def log(msg: str) -> None:
@@ -1397,7 +1422,7 @@ def phase_data(dev, root):
         f"to the CPU's, {row['unpack_ms']:.4f} ms at batch 1; one batch on the host: "
         + ", ".join(f"{k} {v['host_s']:.4f} s (of {[round(t, 4) for t in v['times_s']]}), "
                     f"{v['nbytes']} bytes" for k, v in row["feeds"].items()))
-    row["dataset"] = ds
+    row["dataset"], row["pattern"] = ds, pattern
     return row
 
 
@@ -1538,6 +1563,366 @@ def phase_train_feed(dev, data):
     return rows
 
 
+@contextlib.contextmanager
+def trainer_probes():
+    """Readings taken while the CLI runs in this process: each EpochTimer
+    tick-tock by bucket, each checkpoint write (slot, seconds, bytes), each
+    train step's kernel launches, and each evaluate_dose_model sweep's
+    seconds."""
+    from dose_prediction_tpu_torch.core import checkpoint as C
+    from dose_prediction_tpu_torch.train import steps as STEP
+    from dose_prediction_tpu_torch.train import trainers as T
+    from dose_prediction_tpu_torch.utils.logging import EpochTimer
+
+    rec = {"ticks": [], "writes": [], "steps": [], "step_times": [], "sweeps": []}
+
+    class Timer(EpochTimer):
+        def tock(self, bucket):
+            t0 = self._t0
+            super().tock(bucket)
+            rec["ticks"].append((bucket, time.perf_counter() - (t0 or time.perf_counter())))
+
+    save = C.save_checkpoint
+
+    def timed_save(path, tree):
+        t0 = time.perf_counter()
+        nbytes = save(path, tree)
+        rec["writes"].append((Path(path).name, time.perf_counter() - t0, nbytes))
+        return nbytes
+
+    def counted(make):
+        def factory(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(state, batch):
+                before, t0 = read_counts(), time.perf_counter()
+                out = step(state, batch)      # ends in float(loss): the card is done
+                rec["step_times"].append(time.perf_counter() - t0)
+                rec["steps"].append({k: v - before[k] for k, v in read_counts().items()})
+                return out
+            return run
+        return factory
+
+    sweep = T.evaluate_dose_model
+
+    def timed_sweep(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = sweep(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["sweeps"].append(time.perf_counter() - t0)
+        return out
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(T, "EpochTimer", Timer))
+        stack.enter_context(mock.patch.object(C, "save_checkpoint", timed_save))
+        stack.enter_context(mock.patch.object(T, "evaluate_dose_model", timed_sweep))
+        for name in ("make_pyfer_train_step", "make_cascade_c3d_train_step",
+                     "make_transeg_train_step"):
+            stack.enter_context(mock.patch.object(STEP, name, counted(getattr(STEP, name))))
+        yield rec
+
+
+def cli(*argv):
+    """``python -m dose_prediction_tpu_torch *argv`` in this process: the
+    return code, the JSON object it printed last (if any) and its output."""
+    import io
+
+    from dose_prediction_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main([str(a) for a in argv])
+    text = out.getvalue()
+    start = text.rfind("\n{\n")
+    start = 0 if text.startswith("{") else (start + 1 if start >= 0 else -1)
+    return rc, (json.loads(text[start:]) if start >= 0 else None), text
+
+
+def p50(values):
+    return sorted(values)[len(values) // 2] if values else None
+
+
+def train_cli(rec_label, *argv):
+    """One CLI train run under the probes; fails unless it returned 0."""
+    with trainer_probes() as rec:
+        t0 = time.perf_counter()
+        rc, _, text = cli("train", *argv)
+        rec["s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"trainer: {rec_label} returned {rc}:\n{text[-3000:]}")
+    rec["text"] = text
+    rec["step_s"] = [dt for b, dt in rec["ticks"] if b == "train"]
+    rec["loader_s"] = [dt for b, dt in rec["ticks"] if b == "loader"]
+    rec["val_s"] = [dt for b, dt in rec["ticks"] if b == "val"]
+    free_memory()
+    return rec
+
+
+def reference_step_launches(dev, ds) -> dict:
+    """Launches of one float32 make_pyfer_train_step step on the packed feed
+    (the configuration train pyfer runs), outside the CLI."""
+    from dose_prediction_tpu_torch.data import packed as PK
+
+    model, step, state = make_trainer(dev, packed=True, kind="adam8bit")
+    batch = {k: v.to(dev) for k, v in next(PK.packed_dose_batches(ds, seed=SEED)).items()}
+    zero_counts()
+    step(state, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    del model, step, state, batch
+    free_memory()
+    return counts
+
+
+def graceful_stop(dev, train_glob, work: Path) -> dict:
+    """A subprocess ``train pyfer`` with one step an epoch gets SIGTERM once
+    its first epoch's 'last' slot exists: it must exit 0 with a 'last' slot,
+    and a rerun must resume from it. Every process started is ended."""
+    from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
+
+    repo = Path(__file__).resolve().parent
+    ck = work / "sigterm"
+    argv = [sys.executable, "-m", "dose_prediction_tpu_torch", "train", "pyfer", "--data",
+            train_glob, "--epochs", "100000", "--check-val", "100000", "--samples-per-epoch",
+            "1", "--feed-dtype", "packed", "--ckpt-dir", str(ck), "--log-dir",
+            str(work / "sigterm_log")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        while (time.perf_counter() - t0 < SIGTERM_WAIT_S and proc.poll() is None
+               and not (ck / "last.pt").exists()):
+            time.sleep(0.2)
+        if not (ck / "last.pt").exists():
+            raise AssertionError("trainer: no 'last' slot before SIGTERM")
+        t_signal = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=SIGTERM_WAIT_S)
+        stop_s = time.perf_counter() - t_signal
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    stopped = restore_checkpoint(ck / "last.pt")
+    row = {"rc": proc.returncode, "notice": "SIGTERM received" in out,
+           "stopped_step": stopped["step"], "stopped_epoch": stopped["epoch"],
+           "stop_s": stop_s, "first_run_s": time.perf_counter() - t0}
+    del stopped
+    rerun = subprocess.run(argv[:argv.index("100000")] + [str(row["stopped_epoch"] + 2)]
+                           + argv[argv.index("100000") + 1:], cwd=repo, capture_output=True,
+                           text=True, timeout=SIGTERM_WAIT_S)
+    resumed = restore_checkpoint(ck / "last.pt")
+    row.update(rerun_rc=rerun.returncode,
+               resumed=f"resumed from epoch {row['stopped_epoch']}" in rerun.stdout,
+               rerun_step=resumed["step"])
+    if not (row["rc"] == 0 and row["notice"] and row["rerun_rc"] == 0 and row["resumed"]
+            and row["rerun_step"] == row["stopped_step"] + 1):
+        raise AssertionError(f"trainer: graceful stop failed: {row}\n{out[-2000:]}\n"
+                             f"{rerun.stdout[-1000:]}{rerun.stderr[-2000:]}")
+    return row
+
+
+def same_nifti_as_cascade(dev, out: Path, patient: Path, seg_ck: Path, dose_ck: Path,
+                          seg_mode: str, bf16: bool) -> bool:
+    """The NIfTI infer wrote against make_cascade_fn's output from the same
+    restored weights, bit for bit."""
+    from dose_prediction_tpu_torch.cli.main import default_flagship_model, default_seg_model
+    from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
+    from dose_prediction_tpu_torch.data.nifti import read_nifti
+    from dose_prediction_tpu_torch.data.openkbp import load_patient
+    from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
+
+    p = load_patient(str(patient))
+    roi = SEG_CROP[0]
+    seg = default_seg_model(img_size=SEG_CROP, device=dev,
+                            trained_grid=(roi // 16,) * 3 if seg_mode == "dense" else None)
+    dose = default_flagship_model(img_size=p.ct.shape, device=dev)
+    seg.load_state_dict(restore_checkpoint(seg_ck)["model"])
+    dose.load_state_dict(restore_checkpoint(dose_ck)["model"])
+    run = make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(), roi_size=SEG_CROP,
+                          seg_mode=seg_mode, sw_batch_size=8 if bf16 else 4,
+                          input_dtype=torch.bfloat16 if bf16 else None)
+
+    def vol(a):
+        return torch.from_numpy(a[None, ..., None]).to(dev)
+
+    want = run(vol(p.ct), vol(p.ptv), vol(p.dose_mask)).float().cpu().numpy()[0, ..., 0]
+    got = read_nifti(out).data
+    del seg, dose, run
+    free_memory()
+    return bool(got.shape == want.shape and (got == want).all())
+
+
+def phase_trainer(dev, data, root):
+    """The CLI at full width on the data phase's cohort: train pyfer (three
+    patients, the fourth for validation), its resume, a K3-routed epoch,
+    eval (host and device metrics), predict and score, train transeg and
+    infer from the two checkpoints, train and eval c3d, and a graceful
+    SIGTERM stop; PyTorch's TF32 defaults, float32 compute as the CLI
+    trains."""
+    from dose_prediction_tpu_torch.core.checkpoint import CheckpointManager, restore_checkpoint
+
+    cohort, work = Path(root), Path(root) / "trainer"
+    every, train_glob, val_glob = str(cohort / "pt_*"), str(cohort / "pt_[012]"), \
+        str(cohort / "pt_3")
+    smi, row = nvidia_smi(), {}
+    with torch_default_tf32():
+        ck = work / "pyfer"
+        pyfer = ["pyfer", "--data", train_glob, "--val-data", val_glob, "--check-val", "1",
+                 "--feed-dtype", "packed", "--ckpt-dir", ck, "--log-dir", work / "pyfer_log"]
+        rec = train_cli("train pyfer", *pyfer, "--epochs", "2")
+        last = restore_checkpoint(ck / "last.pt")
+        slots = sorted(p.name for p in ck.iterdir()) + sorted(
+            f"monitored/{p.name}" for p in (ck / "monitored").glob("*.pt"))
+        row["pyfer"] = {
+            "s": rec["s"], "steps": len(rec["steps"]), "step_s": rec["step_s"],
+            "step_p50_s": p50(rec["step_s"]), "loader_s": rec["loader_s"],
+            "val_s": rec["val_s"], "writes": rec["writes"], "launches": rec["steps"],
+            "slots": slots, "last_step": last["step"], "last_epoch": last["epoch"]}
+        del last
+        reference = reference_step_launches(dev, data["dataset"])
+        row["pyfer"]["reference_launches"] = reference
+        log(f"trainer: train pyfer (adam8bit, packed feed, float32 compute, 2 epochs of 3 steps) "
+            f"in {rec['s']:.1f} s: step p50 {row['pyfer']['step_p50_s']} s (steps "
+            f"{rec['step_s']}); loader waits {rec['loader_s']} s; validation {rec['val_s']} s; "
+            f"checkpoint writes (slot, s, bytes) {rec['writes']}; launches per step "
+            f"{rec['steps']} (a float32 make_pyfer_train_step: {reference}); slots {slots}; "
+            f"last slot at step {row['pyfer']['last_step']}, epoch "
+            f"{row['pyfer']['last_epoch']}; on {smi}")
+        ok = (len(rec["steps"]) == 6 and row["pyfer"]["last_step"] == 6
+              and {"last.pt", "run_config.json"} <= set(slots)
+              and any(s.startswith("monitored/") for s in slots)
+              and all(st[k] == reference[k] for st in rec["steps"]
+                      for k in ("attention", "instance_norm"))
+              and min(reference["attention"], reference["instance_norm"]) > 0)
+        if not ok:
+            raise AssertionError(f"trainer: train pyfer check failed: {row['pyfer']}")
+
+        rec = train_cli("resume", *pyfer, "--epochs", "3")
+        last = restore_checkpoint(ck / "last.pt")
+        row["resume"] = {"s": rec["s"], "resumed": "resumed from epoch 1" in rec["text"],
+                         "steps": len(rec["steps"]), "last_step": last["step"],
+                         "last_epoch": last["epoch"], "writes": rec["writes"]}
+        del last
+        log(f"trainer: the same with --epochs 3: {row['resume']}")
+        if not (row["resume"]["resumed"] and row["resume"]["last_step"] == 9
+                and row["resume"]["last_epoch"] == 2 and row["resume"]["steps"] == 3):
+            raise AssertionError(f"trainer: resume check failed: {row['resume']}")
+
+        with k3_routing(True):
+            rec = train_cli("K3 epoch", "pyfer", "--data", train_glob, "--epochs", "1",
+                            "--feed-dtype", "packed", "--ckpt-dir", work / "pyfer_k3",
+                            "--log-dir", work / "pyfer_k3_log")
+        row["k3"] = {"s": rec["s"], "launches": rec["steps"], "step_p50_s": p50(rec["step_s"])}
+        log(f"trainer: one epoch with DPT_PALLAS_CONV=1: launches per step {rec['steps']}, "
+            f"step p50 {row['k3']['step_p50_s']} s; on {smi}")
+        if not (rec["steps"] and all(st["conv3d_k3"] > 0 for st in rec["steps"])):
+            raise AssertionError(f"trainer: K3 was not launched in the routed epoch: {row['k3']}")
+
+        best = CheckpointManager(ck, monitor="mean_dose_score", mode="max")
+        best = best.step_path(best.best_step())
+        evals = {}
+        for label, extra in (("host", ()), ("device", ("--device-metrics",))):
+            with trainer_probes() as rec:
+                rc, res, text = cli("eval", "--data", every, "--ckpt", best,
+                                    "--ckpt-dir", work / "eval_ck", "--log-dir",
+                                    work / "eval_log", *extra)
+            if rc != 0 or res is None:
+                raise AssertionError(f"trainer: eval ({label}) returned {rc}:\n{text[-3000:]}")
+            evals[label] = {**res, "sweep_s": rec["sweeps"][0]}
+            free_memory()
+        host, device = evals["host"], evals["device"]
+        ivs_h = [float("nan") if v is None else v for v in host["ivs"]]
+        defined = [i for i, v in enumerate(ivs_h) if math.isfinite(v)]
+        ivs_ok = all(abs(device["ivs"][i] - ivs_h[i]) <= EVAL_IVS_ATOL + EVAL_IVS_RTOL
+                     * abs(ivs_h[i]) for i in defined) and \
+            all(device["ivs"][i] == 0 for i in range(len(ivs_h)) if i not in defined)
+        dose_rel = abs(device["mean_dose_score"] - host["mean_dose_score"]) / \
+            abs(host["mean_dose_score"])
+        dvh_rel = abs(device["mean_dvh_score"] - host["mean_dvh_score"]) / \
+            abs(host["mean_dvh_score"])
+        row["eval"] = {"best": str(best.relative_to(work)), "host": host, "device": device,
+                       "dose_rel": dose_rel, "dvh_rel": dvh_rel, "ivs_ok": ivs_ok}
+        log(f"trainer: eval of {row['eval']['best']} on 4 patients: host sweep "
+            f"{host['sweep_s']} s, device sweep {device['sweep_s']} s; mean_dose_score host "
+            f"{host['mean_dose_score']}, device {device['mean_dose_score']} (rel {dose_rel:.3g}, "
+            f"limit {EVAL_DOSE_REL}); mean_dvh_score host {host['mean_dvh_score']}, device "
+            f"{device['mean_dvh_score']} (rel {dvh_rel:.3g}, limit {EVAL_DVH_REL}); IVS "
+            f"{'within' if ivs_ok else 'OUTSIDE'} rtol {EVAL_IVS_RTOL} atol {EVAL_IVS_ATOL} on "
+            f"{len(defined)} defined levels; on {smi}")
+        if not (dose_rel <= EVAL_DOSE_REL and dvh_rel <= EVAL_DVH_REL and ivs_ok):
+            raise AssertionError(f"trainer: eval host against device failed: {row['eval']}")
+
+        t0 = time.perf_counter()
+        rc, _, text = cli("predict", "--data", every, "--ckpt", best, "--out-dir",
+                          work / "pred", "--ckpt-dir", work / "eval_ck", "--log-dir",
+                          work / "eval_log")
+        predict_s = time.perf_counter() - t0
+        free_memory()
+        rc2, scored, text2 = cli("score", "--pred-dir", work / "pred", "--gt-dir", cohort)
+        if rc or rc2 or scored is None:
+            raise AssertionError(f"trainer: predict/score failed:\n{text[-2000:]}{text2[-2000:]}")
+        score_rel = abs(scored["dose_score"] - host["mean_dose_score"]) / \
+            abs(host["mean_dose_score"])
+        row["score"] = {"predict_s": predict_s, "dose_score": scored["dose_score"],
+                        "dvh_score": scored["dvh_score"], "rel": score_rel}
+        log(f"trainer: predict in {predict_s:.1f} s, then score: dose_score "
+            f"{scored['dose_score']} against eval's {host['mean_dose_score']} (rel "
+            f"{score_rel:.3g}, limit {SCORE_DOSE_REL}), dvh_score {scored['dvh_score']}")
+        if score_rel > SCORE_DOSE_REL:
+            raise AssertionError(f"trainer: score's dose score differs: {row['score']}")
+
+        seg_ck = work / "transeg"
+        rec = train_cli("train transeg", "transeg", "--data", every, "--epochs", "1",
+                        "--max-steps", "2", "--ckpt-dir", seg_ck, "--log-dir",
+                        work / "transeg_log")
+        row["transeg"] = {"s": rec["s"], "step_s": rec["step_times"], "launches": rec["steps"],
+                          "writes": rec["writes"]}
+        if not (len(rec["steps"]) == 2 and all(st["attention"] > 0 for st in rec["steps"])):
+            raise AssertionError(f"trainer: train transeg check failed: {row['transeg']}")
+        infer = {}
+        for mode, dtype in (("sliding", "bfloat16"), ("dense", "bfloat16")):
+            out = work / f"infer_{mode}.nii.gz"
+            t0 = time.perf_counter()
+            rc, _, text = cli("infer", "--patient", cohort / "pt_3", "--seg-ckpt",
+                              seg_ck / "last.pt", "--dose-ckpt", ck / "last.pt", "--out", out,
+                              "--seg-mode", mode, "--serve-dtype", dtype)
+            seconds = time.perf_counter() - t0
+            free_memory()
+            if rc != 0:
+                raise AssertionError(f"trainer: infer {mode} returned {rc}:\n{text[-2000:]}")
+            infer[mode] = {"s": seconds, "equal": same_nifti_as_cascade(
+                dev, out, cohort / "pt_3", seg_ck / "last.pt", ck / "last.pt", mode,
+                dtype == "bfloat16")}
+        row["infer"] = infer
+        log(f"trainer: train transeg (2 steps on 96³ crops) in {rec['s']:.1f} s: steps "
+            f"{rec['step_times']} s, launches {rec['steps']}; infer (bf16) {infer}; on {smi}")
+        if not all(v["equal"] for v in infer.values()):
+            raise AssertionError(f"trainer: infer's NIfTI differs from make_cascade_fn's: {infer}")
+
+        c3d_ck = work / "c3d"
+        rec = train_cli("train c3d", "c3d", "--data", train_glob, "--val-data", val_glob,
+                        "--epochs", "1", "--check-val", "1", "--scheduler", "cosine",
+                        "--lr-encoder", C3D_LR_ENCODER, "--lr-decoder", C3D_LR_DECODER,
+                        "--t-max", C3D_T_MAX, "--ckpt-dir", c3d_ck, "--log-dir",
+                        work / "c3d_log")
+        rc, res, text = cli("eval", "--model", "c3d", "--data", val_glob, "--ckpt",
+                            c3d_ck / "last.pt", "--ckpt-dir", work / "eval_ck", "--log-dir",
+                            work / "eval_log")
+        free_memory()
+        row["c3d"] = {"s": rec["s"], "step_s": rec["step_times"], "launches": rec["steps"],
+                      "eval": res}
+        log(f"trainer: train c3d (cosine, split rates, 3 steps) in {rec['s']:.1f} s: steps "
+            f"{rec['step_times']} s, launches {rec['steps']}; eval --model c3d: {res and {k: res[k] for k in ('mean_dose_score', 'mean_dvh_score')}}")
+        if rc != 0 or res is None or not math.isfinite(res["mean_dose_score"]) \
+                or len(rec["steps"]) != 3:
+            raise AssertionError(f"trainer: c3d failed:\n{text[-2000:]}")
+
+        row["sigterm"] = graceful_stop(dev, train_glob, work)
+        log(f"trainer: graceful stop: {row['sigterm']}")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1607,8 +1992,10 @@ def main() -> int:
         free_memory()
         with tempfile.TemporaryDirectory() as root:
             run("data", lambda: phase_data(dev, root))
-        run("train_feed", lambda: phase_train_feed(dev, results["data"]))
-        del results["data"]["dataset"]
+            run("train_feed", lambda: phase_train_feed(dev, results["data"]))
+            free_memory()
+            run("trainer", lambda: phase_trainer(dev, results["data"], root))
+            del results["data"]["dataset"]
     except Exception:
         return 1
 
@@ -1624,8 +2011,11 @@ def main() -> int:
         + "; train step p50 fed by "
         + ", ".join(f"{k} {results['train_feed'][k]['p50_s']} s" for k in ("float32", "bfloat16",
                                                                            "packed"))
-        + f"; total "
-        f"{time.perf_counter() - t_start:.1f} s; on {smi}")
+        + f"; trainer step p50 {results['trainer']['pyfer']['step_p50_s']} s (train pyfer, "
+        f"float32); eval sweeps {results['trainer']['eval']['host']['sweep_s']} s host, "
+        f"{results['trainer']['eval']['device']['sweep_s']} s device; checkpoint writes "
+        + ", ".join(f"{n} {s:.2f} s" for n, s, _ in results["trainer"]["pyfer"]["writes"])
+        + f"; total {time.perf_counter() - t_start:.1f} s; on {smi}")
     kernels = []
     for name, source, replaces, shape, phase in (
             ("attention", "dose_prediction_tpu_torch/csrc/attention.cu",
