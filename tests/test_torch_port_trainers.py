@@ -16,7 +16,7 @@ Bars. Where no update has compounded rounding, rel 1e-5: the validation
 epoch's train loss (one update in), and the port's evaluation of the JAX
 trainer's final weights against the JAX trainer's last epoch record (and
 ``test()``, rel 1e-4). The trajectory after that is held by the noise-run
-rule of PR 12's step tests (tests/test_torch_port_train_c3d.py), with two
+rule of the step tests (tests/test_torch_port_train_c3d.py), with two
 seeded noise runs of the port in which each InstanceNorm and Linear output
 carries a relative noise as large as the packages' own forward gap from
 the initial weights (measured in each test, at least 1e-6): a later
@@ -152,7 +152,7 @@ def noisy_outputs(seed, amplitude):
 def noise_amplitude(port_out, jax_out) -> float:
     """The noise runs' amplitude: the packages' own forward gap from the
     initial weights, max |port − jax| / max |jax| of one output, floored at
-    PR 12's 1e-6."""
+    the step tests' 1e-6."""
     jax_out = np.asarray(jax_out, np.float64)
     gap = float(np.abs(np.asarray(port_out, np.float64) - jax_out).max() / np.abs(jax_out).max())
     print(f"forward gap {gap:.3g}")
