@@ -118,7 +118,7 @@ Phases, each printing its seconds on a line of its own:
             output from the same restored weights; train c3d (cosine, split
             rates) and eval --model c3d; a subprocess train pyfer stopped by
             SIGTERM after its first step, which must exit 0 with a 'last'
-            slot that a rerun resumes from;
+            slot that a rerun resumes from; and --help in a subprocess;
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -1920,6 +1920,14 @@ def phase_trainer(dev, data, root):
 
         row["sigterm"] = graceful_stop(dev, train_glob, work)
         log(f"trainer: graceful stop: {row['sigterm']}")
+    t0 = time.perf_counter()
+    helped = subprocess.run([sys.executable, "-m", "dose_prediction_tpu_torch", "--help"],
+                            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                            timeout=SIGTERM_WAIT_S)
+    row["help"] = {"rc": helped.returncode, "s": time.perf_counter() - t0}
+    log(f"trainer: python -m dose_prediction_tpu_torch --help: {row['help']}")
+    if helped.returncode != 0 or "--device" not in helped.stdout:
+        raise AssertionError(f"trainer: --help failed:\n{helped.stderr[-2000:]}")
     return row
 
 
