@@ -2,16 +2,21 @@
 dose_prediction_tpu/core/torch_import.py::load_torch_checkpoint, :113-131).
 
 The port's modules carry the reference's module names, so a reference
-checkpoint needs only its container unwrapped and a strict
-``load_state_dict``; the JAX package's key maps and layout transposes have
-no counterpart here.
+checkpoint needs only its container unwrapped, its Lightning prefixes
+stripped and a ``load_state_dict``; the JAX package's key maps and layout
+transposes have no counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import torch
+
+# the reference's Lightning wrappers: 'model_.' (the dose trainers'
+# self.model_, e.g. HD-UNet's 'model_.model.'), '_model.' (the seg trainer,
+# train_light_transeg.py:126-146) and 'model.'; stripped in this order
+LIGHTNING_PREFIXES = ("model_.", "_model.", "model.")
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -35,3 +40,30 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
             k = k[len("module."):]
         out[k] = v.detach().cpu() if torch.is_tensor(v) else torch.as_tensor(v)
     return out
+
+
+def strip_lightning_prefixes(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each key without the LIGHTNING_PREFIXES it starts with."""
+    out = {}
+    for k, v in state_dict.items():
+        for prefix in LIGHTNING_PREFIXES:
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        out[k] = v
+    return out
+
+
+def load_reference_strict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Load a reference state dict (Lightning prefixes stripped) into
+    ``model`` strictly: raises ValueError naming the entries that are
+    missing, unexpected or of another shape."""
+    sd = strip_lightning_prefixes(state_dict)
+    mine = model.state_dict()
+    missing, extra = sorted(set(mine) - set(sd)), sorted(set(sd) - set(mine))
+    bad = [(k, tuple(sd[k].shape), tuple(v.shape)) for k, v in mine.items()
+           if k in sd and tuple(sd[k].shape) != tuple(v.shape)]
+    if missing or extra or bad:
+        raise ValueError(f"the source does not match {type(model).__name__}: "
+                         f"{len(missing)} missing {missing[:5]}, {len(extra)} unexpected "
+                         f"{extra[:5]}, {len(bad)} of another shape {bad[:5]}")
+    model.load_state_dict(sd, strict=True)

@@ -5,10 +5,16 @@ MONAI 0.7 semantics).
   (bias-free by default; transposed convs are k = s = 2).
 - UnetResBlock: conv/IN(affine)/LeakyReLU(0.01) ×2 with a 1×1 conv + IN
   residual projection when the channel count changes.
+- UnetBasicBlock: conv/IN(affine)/LeakyReLU(0.01) ×2, no residual.
 - UnetrBasicBlock: one UnetResBlock named ``layer``.
 - UnetrPrUpBlock: a transposed conv, then ``num_layer`` × (transposed conv +
   UnetResBlock).
-- ModifiedUnetrUpBlock: transposed conv, concat the skip, seg-family Conv31.
+- UnetrUpBlock (plain UNETR decoder stage, :119-145): bias-free transposed
+  conv, concat the skip, then UnetResBlock (``res_block``) or
+  UnetBasicBlock, named ``conv_block``.
+- ModifiedUnetrUpBlock: transposed conv, concat the skip, then Conv31
+  (``multiS_conv``) or DualDilatedBlock of the block ``family``, with
+  ``k7_mode`` (nn/mdunet.py; :146-178).
 - ModifiedUnetOutBlock: 1×1 conv with bias.
 """
 
@@ -53,6 +59,19 @@ class UnetResBlock(nn.Module):
         return ops.leaky_relu(h + residual, 0.01)
 
 
+class UnetBasicBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1):
+        super().__init__()
+        self.conv1 = Convolution(cin, cout, kernel_size, stride)
+        self.conv2 = Convolution(cout, cout, kernel_size)
+        self.norm1 = InstanceNorm3d(cout, affine=True)
+        self.norm2 = InstanceNorm3d(cout, affine=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = ops.leaky_relu(self.norm1(self.conv1(x)), 0.01)
+        return ops.leaky_relu(self.norm2(self.conv2(h)), 0.01)
+
+
 class UnetrBasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -78,11 +97,22 @@ class UnetrPrUpBlock(nn.Module):
         return x
 
 
-class ModifiedUnetrUpBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, act: str = "relu"):
+class UnetrUpBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, res_block: bool = False):
         super().__init__()
         self.transp_conv = Convolution(cin, cout, 2, 2, transposed=True)
-        self.conv_block = MultiUnetBasicBlock(2 * cout, cout, act)
+        self.conv_block = (UnetResBlock if res_block else UnetBasicBlock)(2 * cout, cout)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=1))
+
+
+class ModifiedUnetrUpBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, act: str = "relu", family: str = "seg",
+                 k7_mode: str = "dense", multiS_conv: bool = True):
+        super().__init__()
+        self.transp_conv = Convolution(cin, cout, 2, 2, transposed=True)
+        self.conv_block = MultiUnetBasicBlock(2 * cout, cout, act, family, k7_mode, multiS_conv)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=1))

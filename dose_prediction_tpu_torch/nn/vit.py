@@ -3,8 +3,10 @@ dose_prediction_tpu/nn/vit.py; MONAI 0.7 ViT semantics).
 
 - Perceptron patch embed: non-overlapping patches, token order (gD, gH, gW),
   features within a patch in (pd, ph, pw, c) order with c last, then a
-  Linear; learned position embeddings for the trained token grid, resized
-  trilinearly to the input's grid where it differs (``trained_grid``).
+  Linear; or the 'conv' patch embed, a Conv3d with kernel = stride = patch
+  whose output is flattened in the same token order. Learned position
+  embeddings for the trained token grid, resized trilinearly to the input's
+  grid where it differs (``trained_grid``).
 - Pre-norm blocks: x += attn(ln(x)); x += mlp(ln(x)). QKV is one bias-free
   Linear whose output axis is (qkv, heads, head_dim); attention runs
   through kernel K1's wrapper, or, with ``DPT_PALLAS_ATTENTION=0``
@@ -25,7 +27,7 @@ from torch import nn
 from dose_prediction_tpu_torch import ops
 from dose_prediction_tpu_torch.core.config import FLAGS
 from dose_prediction_tpu_torch.kernels import attention as k1
-from dose_prediction_tpu_torch.nn.layers import LayerNorm, Linear
+from dose_prediction_tpu_torch.nn.layers import Conv3d, LayerNorm, Linear
 
 
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
@@ -60,21 +62,30 @@ class Patchify(nn.Module):
 
 
 class PatchEmbeddingBlock(nn.Module):
-    """Patches → Linear, plus learned position embeddings for the token grid
-    they were trained on: ``trained_grid``, or else the grid of ``img_size``
-    (an int or a (D, H, W) triple). The input's own grid is taken at each
-    call; where it differs from ``trained_grid``, the embeddings are resized
-    to it trilinearly (align_corners=True), as the JAX PatchEmbed3D does
+    """Patches → Linear (``pos_embed='perceptron'``) or a patch-strided
+    Conv3d (``'conv'``, JAX nn/vit.py:109-137), plus learned position
+    embeddings for the token grid they were trained on: ``trained_grid``,
+    or else the grid of ``img_size`` (an int or a (D, H, W) triple). The
+    input's own grid is taken at each call; where it differs from
+    ``trained_grid``, the embeddings are resized to it trilinearly
+    (align_corners=True), as the JAX PatchEmbed3D does
     (dose_prediction_tpu/nn/vit.py:110-148). Without ``trained_grid`` the
     input must have the grid of ``img_size``."""
 
-    def __init__(self, in_ch: int, img_size, patch: int, hidden: int, trained_grid=None):
+    def __init__(self, in_ch: int, img_size, patch: int, hidden: int, trained_grid=None,
+                 pos_embed: str = "perceptron"):
         super().__init__()
         img = (img_size,) * 3 if isinstance(img_size, int) else tuple(img_size)
         self.patch = patch
         self.trained_grid = tuple(int(g) for g in trained_grid) if trained_grid else None
         self.base_grid = self.trained_grid or tuple(int(s) // patch for s in img)
-        self.patch_embeddings = nn.Sequential(Patchify(patch), Linear(in_ch * patch ** 3, hidden))
+        if pos_embed == "perceptron":
+            self.patch_embeddings = nn.Sequential(Patchify(patch),
+                                                  Linear(in_ch * patch ** 3, hidden))
+        elif pos_embed == "conv":
+            self.patch_embeddings = Conv3d(in_ch, hidden, patch, stride=patch)
+        else:
+            raise ValueError(f"unknown pos_embed {pos_embed!r} (want 'perceptron' or 'conv')")
         self.position_embeddings = nn.Parameter(
             torch.zeros(1, self.base_grid[0] * self.base_grid[1] * self.base_grid[2], hidden))
 
@@ -84,6 +95,8 @@ class PatchEmbeddingBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tokens = self.patch_embeddings(x)
+        if tokens.ndim == 5:          # the conv embed: (N, hidden, gD, gH, gW)
+            tokens = tokens.flatten(2).transpose(1, 2)
         grid = self.grid(x)
         pos = self.position_embeddings
         if grid != self.base_grid:
@@ -145,9 +158,10 @@ class ViT(nn.Module):
 
     def __init__(self, in_ch: int, img_size, patch: int = 16,
                  hidden: int = 768, mlp_dim: int = 3072, num_layers: int = 12,
-                 heads: int = 12, trained_grid=None):
+                 heads: int = 12, trained_grid=None, pos_embed: str = "perceptron"):
         super().__init__()
-        self.patch_embedding = PatchEmbeddingBlock(in_ch, img_size, patch, hidden, trained_grid)
+        self.patch_embedding = PatchEmbeddingBlock(in_ch, img_size, patch, hidden, trained_grid,
+                                                   pos_embed)
         self.blocks = nn.ModuleList(
             [TransformerBlock(hidden, mlp_dim, heads) for _ in range(num_layers)])
         self.norm = LayerNorm(hidden)

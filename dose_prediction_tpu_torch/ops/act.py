@@ -25,6 +25,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """x where x >= 0, else alpha · x; a 1-D ``alpha`` is per channel (axis 1)."""
+    if alpha.ndim == 1:
+        alpha = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    return torch.where(x >= 0, x, alpha * x)
+
+
 def identity(x: torch.Tensor) -> torch.Tensor:
     return x
 

@@ -1,5 +1,6 @@
-"""3D convolutions on NCDHW tensors (counterpart of the conv3d /
-conv_transpose3d semantics of dose_prediction_tpu/ops/conv.py).
+"""3D convolutions and pooling on NCDHW tensors (counterpart of the conv3d /
+conv_transpose3d / max_pool3d / avg_pool3d semantics of
+dose_prediction_tpu/ops/conv.py).
 
 Both go to cuDNN through torch, as the JAX package leaves these convolutions
 to XLA; its TPU-only rewrites (decomposed, lanefold, depth-phase, matmul)
@@ -95,3 +96,16 @@ def conv_transpose3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = 
     """ConvTranspose3d; ``w`` is (Cin, Cout, kD, kH, kW)."""
     return _biased(F.conv_transpose3d, x, w.to(x.dtype), b, stride=stride, padding=padding,
                    output_padding=output_padding)
+
+
+def max_pool3d(x: torch.Tensor, window=2, stride=None) -> torch.Tensor:
+    """3D max pooling without padding (JAX ops/conv.py:353; the reference's
+    MaxPool3d(2) in hdunet.py:44)."""
+    return F.max_pool3d(x, _triple(window), _triple(window if stride is None else stride))
+
+
+def avg_pool3d(x: torch.Tensor, window=2, stride=None) -> torch.Tensor:
+    """3D average pooling without padding, summed in float32 and rounded
+    once to ``x.dtype`` (JAX ops/conv.py:368)."""
+    return F.avg_pool3d(x.float(), _triple(window),
+                        _triple(window if stride is None else stride)).to(x.dtype)

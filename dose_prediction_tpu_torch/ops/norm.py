@@ -55,6 +55,22 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return _affine(y, scale, bias).to(x.dtype), new_mean, new_var
 
 
+def group_norm(x: torch.Tensor, scale: torch.Tensor | None = None,
+               bias: torch.Tensor | None = None, *, num_groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm of ``(N, C, D, H, W)`` over each group's channels and the
+    volume, statistics in float32 (JAX ops/norm.py:91-111)."""
+    n, c = x.shape[:2]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    xf = x.float().reshape(n, num_groups, c // num_groups, *x.shape[2:])
+    dims = tuple(range(2, xf.ndim))
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return _affine(y, scale, bias).to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the trailing feature axis, in float32."""

@@ -1,13 +1,18 @@
 """Carry JAX variables of the JAX package's models into the port's modules.
 
 ``jax_to_torch(variables, model)`` maps the flax variable tree of
-``DosePyfer``, ``TranSeg`` or ``CascadeC3D`` ({'params': ..., 'batch_stats': ...}, nested
-dicts of numpy arrays) onto ``model``'s state dict: every entry of the state
-dict must come from the tree and every leaf of the tree must be used, or it
-raises. The port's module names are the reference torch names, so the key
-maps are the inverse of dose_prediction_tpu/core/torch_import.py's
-``pyfer_key_map`` / ``transeg_key_map`` / ``c3d_key_map``; the port keeps its own copy of
-those maps (for the module names the port builds) and of the layout rules:
+``DosePyfer``, ``TranSeg`` (every block family, both k7 modes, both decoder
+blocks and patch embeds), ``CascadeC3D``, ``UNETR`` or ``HDUNet``
+({'params': ..., 'batch_stats': ...}, nested dicts of numpy arrays) onto
+``model``'s state dict: every entry of the state dict must come from the
+tree and every leaf of the tree must be used, or it raises. The port's
+module names are the reference torch names, so the key maps are the
+inverse of dose_prediction_tpu/core/torch_import.py's ``pyfer_key_map`` /
+``transeg_key_map`` / ``c3d_key_map`` / ``unetr_key_map`` /
+``hdunet_key_map``; the port keeps its own copy of those maps (for the
+module names the port builds, the separable chains and the ablation
+DualDilatedBlock's BatchNorm fuse among them, which no reference
+checkpoint holds) and of the layout rules:
 
 - Conv3d (O, I, k..) ↔ flax (k.., I, O); ConvTranspose3d (I, O, k..) ↔
   (k.., I, O); Linear (O, I) ↔ (I, O);
@@ -23,7 +28,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from dose_prediction_tpu_torch.models import CascadeC3D, DosePyfer, TranSeg
+from dose_prediction_tpu_torch.models import UNETR, CascadeC3D, DosePyfer, HDUNet, TranSeg
 
 Path = Tuple[str, ...]
 
@@ -65,7 +70,8 @@ _C3D_PATTERNS = [
 # {enc1}/{enc} name them ('skip1'/'skip' in DOSE-PYFER, 'encoder1'/'encoder'
 # in TranSeg)
 _VIT_PATTERNS = [
-    (r"^vit\.patch_embedding\.patch_embeddings\.1$", lambda m: ("vit", "patch_embedding", "proj")),
+    (r"^vit\.patch_embedding\.patch_embeddings(?:\.1)?$",     # perceptron or conv embed
+     lambda m: ("vit", "patch_embedding", "proj")),
     (r"^vit\.patch_embedding$", lambda m: ("vit", "patch_embedding")),
     (r"^vit\.blocks\.(\d+)\.(norm1|norm2)$", lambda m: ("vit", f"block{m[1]}", m[2])),
     (r"^vit\.blocks\.(\d+)\.attn\.(qkv|out_proj)$",
@@ -81,14 +87,39 @@ _SKIP_PATTERNS = [
     (r"^({enc}[234])\.blocks\.(\d+)\.1\.(.+)$",
      lambda m: _res_block_path((m[1], f"block{m[2]}"), m[3])),
 ]
-# ModifiedUnetrUpBlock stages with the seg-family conv_3_1
+# ModifiedUnetrUpBlock stages: Conv31 or DualDilatedBlock of any family.
+# A branch conv_{3,5,7} is Sequential-wrapped ('.0.', the seg and ablation
+# Conv31) or bare; its ConvBlockK holds convs at .conv.{0,3} (a separable
+# chain's 1-D convs below them as d/h/w) and norms at .conv.{1,4}; the fuse
+# is Sequential-wrapped ('.0', BatchNorm at '.1' in the ablation
+# DualDilatedBlock) or bare.
 _DECODER_PATTERNS = [
     (r"^({dec})\.transp_conv\.conv$", lambda m: (m[1], "transp_conv")),
-    (r"^({dec})\.conv_block\.cov_\.conv_(3|7)\.0\.conv\.(0|3)$",
-     lambda m: (m[1], "conv_block", f"branch{m[2]}", "conv0" if m[3] == "0" else "conv1")),
-    (r"^({dec})\.conv_block\.cov_\.conv_7\.0\.conv\.(1|4)$",
-     lambda m: (m[1], "conv_block", "branch7", "norm0" if m[2] == "1" else "norm1")),
-    (r"^({dec})\.conv_block\.cov_\.conv\.0$", lambda m: (m[1], "conv_block", "fuse")),
+    (r"^({dec})\.conv_block\.cov_\.conv_([357])(?:\.0)?\.conv\.([03])$",
+     lambda m: (m[1], "conv_block", f"branch{m[2]}", f"conv{int(m[3]) // 3}")),
+    (r"^({dec})\.conv_block\.cov_\.conv_([357])(?:\.0)?\.conv\.([03])\.([dhw])$",
+     lambda m: (m[1], "conv_block", f"branch{m[2]}", f"conv{int(m[3]) // 3}_{m[4]}")),
+    (r"^({dec})\.conv_block\.cov_\.conv_([357])(?:\.0)?\.conv\.([14])$",
+     lambda m: (m[1], "conv_block", f"branch{m[2]}", f"norm{int(m[3]) // 4}")),
+    (r"^({dec})\.conv_block\.cov_\.conv(?:\.0)?$", lambda m: (m[1], "conv_block", "fuse")),
+    (r"^({dec})\.conv_block\.cov_\.conv\.1$", lambda m: (m[1], "conv_block", "fuse_norm")),
+]
+# UnetrUpBlock stages of the plain UNETR (UnetResBlock or UnetBasicBlock)
+_UNETR_DECODER_PATTERNS = [
+    (r"^({dec})\.transp_conv\.conv$", lambda m: (m[1], "transp_conv")),
+    (r"^({dec})\.conv_block\.(.+)$", lambda m: _res_block_path((m[1], "conv_block"), m[2])),
+]
+_HDUNET_PATTERNS = [
+    (re.compile(r"^encoder\.encoder_1\.(\d)\.single_conv\.([01])$"),
+     lambda m: (f"enc1_c{int(m[1]) + 1}", "conv", "conv" if m[2] == "0" else "norm")),
+    (re.compile(r"^encoder\.encoder_([2-5])\.(\d)\.single_conv\.([01])$"),
+     lambda m: ((f"enc{m[1]}_down" if m[2] == "0" else f"enc{m[1]}_c{m[2]}"), "conv",
+                "conv" if m[3] == "0" else "norm")),
+    (re.compile(r"^decoder\.upconv_(\d)\.conv\.([01])$"),
+     lambda m: (f"upconv_{m[1]}", "conv", "conv" if m[2] == "0" else "norm")),
+    (re.compile(r"^decoder\.decoder_conv_(\d)\.(\d)\.single_conv\.([01])$"),
+     lambda m: (f"dec{m[1]}_c{int(m[2]) + 1}", "conv" if m[3] == "0" else "norm")),
+    (re.compile(r"^decoder\.final_conv$"), lambda m: ("final_conv",)),
 ]
 
 
@@ -114,6 +145,12 @@ _PYFER_NETB = _compile(
 _TRANSEG = _compile(
     _VIT_PATTERNS + _SKIP_PATTERNS + _DECODER_PATTERNS
     + [(r"^out\.conv\.conv$", lambda m: ("out", "conv"))],
+    enc1="encoder1", enc="encoder", dec=r"decoder[2-5]")
+
+
+_UNETR = _compile(
+    _VIT_PATTERNS + _SKIP_PATTERNS + _UNETR_DECODER_PATTERNS
+    + [(r"^out\.conv\.conv$", lambda m: ("out",))],
     enc1="encoder1", enc="encoder", dec=r"decoder[2-5]")
 
 
@@ -143,6 +180,16 @@ def c3d_key_map(module_key: str) -> Optional[Path]:
     return _c3d_path(module_key)
 
 
+def unetr_key_map(module_key: str) -> Optional[Path]:
+    """Port (= reference) module key of UNETR → flax path."""
+    return _match(_UNETR, module_key)
+
+
+def hdunet_key_map(module_key: str) -> Optional[Path]:
+    """Port (= reference) module key of HDUNet → flax path."""
+    return _match(_HDUNET_PATTERNS, module_key)
+
+
 def is_transposed(module_key: str) -> bool:
     """Modules holding ConvTranspose3d weights: the UnetrPrUpBlock chains and
     the decoder transposed convs."""
@@ -154,6 +201,8 @@ _KEY_MAPS: Dict[type, Callable[[str], Optional[Path]]] = {
     DosePyfer: pyfer_key_map,
     TranSeg: transeg_key_map,
     CascadeC3D: c3d_key_map,
+    UNETR: unetr_key_map,
+    HDUNet: hdunet_key_map,
 }
 # torch leaf → (flax collection, flax leaf); 'weight' depends on rank
 _LEAVES = {
@@ -183,8 +232,9 @@ def _leaves(tree: Mapping, prefix: Path = ()) -> Dict[Path, Any]:
 
 
 def jax_to_torch(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """State dict for ``model`` (a DosePyfer, TranSeg or CascadeC3D) from the JAX
-    package's variables of the same configuration. Raises if an entry of the
+    """State dict for ``model`` (a DosePyfer, TranSeg, CascadeC3D, UNETR or
+    HDUNet) from the JAX package's variables of the same configuration.
+    Raises if an entry of the
     state dict has no source, a shape differs, or a JAX leaf is left over;
     the result loads with ``model.load_state_dict(sd, strict=True)``."""
     key_map = _KEY_MAPS[type(model)]
