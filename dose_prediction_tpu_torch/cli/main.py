@@ -1,17 +1,20 @@
 """The port's command line (counterpart of dose_prediction_tpu/cli/main.py).
 
     python -m dose_prediction_tpu_torch train pyfer --data 'data/pt_*' --val-data ...
-    python -m dose_prediction_tpu_torch train c3d|transeg ...
+    python -m dose_prediction_tpu_torch train c3d|hdunet|transeg ...
     python -m dose_prediction_tpu_torch eval --data ... --ckpt ckpt/last.pt [--device-metrics]
     python -m dose_prediction_tpu_torch seg-eval|predict|infer|score|import-torch ...
+    python -m dose_prediction_tpu_torch linked-eval --data ... --seg-ckpt ... --dose-ckpt ...
 
 Everything runs on the card (``--device cuda``, the default) unless the
 caller passes ``--device cpu``; a missing card is an error, never a silent
 CPU run. ``--device`` takes the place of the JAX CLI's ``--platform``.
-Choices the port does not have yet (other models, TranSeg block families,
-the separable k7, meshes, and the subcommands linked-eval, tune, kfold,
-bench and doctor) are refused with the ROADMAP item that brings them;
-nothing falls back to another model.
+The seg task takes TranSeg (``--mode-model 1``, any ``--block-family`` and
+``--k7-mode``) or the plain UNETR (``--mode-model 0``). Choices the port
+does not have yet (the DoseGAN, ViT-GAN and exp models, meshes, the
+subcommands tune, kfold, bench and doctor, and the imports of their
+networks) are refused with the ROADMAP item that brings them; nothing falls
+back to another model.
 """
 
 from __future__ import annotations
@@ -29,14 +32,14 @@ _DEFAULT_LR = 0.0006130697604327541
 _MODEL_ZOO = "ROADMAP queue 1 item 6 (the rest of the model zoo)"
 _INFRA = "ROADMAP queue 1 item 7 (parallel and serve infrastructure)"
 _UNPORTED_COMMANDS = {
-    "linked-eval": "ROADMAP queue 1 item 6 (train/linked.py)",
     "tune": "ROADMAP queue 1 item 6 (train/tune.py)",
     "kfold": "ROADMAP queue 1 item 6 (train/kfold.py)",
     "bench": "ROADMAP queue 1 item 1 (bench_gpu.py)",
     "doctor": _INFRA,
 }
 _DOSE_MODELS = ["pyfer", "c3d", "hdunet", "dosegan", "vitgan", "exp"]
-_PORTED_DOSE_MODELS = ("pyfer", "c3d")
+_PORTED_DOSE_MODELS = ("pyfer", "c3d", "hdunet")
+_PORTED_IMPORTS = ("c3d", "pyfer", "transeg", "unetr", "hdunet")
 SMALL_LIST_CH = (-1, 2, 4, 8, 16, 32)
 SEG_PATCH = 16   # TranSeg's ViT patch: the dense seg's token grid is roi // 16
 # model-constructor arguments that may differ between training and
@@ -75,20 +78,38 @@ def default_flagship_model(act="mish", remat_blocks=False, small=False, img_size
 
 def default_seg_model(out_ch=8, block_family="seg", trained_grid=None, remat_blocks=False,
                       k7_mode="dense", small=False, img_size=96, device="cuda"):
-    """The TranSeg of ``train transeg`` (:59-75). Only the 'seg' block
-    family with dense k7 convolutions is ported."""
-    if block_family != "seg":
-        raise refuse(f"--block-family {block_family}", _MODEL_ZOO)
-    if k7_mode != "dense":
-        raise refuse(f"--k7-mode {k7_mode}", _MODEL_ZOO)
+    """The TranSeg of ``train transeg`` (:59-75), of any block family and
+    k7 mode."""
     from dose_prediction_tpu_torch.models import TranSeg
 
+    kw = dict(out_ch=out_ch, block_family=block_family, k7_mode=k7_mode,
+              trained_grid=trained_grid, remat_blocks=remat_blocks, img_size=img_size,
+              device=device)
     if small:
-        return TranSeg(out_ch=out_ch, feature_size=2, hidden_size=24, mlp_dim=48,
-                       num_layers=4, num_heads=2, trained_grid=trained_grid,
-                       remat_blocks=remat_blocks, img_size=img_size, device=device)
-    return TranSeg(out_ch=out_ch, trained_grid=trained_grid, remat_blocks=remat_blocks,
-                   img_size=img_size, device=device)
+        return TranSeg(feature_size=2, hidden_size=24, mlp_dim=48, num_layers=4, num_heads=2,
+                       **kw)
+    return TranSeg(**kw)
+
+
+def default_unetr_model(out_ch=8, trained_grid=None, small=False, img_size=96, device="cuda"):
+    """The plain UNETR of ``train transeg --mode-model 0`` (:637-643)."""
+    from dose_prediction_tpu_torch.models import UNETR
+
+    kw = dict(out_ch=out_ch, trained_grid=trained_grid, img_size=img_size, device=device)
+    if small:
+        return UNETR(feature_size=2, hidden_size=24, mlp_dim=48, num_layers=4, num_heads=2,
+                     **kw)
+    return UNETR(**kw)
+
+
+def default_hdunet_model(small=False, device="cuda"):
+    """The HD-UNet of ``train hdunet`` (:205-209): the reference's growth
+    rate 16 and 64 upsampling channels, or 4 and 8 at ``small``."""
+    from dose_prediction_tpu_torch.models import HDUNet
+
+    if small:
+        return HDUNet(growth_rate=4, upsample_chan=8, device=device)
+    return HDUNet(device=device)
 
 
 def small_c3d(device="cuda"):
@@ -193,7 +214,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr = sub.add_parser("train", help="train a model")
     tr.add_argument("model", choices=["pyfer", "c3d", "hdunet", "transeg", "dosegan",
                                       "vitgan", "exp"],
-                    help="ported: pyfer, c3d, transeg")
+                    help="ported: pyfer, c3d, hdunet, transeg")
     _add_common(tr)
     tr.add_argument("--pretrained-c3d", default=None,
                     help="a trained C3D cascade (a slot of this package, or a reference "
@@ -204,11 +225,12 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--act", choices=["relu", "mish"], default="mish",
                     help="pyfer decoder activation (tuned default mish)")
     tr.add_argument("--mode-model", type=int, choices=[0, 1], default=1,
-                    help="seg task: 1 = TranSeg; 0 = plain UNETR (not ported)")
+                    help="seg task: 1 = TranSeg; 0 = plain UNETR")
     tr.add_argument("--block-family", choices=["seg", "old", "ablation"], default="seg",
-                    help="TranSeg conv-block flavor (ported: seg)")
+                    help="TranSeg conv-block flavor ('old' = the reference's mode_model=1 "
+                         "checkpoints)")
     tr.add_argument("--k7-mode", choices=["dense", "separable"], default="dense",
-                    help="seg decoder k7 flavor (ported: dense)")
+                    help="seg decoder k7 flavor ('separable' = 1-D chains)")
     tr.add_argument("--private-data", action="store_true",
                     help="seg task: --data is the private 13-OAR head dataset")
     tr.add_argument("--roi", type=int, default=96,
@@ -225,7 +247,7 @@ def build_parser() -> argparse.ArgumentParser:
     ev = sub.add_parser("eval", help="OpenKBP scoring sweep of a dose checkpoint")
     _add_common(ev)
     ev.add_argument("--model", choices=_DOSE_MODELS, default="pyfer",
-                    help="ported: pyfer, c3d")
+                    help="ported: pyfer, c3d, hdunet")
     ev.add_argument("--ckpt", required=True, help="a slot file, e.g. <ckpt-dir>/last.pt")
     ev.add_argument("--act", choices=["relu", "mish"], default="mish")
     ev.add_argument("--device-metrics", action="store_true",
@@ -253,6 +275,8 @@ def build_parser() -> argparse.ArgumentParser:
     inf.add_argument("--model-size", choices=["full", "small"], default="full")
     inf.add_argument("--roi", type=int, default=96,
                      help="the ROI the seg checkpoint was trained at")
+    inf.add_argument("--mode-model", type=int, choices=[0, 1], default=1,
+                     help="the seg checkpoint's network: 1 = TranSeg, 0 = plain UNETR")
     inf.add_argument("--block-family", choices=["seg", "old", "ablation"], default="seg")
     inf.add_argument("--k7-mode", choices=["dense", "separable"], default="dense")
     inf.add_argument("--serve-dtype", choices=["float32", "bfloat16"], default="float32",
@@ -261,7 +285,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     pr = sub.add_parser("predict", help="dose predictions for a cohort as NIfTI files")
     _add_common(pr)
-    pr.add_argument("--model", choices=_DOSE_MODELS, default="pyfer", help="ported: pyfer, c3d")
+    pr.add_argument("--model", choices=_DOSE_MODELS, default="pyfer",
+                    help="ported: pyfer, c3d, hdunet")
     pr.add_argument("--ckpt", required=True)
     pr.add_argument("--act", choices=["relu", "mish"], default="mish")
     pr.add_argument("--out-dir", required=True,
@@ -273,17 +298,19 @@ def build_parser() -> argparse.ArgumentParser:
     it.add_argument("--kind", required=True,
                     choices=["c3d", "pyfer", "transeg", "unetr", "resnet10", "hdunet",
                              "dosegan-g", "dosegan-d", "vitgan-g", "exp-gen"],
-                    help="ported: c3d, pyfer, transeg")
+                    help="ported: " + ", ".join(_PORTED_IMPORTS))
     it.add_argument("--act", choices=["relu", "mish"], default="mish")
     it.add_argument("--src", required=True, help="torch checkpoint path")
     it.add_argument("--dest", required=True, help="output slot file")
     it.add_argument("--model-size", choices=["full", "small"], default="full")
     it.add_argument("--block-family", choices=["seg", "old", "ablation"], default="old",
-                    help="the transeg flavor the source was trained with (ported: seg)")
+                    help="the transeg flavor the source was trained with; the reference's "
+                         "mode_model=1 trains the OldModels TRANSEG flavor = 'old'")
     it.add_argument("--volume-size", type=int, default=128, help="pyfer volume (its ViT grid)")
     it.add_argument("--roi", type=int, default=96, help="transeg window")
     it.add_argument("--strict", action="store_true",
-                    help="fail unless every model entry is covered by the source")
+                    help="c3d, pyfer: fail unless every model entry is covered by the source "
+                         "(transeg, unetr and hdunet always load strictly)")
 
     op = sub.add_parser("openkbp-prepare",
                         help="the official OpenKBP CSV release into the NIfTI layout "
@@ -299,7 +326,24 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--pred-dir", required=True)
     sc.add_argument("--gt-dir", required=True)
 
-    _add_unported(sub, "linked-eval", "cohort end-to-end cascade scoring")
+    le = sub.add_parser("linked-eval", help="cohort end-to-end cascade scoring: CT → seg → "
+                                            "one-hot OARs → dose, with dose, DVH and IVS "
+                                            "scores (train_light_linked_model.py:138-228)")
+    _add_common(le)
+    le.add_argument("--seg-ckpt", required=True)
+    le.add_argument("--dose-ckpt", required=True)
+    le.add_argument("--plots-dir", default=None, help="DVH plots and slice triptychs "
+                                                      "(needs matplotlib)")
+    le.add_argument("--roi", type=int, default=96, help="seg sliding-window ROI")
+    le.add_argument("--sw-batch", type=int, default=4)
+    le.add_argument("--seg-mode", choices=["sliding", "dense"], default="sliding")
+    le.add_argument("--block-family", choices=["seg", "old", "ablation"], default="seg",
+                    help="TranSeg conv-block flavor of the seg checkpoint ('old' = what "
+                         "import-torch writes for reference mode_model=1 sources)")
+    le.add_argument("--k7-mode", choices=["dense", "separable"], default="dense")
+    le.add_argument("--no-ivs", action="store_true")
+    le.add_argument("--serve-dtype", choices=["float32", "bfloat16"], default="float32",
+                    help="'bfloat16' = bf16 activations (parameters stay float32)")
     _add_unported(sub, "tune", "ASHA hyperparameter search")
     _add_unported(sub, "kfold", "k-fold cross validation")
     _add_unported(sub, "bench", "the 128³ cascade latency benchmark")
@@ -341,16 +385,8 @@ def _refuse_unported(args) -> None:
     model = args.model if args.cmd in ("train", "eval", "predict") else None
     if model is not None and model not in _PORTED_DOSE_MODELS + ("transeg",):
         raise refuse(f"the {model} model", _MODEL_ZOO)
-    if args.cmd == "import-torch" and args.kind not in ("c3d", "pyfer", "transeg"):
+    if args.cmd == "import-torch" and args.kind not in _PORTED_IMPORTS:
         raise refuse(f"--kind {args.kind}", _MODEL_ZOO)
-    seg = args.cmd in ("seg-eval", "infer") or model == "transeg" or (
-        args.cmd == "import-torch" and args.kind == "transeg")
-    if seg and getattr(args, "mode_model", 1) == 0:
-        raise refuse("--mode-model 0 (UNETR)", _MODEL_ZOO)
-    if seg and args.block_family != "seg":
-        raise refuse(f"--block-family {args.block_family}", _MODEL_ZOO)
-    if seg and getattr(args, "k7_mode", "dense") != "dense":
-        raise refuse(f"--k7-mode {args.k7_mode}", _MODEL_ZOO)
     if getattr(args, "mesh", None):
         raise refuse("--mesh", _INFRA)
 
@@ -441,6 +477,19 @@ def main(argv=None) -> int:
             k7_mode=getattr(args, "k7_mode", "dense"),
             small=small, img_size=(roi,) * 3, device=device))
 
+    def seg_model(seed, out_ch=8, trained_grid=None, roi=None):
+        """TranSeg, or with --mode-model 0 the plain UNETR."""
+        if getattr(args, "mode_model", 1) == 0:
+            return T.seeded(seed, lambda: default_unetr_model(
+                out_ch=out_ch, trained_grid=trained_grid, small=small,
+                img_size=((roi or args.roi),) * 3, device=device))
+        return transeg_model(seed, out_ch, trained_grid, roi)
+
+    def seg_trainer(cfg, num_classes):
+        cls = T.UNETRSegTrainer if getattr(args, "mode_model", 1) == 0 else T.TranSegTrainer
+        return cls(cfg, model=seg_model(cfg.seed, out_ch=num_classes), crop=(args.roi,) * 3,
+                   num_classes=num_classes)
+
     def build_dose_trainer(model_name: str, cfg, shape):
         """One construction path for train, eval and predict, so that a
         train → eval round trip rebuilds the same architecture."""
@@ -461,16 +510,39 @@ def main(argv=None) -> int:
                                      "conv_out_A entry to copy (not a C3D cascade?)")
             return T.PyferTrainer(cfg, model=pyfer_model(shape, cfg.seed),
                                   pretrained_c3d_params=pre, example_shape=ex)
+        if model_name == "hdunet":
+            model = T.seeded(cfg.seed, lambda: default_hdunet_model(small, device))
+            return T.HDUNetTrainer(cfg, model=model, example_shape=ex)
         model = T.seeded(cfg.seed, lambda: small_c3d(device)) if small else None
         return T.CascadeC3DTrainer(cfg, model=model, example_shape=ex)
 
     if args.cmd == "import-torch":
         from dose_prediction_tpu_torch.core.checkpoint import merge_partial, save_checkpoint
-        from dose_prediction_tpu_torch.core.torch_import import load_torch_checkpoint
+        from dose_prediction_tpu_torch.core.torch_import import (
+            load_reference_strict,
+            load_torch_checkpoint,
+            strip_lightning_prefixes,
+        )
 
-        if args.kind == "transeg":
-            model = transeg_model(0, roi=args.roi)
-        elif args.kind == "pyfer":
+        source = load_torch_checkpoint(args.src)
+        if args.kind in ("transeg", "unetr", "hdunet"):
+            if args.kind == "hdunet":
+                model = T.seeded(0, lambda: default_hdunet_model(small, device))
+            elif args.kind == "unetr":
+                model = T.seeded(0, lambda: default_unetr_model(
+                    small=small, img_size=(args.roi,) * 3, device=device))
+            else:
+                model = transeg_model(0, roi=args.roi)
+            try:
+                load_reference_strict(model, source)
+            except ValueError as e:
+                raise SystemExit(f"[import-torch] {args.kind}: {e}")
+            print(f"[import-torch] {args.kind}: loaded all {len(model.state_dict())} entries "
+                  "strictly")
+            save_checkpoint(args.dest, {k: v.cpu() for k, v in model.state_dict().items()})
+            print(f"[import-torch] wrote {args.dest}")
+            return 0
+        if args.kind == "pyfer":
             model = pyfer_model((args.volume_size,) * 3, 0)
         else:
             from dose_prediction_tpu_torch.models import CascadeC3D
@@ -478,7 +550,7 @@ def main(argv=None) -> int:
             model = small_c3d(device) if small else CascadeC3D(device=device)
         # the reference's strict=False surgery (dose_pyfer.py:394-407): an
         # entry the source lacks keeps the model's own initialization
-        merged, stats = merge_partial(model.state_dict(), load_torch_checkpoint(args.src),
+        merged, stats = merge_partial(model.state_dict(), strip_lightning_prefixes(source),
                                       verbose=False)
         print(f"[import-torch] {args.kind}: copied {stats['copied']} / inside "
               f"{stats['inside']}, missing {stats['missing']}, unused {stats['unused']}")
@@ -506,9 +578,7 @@ def main(argv=None) -> int:
                 val_ds = (OpenKBPDataset(args.val_data, keep_structures=True)
                           if args.val_data else None)
                 num_classes = 8
-            trainer = T.TranSegTrainer(cfg, model=transeg_model(cfg.seed, out_ch=num_classes),
-                                       crop=(args.roi,) * 3, num_classes=num_classes)
-            trainer.fit(train_ds, val_ds)
+            seg_trainer(cfg, num_classes).fit(train_ds, val_ds)
             return 0
         train_ds = OpenKBPDataset(args.data, size=args.size)
         val_ds = (OpenKBPDataset(args.val_data, keep_structures=True)
@@ -525,7 +595,7 @@ def main(argv=None) -> int:
         tr = build_dose_trainer(model_name, make_cfg(model_name), shape)
         _check_ckpt_config(args.ckpt, tr.model)
         _load_into(tr.model, _read_slot(args.ckpt), "model")
-        if model_name == "pyfer":
+        if model_name in ("pyfer", "hdunet"):
             return tr, lambda batch: tr.eval_step(batch)["prediction"]
         from dose_prediction_tpu_torch.evaluation.metrics import postprocess_prediction
 
@@ -549,8 +619,7 @@ def main(argv=None) -> int:
         else:
             ds = OpenKBPDataset(args.data, size=args.size, keep_structures=True)
             num_classes = 8
-        tr = T.TranSegTrainer(make_cfg(), model=transeg_model(args.seed, out_ch=num_classes),
-                              crop=(args.roi,) * 3, num_classes=num_classes)
+        tr = seg_trainer(make_cfg(), num_classes)
         _check_ckpt_config(args.ckpt, tr.model)
         _load_into(tr.model, _read_slot(args.ckpt), "seg model")
         dice, hd95, val_loss = tr.validate(ds, sw_batch_size=args.sw_batch)
@@ -582,7 +651,7 @@ def main(argv=None) -> int:
         serve_bf16 = args.serve_dtype == "bfloat16"
         # dense mode: the token grid of the ROI the checkpoint was trained at
         grid = (args.roi // SEG_PATCH,) * 3 if args.seg_mode == "dense" else None
-        seg = transeg_model(0, trained_grid=grid)
+        seg = seg_model(0, trained_grid=grid)
         dose = pyfer_model(p.ct.shape, 0)
         _check_ckpt_config(args.seg_ckpt, seg)
         _check_ckpt_config(args.dose_ckpt, dose)
@@ -599,6 +668,28 @@ def main(argv=None) -> int:
         out = run(volume(p.ct), volume(p.ptv), volume(p.dose_mask))
         write_nifti(args.out, out.float().cpu().numpy()[0, ..., 0], spacing=p.spacing)
         print(f"wrote {args.out}")
+        return 0
+
+    if args.cmd == "linked-eval":
+        from dose_prediction_tpu_torch.train.linked import LinkedModel
+
+        ds = OpenKBPDataset(args.data, size=args.size, keep_structures=True)
+        # dense mode: the token grid of the ROI the seg checkpoint was trained at
+        grid = (args.roi // SEG_PATCH,) * 3 if args.seg_mode == "dense" else None
+        seg = transeg_model(0, trained_grid=grid)
+        dose = pyfer_model(ds.patients[0].ct.shape, 0)
+        _check_ckpt_config(args.seg_ckpt, seg)
+        _check_ckpt_config(args.dose_ckpt, dose)
+        _load_into(seg, _read_slot(args.seg_ckpt), "seg model")
+        _load_into(dose, _read_slot(args.dose_ckpt), "dose model")
+        model = LinkedModel(seg_model=seg, dose_model=dose, seg_variables=seg.state_dict(),
+                            dose_variables=dose.state_dict(), roi_size=(args.roi,) * 3,
+                            sw_batch_size=args.sw_batch, seg_mode=args.seg_mode,
+                            serve_dtype=args.serve_dtype, device=device)
+        results = model.evaluate(ds, log_dir=args.log_dir, plots_dir=args.plots_dir,
+                                 with_ivs=not args.no_ivs)
+        print(json.dumps({k: v for k, v in results.items() if k not in ("per_patient", "ivs")},
+                         indent=2))
         return 0
 
     return 1

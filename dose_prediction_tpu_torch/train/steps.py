@@ -1,14 +1,16 @@
 """Train and eval steps (counterpart of dose_prediction_tpu/train/steps.py):
 the DOSE-PYFER step (:24-84) and eval step (:87-119), the C3D cascade's
-step (:122-144) and the OAR-TranSeg step (:174-204); reference
-train_light_{pyfer,c3d,transeg}.py.
+step (:122-144), the single-output dose step of HD-UNet (:147-171) with its
+eval step (JAX train/trainers.py:921-949) and the OAR-TranSeg step
+(:174-204), which also trains the plain UNETR; reference
+train_light_{pyfer,c3d,hdunet,transeg}.py.
 
 Batches keep the JAX package's channels-last layout at this boundary:
 ``input (N, D, H, W, 9)`` and ``gt (N, D, H, W, 2)`` (dose ÷ 70, possible-dose
 mask); the steps permute once to NCDHW. The model computes in the dtype of
 ``batch['input']`` with float32 parameters, or in the step's ``dtype`` where
 one is given (the JAX model's ``dtype`` attribute). With ``packed=True`` the
-DOSE-PYFER and C3D steps take the packed feed (data/packed.py, steps.py:69-70
+DOSE-PYFER, C3D and single-output steps take the packed feed (data/packed.py, steps.py:69-70
 and :132-133): unpacked and augmented in float32 on the batch's device, then
 cast once to ``dtype``. Not ported: ``donate`` (the steps update in place).
 """
@@ -103,6 +105,25 @@ def make_cascade_c3d_train_step(model: nn.Module, optimizer: torch.optim.Optimiz
     return step
 
 
+def make_simple_dose_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
+                                packed: bool = False, dtype: Optional[torch.dtype] = None
+                                ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                              Tuple[TrainState, torch.Tensor]]:
+    """The step of a single-output dose model (HD-UNet; steps.py:147-171,
+    train_light_hdunet.py with Loss(casecade=False)): masked L1 of the one
+    output against the dose, in the possible-dose mask. Batches,
+    ``packed`` and ``dtype`` as make_pyfer_train_step's."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        x, gt = _dose_feed(batch, packed, dtype)
+        loss = L.masked_l1(model(x), gt[:, 0:1], gt[:, 1:2])
+        return _apply_update(state, optimizer, loss)
+
+    return step
+
+
 def make_transeg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer
                             ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                           Tuple[TrainState, torch.Tensor]]:
@@ -122,6 +143,43 @@ def make_transeg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer
     return step
 
 
+def _eval_outputs(pred: torch.Tensor, batch: Dict[str, torch.Tensor], val_loss
+                  ) -> Dict[str, torch.Tensor]:
+    """The eval step's outputs for the full-resolution prediction ``pred``
+    (NCDHW): ``val_loss(pred, gt)``, the ×70 masked dose score and the
+    post-processed prediction (NDHWC, Gy); or, with ``batch['valid']``, the
+    validity-weighted means of the per-sample masked L1s (steps.py:100-115)."""
+    gt = to_ncdhw(batch["gt"])
+    gt_dose, mask = gt[:, 0:1], gt[:, 1:2]
+    post = postprocess_prediction(pred, mask)
+    valid = batch.get("valid")
+    if valid is not None:
+        v = valid.float()
+        per_loss = L.masked_l1_per_sample(pred, gt_dose, mask)
+        per_score = L.masked_l1_per_sample(post, 70.0 * gt_dose, mask)
+        n = v.sum().clamp_min(1.0)
+        return {"val_loss_mean": (per_loss * v).sum() / n,
+                "dose_score_mean": (per_score * v).sum() / n, "n_valid": v.sum()}
+    return {"val_loss": val_loss(pred, gt),
+            "dose_score": L.masked_l1(post, 70.0 * gt_dose, mask),
+            "prediction": post.permute(0, 2, 3, 4, 1)}
+
+
+def make_simple_dose_eval_step(model: nn.Module) -> Callable[[Dict[str, torch.Tensor]], Dict]:
+    """``step(batch)`` of a single-output dose model (the HD-UNet trainer's
+    eval steps, JAX trainers.py:921-949): an eval-mode forward, the masked
+    L1 val loss, the ×70 masked dose score and the prediction; batched with
+    ``batch['valid']`` as make_pyfer_eval_step."""
+
+    @torch.no_grad()
+    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model.eval()
+        return _eval_outputs(model(to_ncdhw(batch["input"])), batch,
+                             lambda pred, gt: L.masked_l1(pred, gt[:, 0:1], gt[:, 1:2]))
+
+    return step
+
+
 def make_pyfer_eval_step(model: nn.Module) -> Callable[[Dict[str, torch.Tensor]], Dict]:
     """``step(batch)``: a full-volume eval-mode forward, the val loss of the
     full-resolution head, the ×70 masked dose score and the post-processed
@@ -134,20 +192,7 @@ def make_pyfer_eval_step(model: nn.Module) -> Callable[[Dict[str, torch.Tensor]]
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.eval()
         _, preds_b = model(to_ncdhw(batch["input"]))
-        pred = preds_b[0]
-        gt = to_ncdhw(batch["gt"])
-        gt_dose, mask = gt[:, 0:1], gt[:, 1:2]
-        post = postprocess_prediction(pred, mask)
-        valid = batch.get("valid")
-        if valid is not None:
-            v = valid.float()
-            per_loss = L.masked_l1_per_sample(pred, gt_dose, mask)
-            per_score = L.masked_l1_per_sample(post, 70.0 * gt_dose, mask)
-            n = v.sum().clamp_min(1.0)
-            return {"val_loss_mean": (per_loss * v).sum() / n,
-                    "dose_score_mean": (per_score * v).sum() / n, "n_valid": v.sum()}
-        return {"val_loss": L.gen_loss(pred, gt, mode="val"),
-                "dose_score": L.masked_l1(post, 70.0 * gt_dose, mask),
-                "prediction": post.permute(0, 2, 3, 4, 1)}
+        return _eval_outputs(preds_b[0], batch,
+                             lambda pred, gt: L.gen_loss(pred, gt, mode="val"))
 
     return step

@@ -7,15 +7,19 @@ resume and a graceful stop on SIGTERM.
                       mean_dose_score=max)
 - CascadeC3DTrainer ← train_light_c3d.py (masked-L1 cascade; split rates,
                       multistep, cosine or plateau)
+- HDUNetTrainer     ← train_light_hdunet.py (masked L1; full-volume
+                      validation, best slot on mean_dose_score=max)
 - TranSegTrainer    ← OARSegmentation/train_light_transeg.py (DiceCE on
-                      crops; sliding-window validation with Dice and HD95)
+                      crops; sliding-window validation with Dice and HD95),
+                      any block family and k7 mode
+- UNETRSegTrainer   ← the same harness for the plain UNETR (mode_model=0)
 
 The models compute in float32, their default dtype, as the JAX trainers'
 do (the JAX CLI passes no dtype), under PyTorch's TF32 defaults on the
 card. Hyperparameter defaults are the reference's tuned values
-(train_light_pyfer.py:293-300). Not ported yet: the other trainers and
-their models (ROADMAP queue 1 item 6) and the mesh and AOT branches
-(queue 1 item 7): a set ``mesh_shape`` raises.
+(train_light_pyfer.py:293-300). Not ported yet: the DoseGAN, ViT-GAN and
+exp trainers with their models (ROADMAP queue 1 item 6) and the mesh and
+AOT branches (queue 1 item 7): a set ``mesh_shape`` raises.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from dose_prediction_tpu_torch.device import resolve_device
 from dose_prediction_tpu_torch.evaluation import metrics as M
 from dose_prediction_tpu_torch.infer.pipeline import pipeline_map
 from dose_prediction_tpu_torch.infer.sliding_window import sliding_window_inference
-from dose_prediction_tpu_torch.models import CascadeC3D, DosePyfer, TranSeg
+from dose_prediction_tpu_torch.models import UNETR, CascadeC3D, DosePyfer, HDUNet, TranSeg
 from dose_prediction_tpu_torch.models.spec import model_spec
 from dose_prediction_tpu_torch.train import losses as L
 from dose_prediction_tpu_torch.train import state as S
@@ -138,7 +142,7 @@ def _host_mean(losses: List[torch.Tensor]) -> float:
     return float(torch.stack([l.float() for l in losses]).mean())
 
 
-def _to_host(tensors: Dict[str, torch.Tensor]) -> Callable[[], Dict[str, torch.Tensor]]:
+def to_host(tensors: Dict[str, torch.Tensor]) -> Callable[[], Dict[str, torch.Tensor]]:
     """Start copying ``tensors`` to pinned host memory; the returned function
     waits for that copy only, not for work queued after it (the overlap
     infer/pipeline.py describes)."""
@@ -410,9 +414,9 @@ def evaluate_dose_model(predict_fn: Callable[[Dict[str, torch.Tensor]], torch.Te
                  "gt": torch.from_numpy(p.gt[None]).to(dev)}
         pred = predict_fn(batch)
         if device_metrics:
-            return p, _to_host(M.patient_scores_device(pred[0, ..., 0], p, with_ivs=with_ivs,
+            return p, to_host(M.patient_scores_device(pred[0, ..., 0], p, with_ivs=with_ivs,
                                                        sync=False))
-        return p, _to_host({"pred": pred})
+        return p, to_host({"pred": pred})
 
     def consume(staged):
         p, wait = staged
@@ -455,6 +459,82 @@ def evaluate_dose_model(predict_fn: Callable[[Dict[str, torch.Tensor]], torch.Te
         "ivs": np.mean(np.stack(ivs_curves), axis=0).tolist() if ivs_curves else None,
         "per_patient": per_patient,
     }
+
+
+class HDUNetTrainer:
+    """The HD-UNet baseline (train_light_hdunet.py; :897-1009): masked-L1
+    training, the batch-1 full-volume validation scored as the ×70 masked
+    MAE (mean_dose_score, :127-163), best slots on mean_dose_score=max, an
+    every-epoch 'last' slot with resume, and the OpenKBP test sweep
+    (:165-186)."""
+
+    def __init__(self, cfg: TrainConfig, *, model: Optional[HDUNet] = None,
+                 example_shape: Sequence[int] = (1, 128, 128, 128, 9)):
+        _refuse_mesh(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.model = model if model is not None else seeded(cfg.seed, lambda: HDUNet(
+            in_ch=example_shape[-1], device=self.device))
+        optimizer = S.make_optimizer(self.model, learning_rate=cfg.learning_rate,
+                                     weight_decay=cfg.weight_decay)
+        self.state = S.TrainState(self.model, optimizer)
+        self.train_step = STEP.make_simple_dose_train_step(self.model, optimizer,
+                                                           packed=cfg.feed_dtype == "packed")
+        self.eval_step = STEP.make_simple_dose_eval_step(self.model)
+        self.logger = MetricLogger(cfg.log_dir, run_name="hdunet")
+        self.ckpt = C.CheckpointManager(cfg.ckpt_dir, monitor="mean_dose_score", mode="max")
+
+    def validate(self, val_ds: OpenKBPDataset) -> Dict[str, float]:
+        """mean_dose_score (negated, to maximize) and the masked-L1 val_loss
+        over the cohort, one full volume a batch."""
+        scores, vlosses = [], []
+        for batch in device_prefetch(dose_batches(val_ds, batch_size=1, shuffle=False,
+                                                  augment=False), device=self.device):
+            out = self.eval_step(batch)
+            scores.append(float(out["dose_score"]))
+            vlosses.append(float(out["val_loss"]))
+        return {"mean_dose_score": -float(np.mean(scores)), "val_loss": float(np.mean(vlosses))}
+
+    @_drains_checkpoints
+    def fit(self, train_ds: OpenKBPDataset, val_ds: Optional[OpenKBPDataset] = None, *,
+            resume: bool = True) -> None:
+        cfg = self.cfg
+        start_epoch = 0
+        if resume:
+            restored, start_epoch = _try_resume(
+                self.ckpt, {"state": self.state, "epoch": 0},
+                run_config=_resume_guard_config(cfg, self.model))
+            if restored is not None:
+                self.state = restored["state"]
+                self.logger.log_text(f"resumed from epoch {start_epoch - 1}")
+        global_step = int(self.state.step)
+        for epoch in range(start_epoch, cfg.max_epochs):
+            losses = []
+            feed = device_prefetch(_train_batches(cfg, train_ds, epoch), device=self.device)
+            with trace(cfg.profile_dir if epoch == start_epoch else None), contextlib.closing(feed):
+                for batch in feed:
+                    self.state, loss = self.train_step(self.state, batch)
+                    losses.append(loss)
+                    global_step += 1
+                    if _stop_requested(cfg, global_step):
+                        break
+            self.logger.log({"train_mean_loss": _host_mean(losses)}, epoch + 1)
+            if val_ds is not None and (epoch + 1) % cfg.check_val == 0:
+                metrics = self.validate(val_ds)
+                self.logger.log(metrics, epoch + 1)
+                self.ckpt.save(epoch, {"state": self.state, "epoch": epoch},
+                               {"mean_dose_score": metrics["mean_dose_score"]})
+            _save_epoch_slots(self.ckpt, cfg, epoch, global_step,
+                              {"state": self.state, "epoch": epoch})
+            if _stop_requested(cfg, global_step):
+                break
+
+    def test(self, test_ds: OpenKBPDataset, *, with_ivs: bool = True,
+             device_metrics: bool = False, plots_dir: Optional[str] = None) -> Dict[str, Any]:
+        """OpenKBP test sweep (train_light_hdunet.py:165-186)."""
+        return evaluate_dose_model(lambda batch: self.eval_step(batch)["prediction"], test_ds,
+                                   with_ivs=with_ivs, device_metrics=device_metrics,
+                                   plots_dir=plots_dir, device=self.device)
 
 
 class CascadeC3DTrainer:
@@ -591,11 +671,13 @@ class CascadeC3DTrainer:
 class TranSegTrainer:
     """The OAR-TranSeg trainer (train_light_transeg.py; :1010-1186): DiceCE
     on crops, and a sliding-window validation at the crop's ROI with Dice,
-    HD95 and the DiceCE val loss the best slot watches."""
+    HD95 and the DiceCE val loss the best slot watches. Without ``model``
+    it builds the full-width TranSeg of ``block_family`` and ``k7_mode``."""
 
-    def __init__(self, cfg: TrainConfig, *, model: Optional[TranSeg] = None,
+    def __init__(self, cfg: TrainConfig, *, model: Optional[torch.nn.Module] = None,
                  crop: Sequence[int] = (96, 96, 96), num_classes: int = 8,
-                 pretrained_params: Optional[Dict[str, torch.Tensor]] = None):
+                 pretrained_params: Optional[Dict[str, torch.Tensor]] = None,
+                 block_family: str = "seg", k7_mode: str = "dense"):
         _refuse_mesh(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -603,7 +685,7 @@ class TranSegTrainer:
         self.num_classes = num_classes
         self.model = model if model is not None else seeded(cfg.seed, lambda: TranSeg(
             out_ch=num_classes, img_size=self.crop, remat_blocks=cfg.remat_blocks,
-            device=self.device))
+            block_family=block_family, k7_mode=k7_mode, device=self.device))
         if pretrained_params is not None:
             # shape-matched partial restore (train_light_transeg.py:126-146)
             merged, _ = C.merge_partial(self.model.state_dict(), pretrained_params)
@@ -630,7 +712,7 @@ class TranSegTrainer:
                                               out_channels=self.num_classes)
             labels = torch.from_numpy(gt_labels[None].astype(np.int64)).to(self.device)
             vloss = L.dice_ce_loss(logits, labels)
-            return p, gt_labels, _to_host({"labels": logits.argmax(dim=1), "vloss": vloss})
+            return p, gt_labels, to_host({"labels": logits.argmax(dim=1), "vloss": vloss})
 
         def consume(staged):
             p, gt_labels, wait = staged
@@ -684,3 +766,17 @@ class TranSegTrainer:
                               {"state": self.state, "epoch": epoch})
             if _stop_requested(cfg, global_step):
                 break
+
+
+class UNETRSegTrainer(TranSegTrainer):
+    """Seg mode_model=0: the plain UNETR on TranSegTrainer's DiceCE and
+    sliding-window harness (train_light_transeg.py:93-107; :1188-1200)."""
+
+    def __init__(self, cfg: TrainConfig, *, model: Optional[UNETR] = None,
+                 crop: Sequence[int] = (96, 96, 96), num_classes: int = 8,
+                 pretrained_params: Optional[Dict[str, torch.Tensor]] = None):
+        if model is None:
+            model = seeded(cfg.seed, lambda: UNETR(out_ch=num_classes, img_size=tuple(crop),
+                                                   device=resolve_device(cfg.device)))
+        super().__init__(cfg, model=model, crop=crop, num_classes=num_classes,
+                         pretrained_params=pretrained_params)

@@ -3,7 +3,9 @@ on the CPU at ``--model-size small``.
 
 The parser covers the ported subcommands and refuses, before any device
 work and by name, what the port does not have (the message names the
-ROADMAP item). train → eval → predict → score on a synthetic 16³ cohort:
+ROADMAP item; the re-pointed cases name the DoseGAN, ViT-GAN and exp models
+and their imports, which the port does not have). train → eval → predict →
+score on a synthetic 16³ cohort:
 eval's device metrics against its host metrics (dose score rel 1e-4, DVH
 score rel 1e-3, IVS rtol 1e-4 atol 1e-5 where the host's is defined: the
 bars of tests/test_losses_metrics.py:252-254) and score's dose score against
@@ -11,7 +13,8 @@ eval's host one (rel 1e-4). import-torch of a replica of the reference
 C3D cascade, then eval. The eval/serve guard refuses ``--act relu`` over a
 mish checkpoint. infer writes the NIfTI that make_cascade_fn gives from the
 same restored weights, bit for bit. In subprocesses where importing jax or
-the JAX package fails: ``--help`` and one train run; and a train run that
+the JAX package fails: ``--help``, one train run of DOSE-PYFER and one of
+HD-UNet, and a linked-eval; and a train run that
 gets SIGTERM stops gracefully, exits 0 with a 'last' slot, and a rerun
 resumes from it.
 """
@@ -76,19 +79,20 @@ def trained(cohort):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "hdunet", "--data", "x"], "item 6"),
+    (["train", "vitgan", "--data", "x"], "the vitgan model"),
     (["train", "dosegan", "--data", "x"], "item 6"),
     (["eval", "--model", "vitgan", "--data", "x", "--ckpt", "c"], "item 6"),
     (["predict", "--model", "exp", "--data", "x", "--ckpt", "c", "--out-dir", "o"], "item 6"),
-    (["train", "transeg", "--data", "x", "--mode-model", "0"], "UNETR"),
-    (["train", "transeg", "--data", "x", "--block-family", "old"], "block-family old"),
-    (["seg-eval", "--data", "x", "--ckpt", "c", "--block-family", "ablation"], "ablation"),
-    (["infer", "--patient", "p", "--seg-ckpt", "s", "--dose-ckpt", "d", "--out", "o",
-      "--k7-mode", "separable"], "separable"),
-    (["import-torch", "--kind", "hdunet", "--src", "a", "--dest", "b"], "item 6"),
-    (["import-torch", "--kind", "transeg", "--src", "a", "--dest", "b"], "block-family old"),
+    (["train", "exp", "--data", "x"], "the exp model"),
+    (["eval", "--model", "dosegan", "--data", "x", "--ckpt", "c"], "the dosegan model"),
+    (["predict", "--model", "dosegan", "--data", "x", "--ckpt", "c", "--out-dir", "o"],
+     "the dosegan model"),
+    (["import-torch", "--kind", "resnet10", "--src", "a", "--dest", "b"], "kind resnet10"),
+    (["import-torch", "--kind", "dosegan-g", "--src", "a", "--dest", "b"], "kind dosegan-g"),
+    (["import-torch", "--kind", "dosegan-d", "--src", "a", "--dest", "b"], "kind dosegan-d"),
+    (["import-torch", "--kind", "vitgan-g", "--src", "a", "--dest", "b"], "kind vitgan-g"),
     (["train", "pyfer", "--data", "x", "--mesh", "data=4"], "item 7"),
-    (["linked-eval"], "train/linked.py"),
+    (["import-torch", "--kind", "exp-gen", "--src", "a", "--dest", "b"], "kind exp-gen"),
     (["tune"], "train/tune.py"),
     (["kfold"], "train/kfold.py"),
     (["bench"], "bench_gpu.py"),
@@ -215,8 +219,8 @@ def without_jax(tmp_path) -> dict:
             "PYTHONPATH": f"{shadow}{os.pathsep}{REPO}", "HOME": str(tmp_path)}
 
 
-def test_cli_runs_where_jax_cannot_be_imported(tmp_path, cohort):
-    _, pattern = cohort
+def test_cli_runs_where_jax_cannot_be_imported(tmp_path, cohort, trained):
+    root, pattern = cohort
     env = without_jax(tmp_path)
     proc = subprocess.run([sys.executable, "-c", "import jax"], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=60)
@@ -231,6 +235,21 @@ def test_cli_runs_where_jax_cannot_be_imported(tmp_path, cohort):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert train.returncode == 0, train.stderr[-2000:]
     assert (tmp_path / "ck" / "last.pt").exists()
+    hdunet = subprocess.run(
+        [sys.executable, "-m", "dose_prediction_tpu_torch", *small(
+            "train", "hdunet", "--data", pattern, "--epochs", "1", "--max-steps", "1",
+            "--ckpt-dir", str(tmp_path / "hd"), "--log-dir", str(tmp_path / "hl"))],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert hdunet.returncode == 0, hdunet.stderr[-2000:]
+    linked = subprocess.run(
+        [sys.executable, "-m", "dose_prediction_tpu_torch", *small(
+            "linked-eval", "--data", pattern, "--seg-ckpt", str(root / "seg" / "last.pt"),
+            "--dose-ckpt", str(root / "ck" / "last.pt"), "--roi", str(SIZE), "--no-ivs",
+            "--log-dir", str(tmp_path / "ll"))],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert linked.returncode == 0, linked.stderr[-2000:]
+    assert np.isfinite(json.loads(linked.stdout[linked.stdout.rfind("\n{\n") + 1:])[
+        "mean_dose_score"])
 
 
 def test_sigterm_stops_gracefully_and_the_rerun_resumes(tmp_path, cohort):
