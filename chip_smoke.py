@@ -166,9 +166,26 @@ K2_SHAPES = [(8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
              (1, 16, 96, 96, 96), (1, 32, 48, 48, 48), (1, 64, 24, 24, 24),
              (1, 32, 24, 24, 24), (1, 128, 12, 12, 12),
              (1, 32, 128, 128, 128), (1, 64, 64, 64, 64), (1, 128, 32, 32, 32),
-             (1, 256, 16, 16, 16), (1, 512, 8, 8, 8)]
+             (1, 256, 16, 16, 16), (1, 512, 8, 8, 8),
+             # HD-UNet's at 128³ that no earlier path gives it (zoo)
+             (1, 16, 64, 64, 64), (1, 16, 32, 32, 32), (1, 16, 16, 16, 16),
+             (1, 16, 8, 8, 8), (1, 64, 16, 16, 16), (1, 64, 128, 128, 128)]
 K2_SERVE_SHAPES = K2_SHAPES[:11]      # each must take the single-read path
-K2_F32_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96)]
+# float32: the first two, then those of the zoo phase's float32 runs (the
+# UNETR and 'old' TranSeg on one 96³ crop, HD-UNet at 128³, and seg-eval)
+K2_F32_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96),
+                 (1, 16, 96, 96, 96), (1, 32, 48, 48, 48), (1, 32, 24, 24, 24),
+                 (1, 64, 24, 24, 24), (1, 128, 12, 12, 12),
+                 (1, 16, 64, 64, 64), (1, 16, 32, 32, 32), (1, 16, 16, 16, 16),
+                 (1, 16, 8, 8, 8), (1, 32, 128, 128, 128), (1, 64, 16, 16, 16),
+                 (1, 64, 32, 32, 32), (1, 64, 64, 64, 64), (1, 64, 128, 128, 128),
+                 (1, 128, 32, 32, 32), (1, 256, 16, 16, 16),
+                 # the zoo CLI's seg-eval (96³ windows, sw batch 4)
+                 (4, 16, 96, 96, 96), (4, 32, 48, 48, 48), (4, 32, 24, 24, 24),
+                 (4, 64, 24, 24, 24), (4, 128, 12, 12, 12)]
+# the zoo phase's K2 shapes that no earlier phase holds (the kernels line
+# lists each with its launches in a zoo HD-UNet step)
+K2_ZOO_SHAPES = K2_SHAPES[21:]
 # every shape a bf16 serve_k3 request gives K3: C3D / DOSE-PYFER levels 1-3
 # at 128³, the TranSeg windows' levels at 96³, then the decoders' two
 # narrower convs (appended, so that K3_SHAPES[3] stays the kernels line's);
@@ -177,7 +194,10 @@ K3_SHAPES = [(1, 16, 128, 128, 128), (1, 32, 64, 64, 64), (1, 64, 32, 32, 32),
              (8, 16, 96, 96, 96), (8, 32, 48, 48, 48), (8, 64, 24, 24, 24),
              (8, 32, 24, 24, 24), (1, 32, 32, 32, 32),
              (1, 16, 96, 96, 96), (1, 32, 48, 48, 48), (1, 64, 24, 24, 24),
-             (1, 32, 24, 24, 24), (1, 32, 128, 128, 128), (1, 64, 64, 64, 64)]
+             (1, 32, 24, 24, 24), (1, 32, 128, 128, 128), (1, 64, 64, 64, 64),
+             # HD-UNet's upconv_1 (64 channels at 128³; zoo)
+             (1, 64, 128, 128, 128)]
+K3_ZOO_SHAPES = K3_SHAPES[14:]
 TRAIN_LR, TRAIN_WD = 6.130697604327541e-4, 1.6303111017674179e-4   # train/trainers.py:56-57
 TRAIN_STEPS = 5
 SEG_STEPS, C3D_STEPS, OPTION_STEPS = 5, 3, 3
@@ -204,6 +224,10 @@ AUGMENT_DECISIONS = [(0.0, 0, 0), (0.05, 5, 1), (-0.03, 2, 3), (0.07, 7, 2)]
 EVAL_DOSE_REL, EVAL_DVH_REL, EVAL_IVS_RTOL, EVAL_IVS_ATOL = 1e-4, 1e-3, 1e-4, 1e-5
 SCORE_DOSE_REL = 1e-4
 SIGTERM_WAIT_S = 420
+# zoo: requests and steps per path; HD-UNet's conv biases that feed an
+# InstanceNorm (zero gradient in exact arithmetic)
+ZOO_SERVE_REQUESTS, ZOO_TRAIN_STEPS = 3, 5
+ZOO_ZERO_GRAD_BIAS = r"single_conv\.0\.bias$|upconv_\d\.conv\.0\.bias$"
 
 
 def log(msg: str) -> None:
@@ -747,7 +771,7 @@ def bf16_requests(run, ct, ptv, mask, n):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = read_counts()
-    ok = (out.shape == (1, 128, 128, 128, 1) and bool(torch.isfinite(out).all())
+    ok = (out.shape == ct.shape and bool(torch.isfinite(out).all())
           and bool((out[mask < 1] == 0).all()) and bool((out >= 0).all()))
     return times, launches, ok
 
@@ -979,35 +1003,42 @@ def train_steps_both_routes(dev):
 
 
 @contextlib.contextmanager
-def noisy_plain_kernels(k1, k2, k3, rel: float, seed: int, dev):
+def noisy_plain_kernels(k1, k2, k3, rel: float, seed: int, dev, plane_scaled: bool = False):
     """The plain versions with each output multiplied by 1 + rel·u, u uniform
     in [-1, 1] (the noise is kept out of the gradient): a float32 run that
-    differs from the plain one by rounding-sized noise only."""
+    differs from the plain one by rounding-sized noise only. With
+    ``plane_scaled`` K2's output instead gets rel · u times its plane's
+    largest |value|: the size of the rounding in the norm's subtraction,
+    which moves values near 0 across it ahead of a ReLU (HD-UNet; the
+    docstring of tests/test_torch_port_zoo_train.py)."""
     g = torch.Generator(dev).manual_seed(seed)
 
-    def noisy(plain):
+    def noisy(plain, scaled=False):
         def fn(*args, **kwargs):
             out = plain(*args, **kwargs)
             u = torch.rand(out.shape, generator=g, device=out.device) * 2 - 1
-            return out + (out * (rel * u)).detach()
+            size = out.detach().abs().amax(dim=(2, 3, 4), keepdim=True) if scaled else out
+            return out + (size * (rel * u)).detach()
         return fn
 
     with mock.patch.object(k1, "fused_attention", noisy(k1.plain_attention)), \
-            mock.patch.object(k2, "instance_norm_act", noisy(k2.plain_instance_norm_act)), \
+            mock.patch.object(k2, "instance_norm_act", noisy(k2.plain_instance_norm_act,
+                                                             plane_scaled)), \
             mock.patch.object(k3, "conv3d_k3", noisy(k3.plain_conv3d_k3)):
         yield
 
 
-def parity_runs(make, batch, kernels, route_k3, dev):
+def parity_runs(make, batch, kernels, route_k3, dev, plane_scaled=False):
     """One float32 step of ``make()`` (a fresh model, step and state, the same
     weights each call) on ``batch``: through the kernels, through their
     plain versions, and through the plain versions with TRAIN_PARITY_NOISE
-    relative noise on their outputs. Each run's loss, gradients and kernel
-    launches."""
+    relative noise on their outputs (``plane_scaled``: noisy_plain_kernels).
+    Each run's loss, gradients and kernel launches."""
     k1, k2, k3 = kernels
     runs = {}
     for name, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels(*kernels)),
-                      ("noise", noisy_plain_kernels(k1, k2, k3, TRAIN_PARITY_NOISE, SEED, dev))):
+                      ("noise", noisy_plain_kernels(k1, k2, k3, TRAIN_PARITY_NOISE, SEED, dev,
+                                                    plane_scaled))):
         model, step, state = make()
         with k3_routing(route_k3), ctx:
             zero_counts()
@@ -1021,7 +1052,7 @@ def parity_runs(make, batch, kernels, route_k3, dev):
     return runs
 
 
-def check_step_parity(label, runs, route_k3):
+def check_step_parity(label, runs, route_k3, zero_grad=ZERO_GRAD_BIAS):
     """The kernels run against the plain run (parity_runs). The loss must
     agree to a relative 1e-5. A gradient leaf must agree to a max abs of
     1e-3 × its max |g|, or, where the step itself amplifies rounding noise
@@ -1038,7 +1069,7 @@ def check_step_parity(label, runs, route_k3):
     (loss_k, grads_k, launches_k), (loss_p, grads_p, _), (_, grads_n, _) = (
         runs["kernels"], runs["plain"], runs["noise"])
     g_max = max(g.abs().max().item() for g in grads_p.values())
-    zero = re.compile(ZERO_GRAD_BIAS)
+    zero = re.compile(zero_grad)
     leaves = [n for n in grads_p if not zero.search(n)]
     zeros = [n for n in grads_p if zero.search(n)]
     scale = {n: grads_p[n].abs().max().item() for n in leaves}
@@ -1617,7 +1648,7 @@ def trainer_probes():
         stack.enter_context(mock.patch.object(C, "save_checkpoint", timed_save))
         stack.enter_context(mock.patch.object(T, "evaluate_dose_model", timed_sweep))
         for name in ("make_pyfer_train_step", "make_cascade_c3d_train_step",
-                     "make_transeg_train_step"):
+                     "make_transeg_train_step", "make_simple_dose_train_step"):
             stack.enter_context(mock.patch.object(STEP, name, counted(getattr(STEP, name))))
         yield rec
 
@@ -1931,6 +1962,394 @@ def phase_trainer(dev, data, root):
     return row
 
 
+@contextlib.contextmanager
+def launched_shapes():
+    """Every K2 and K3 launch while the context is open, counted by
+    (kernel, shape, dtype)."""
+    import collections
+
+    from dose_prediction_tpu_torch.kernels import conv3d as k3
+    from dose_prediction_tpu_torch.kernels import instance_norm as k2
+
+    seen = collections.Counter()
+    direct, launch = k2._direct, k3._launch
+
+    def record_k2(x, *args, **kwargs):
+        seen[("instance_norm", tuple(x.shape), x.dtype)] += 1
+        return direct(x, *args, **kwargs)
+
+    def record_k3(x, *args):
+        seen[("conv3d_k3", tuple(x.shape), x.dtype)] += 1
+        return launch(x, *args)
+
+    with mock.patch.object(k2, "_direct", record_k2), mock.patch.object(k3, "_launch", record_k3):
+        yield seen
+
+
+def unheld_shapes(seen) -> list:
+    """The (kernel, shape, dtype) of ``seen`` that the kernels phase did not
+    hold in that dtype."""
+    held = {("instance_norm", torch.bfloat16): K2_SHAPES,
+            ("instance_norm", torch.float32): K2_F32_SHAPES,
+            ("conv3d_k3", torch.bfloat16): K3_SHAPES, ("conv3d_k3", torch.float32): K3_SHAPES}
+    return sorted((k, s, str(d)) for k, s, d in seen if s not in held[(k, d)])
+
+
+def zoo_models(dev, seed):
+    """Full-width UNETR and 'old'-family TranSeg (8 classes, 96³ windows)
+    and HD-UNet (9 channels, growth 16, 64 upsampling channels), weights
+    drawn on the card from ``seed``, norms off 1/0."""
+    from dose_prediction_tpu_torch.models import UNETR, HDUNet, TranSeg
+    from dose_prediction_tpu_torch.nn.init import init_params
+
+    g = torch.Generator(dev).manual_seed(seed)
+    made = [init_params(UNETR(out_ch=8, device=dev), g),
+            init_params(TranSeg(out_ch=8, block_family="old", device=dev), g),
+            init_params(HDUNet(device=dev), g)]
+    return dict(zip(("unetr", "old", "hdunet"), perturb_norms(made, g)))
+
+
+@torch.inference_mode()
+def zoo_forward_parity(label, model, x, kernels, route_k3, seg):
+    """One float32 forward (TF32 off) through the kernels and with the plain
+    versions swapped in: seg logits by their argmax labels (at least
+    LABEL_AGREEMENT_MIN of the voxels agree), a dose within
+    DOSE_TOL_OF_SCALE of the plain run's largest value; K1 (where the model
+    has attention) and K2 launched, K3 exactly where routed."""
+    model.eval()
+    with k3_routing(route_k3):
+        zero_counts()
+        out_k = model(x)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        with plain_kernels(*kernels):
+            out_p = model(x)
+        torch.cuda.synchronize()
+    if seg:
+        value = (out_k.argmax(1) == out_p.argmax(1)).float().mean().item()
+        ok, what = value >= LABEL_AGREEMENT_MIN, "labels agree"
+    else:
+        value = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+        ok, what = value <= DOSE_TOL_OF_SCALE, "max |kernels - plain| / max |plain|"
+    route = "K3 routing on" if route_k3 else "K3 routing off"
+    log(f"zoo parity {label} f32 (TF32 off, {route}): {what} {value:.6g}; launches {launches}")
+    routed = launches["conv3d_k3"] > 0 if route_k3 else launches["conv3d_k3"] == 0
+    if not (ok and routed and launches["instance_norm"] > 0 and bool(torch.isfinite(out_k).all())
+            and (launches["attention"] > 0 or not seg)):
+        raise AssertionError(f"zoo parity {label} failed ({route})")
+    return {what: value, "launches": launches}
+
+
+def zoo_steps(dev, label, model, make_step, batch):
+    """One warm-up and ZOO_TRAIN_STEPS timed bf16 steps of ``model`` (AdamW
+    at TRAIN_LR / TRAIN_WD, K3 routing on, PyTorch's TF32 defaults): p50,
+    launches and recomputes per step, peak memory. Every kernel the model
+    has must launch and be recomputed in every step."""
+    from dose_prediction_tpu_torch.train import state as S
+
+    opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+    step, state = make_step(model, opt), S.TrainState(model, opt)
+    with torch_default_tf32(), k3_routing(True):
+        _, loss0, rows = timed_steps(dev, step, state, batch, ZOO_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    times = [r["s"] for r in rows]
+    losses = [loss0] + [r["loss"] for r in rows]
+    row = {"p50_s": p50(times), "times_s": times, "losses": losses, "peak_gib": peak / 2 ** 30,
+           "launches_per_step": rows[-1]["launches"],
+           "recomputes_per_step": rows[-1]["recomputes"]}
+    log(f"zoo train {label} bf16 (K3 routing on): step seconds {times}, p50 {row['p50_s']} s; "
+        f"losses (warm-up first) {losses}; launches per step {row['launches_per_step']}, "
+        f"backward recomputes per step {row['recomputes_per_step']}; peak memory "
+        f"{row['peak_gib']:.2f} GiB")
+    has_attention = label != "hdunet"
+    for r in rows:
+        for field in ("launches", "recomputes"):
+            if min(v for k, v in r[field].items() if has_attention or k != "attention") == 0:
+                raise AssertionError(f"zoo train {label}: a kernel was not {field[:-1]}ed "
+                                     f"in a step ({r[field]})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"zoo train {label}: a loss is not finite")
+    return row
+
+
+def zoo_cascade_predictions(dev, seg, dose_ck: Path, patients, seg_mode: str) -> list:
+    """make_cascade_fn's bf16 predictions (sw batch 8) for each patient from
+    ``seg`` (weights loaded) and the DOSE-PYFER of ``dose_ck``."""
+    from dose_prediction_tpu_torch.cli.main import default_flagship_model
+    from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
+    from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
+
+    dose = default_flagship_model(img_size=patients[0].ct.shape, device=dev)
+    dose.load_state_dict(restore_checkpoint(dose_ck)["model"])
+    run = make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(), roi_size=SEG_CROP,
+                          sw_batch_size=8, seg_mode=seg_mode, input_dtype=torch.bfloat16)
+
+    def vol(a):
+        return torch.from_numpy(a[None, ..., None]).to(dev)
+
+    out = [run(vol(p.ct), vol(p.ptv), vol(p.dose_mask)).cpu() for p in patients]
+    del dose, run
+    free_memory()
+    return out
+
+
+def zoo_cli(dev, data, root) -> dict:
+    """The CLI in this process on the data phase's cohort: train hdunet,
+    eval --model hdunet (host and device metrics) and predict; train
+    transeg --block-family old, then import-torch of its state dict under a
+    'model.' prefix; train transeg --mode-model 0 and seg-eval; linked-eval
+    --block-family old (bf16, sliding and dense) with that seg slot and the
+    trainer phase's DOSE-PYFER slot, against make_cascade_fn."""
+    import numpy as np
+
+    from dose_prediction_tpu_torch.cli.main import default_seg_model
+    from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
+    from dose_prediction_tpu_torch.evaluation import metrics as M
+    from dose_prediction_tpu_torch.train import linked as LK
+
+    cohort, work = Path(root), Path(root) / "zoo"
+    every, train_glob, val_glob = str(cohort / "pt_*"), str(cohort / "pt_[012]"), \
+        str(cohort / "pt_3")
+    dose_ck = cohort / "trainer" / "pyfer" / "last.pt"
+    row = {}
+    with torch_default_tf32():
+        hd = work / "hdunet"
+        rec = train_cli("train hdunet", "hdunet", "--data", train_glob, "--val-data", val_glob,
+                        "--epochs", "2", "--check-val", "1", "--ckpt-dir", hd, "--log-dir",
+                        work / "hd_log")
+        last = restore_checkpoint(hd / "last.pt")
+        row["hdunet"] = {"s": rec["s"], "steps": len(rec["steps"]), "step_s": rec["step_times"],
+                         "step_p50_s": p50(rec["step_times"]), "launches": rec["steps"],
+                         "writes": rec["writes"], "last_step": last["step"]}
+        del last
+        evals = {}
+        for label, extra in (("host", ()), ("device", ("--device-metrics",))):
+            with trainer_probes() as probe:
+                rc, res, text = cli("eval", "--model", "hdunet", "--data", every, "--ckpt",
+                                    hd / "last.pt", "--ckpt-dir", work / "eval_ck", "--log-dir",
+                                    work / "eval_log", *extra)
+            if rc != 0 or res is None:
+                raise AssertionError(f"zoo: eval --model hdunet ({label}) returned {rc}:\n"
+                                     f"{text[-3000:]}")
+            evals[label] = {**res, "sweep_s": probe["sweeps"][0]}
+            free_memory()
+        host, device = evals["host"], evals["device"]
+        dose_rel = abs(device["mean_dose_score"] - host["mean_dose_score"]) / \
+            abs(host["mean_dose_score"])
+        dvh_rel = abs(device["mean_dvh_score"] - host["mean_dvh_score"]) / \
+            abs(host["mean_dvh_score"])
+        rc, _, text = cli("predict", "--model", "hdunet", "--data", every, "--ckpt",
+                          hd / "last.pt", "--out-dir", work / "hd_pred", "--ckpt-dir",
+                          work / "eval_ck", "--log-dir", work / "eval_log")
+        predicted = sorted(p.name for p in (work / "hd_pred").glob("pt_*/dose.nii.gz")) \
+            if rc == 0 else []
+        free_memory()
+        row["hdunet"].update(eval_host=host, eval_device=device, dose_rel=dose_rel,
+                             dvh_rel=dvh_rel, predict_rc=rc, predicted=len(predicted))
+        log(f"zoo: train hdunet (float32, 2 epochs of 3 steps) in {rec['s']:.1f} s: steps "
+            f"{rec['step_times']} s, p50 {row['hdunet']['step_p50_s']} s, launches per step "
+            f"{rec['steps']}, checkpoint writes {rec['writes']}; eval host sweep "
+            f"{host['sweep_s']} s, device sweep {device['sweep_s']} s, mean_dose_score host "
+            f"{host['mean_dose_score']} device {device['mean_dose_score']} (rel {dose_rel:.3g}), "
+            f"mean_dvh_score rel {dvh_rel:.3g}; predict wrote {len(predicted)} NIfTIs")
+        if not (len(rec["steps"]) == 6 and row["hdunet"]["last_step"] == 6
+                and all(st["instance_norm"] > 0 for st in rec["steps"])
+                and dose_rel <= EVAL_DOSE_REL and dvh_rel <= EVAL_DVH_REL
+                and rc == 0 and len(predicted) == DATA_PATIENTS):
+            raise AssertionError(f"zoo: hdunet CLI check failed: {row['hdunet']}\n{text[-2000:]}")
+
+        old = work / "old"
+        rec = train_cli("train transeg old", "transeg", "--block-family", "old", "--data",
+                        every, "--epochs", "1", "--max-steps", "2", "--ckpt-dir", old,
+                        "--log-dir", work / "old_log")
+        model = default_seg_model(block_family="old", img_size=SEG_CROP, device=dev)
+        model.load_state_dict(restore_checkpoint(old / "last.pt")["model"])
+        torch.save({"state_dict": {f"model.{k}": v for k, v in model.state_dict().items()}},
+                   work / "old_reference.ckpt")
+        rc, _, text = cli("import-torch", "--kind", "transeg", "--src",
+                          work / "old_reference.ckpt", "--dest", work / "old_imported.pt")
+        if rc != 0:
+            raise AssertionError(f"zoo: import-torch --kind transeg returned {rc}:\n"
+                                 f"{text[-2000:]}")
+        imported = default_seg_model(block_family="old", img_size=SEG_CROP, device=dev)
+        imported.load_state_dict(restore_checkpoint(work / "old_imported.pt"))
+        x = seeded_seg_batch(dev, torch.float32)["ct"].permute(0, 4, 1, 2, 3).contiguous()
+        with torch.inference_mode():
+            same = same_bits(imported.eval()(x), model.eval()(x))
+        del model, imported, x
+        free_memory()
+        row["old"] = {"s": rec["s"], "step_s": rec["step_times"], "launches": rec["steps"],
+                      "import_bit_equal": same}
+        log(f"zoo: train transeg --block-family old (2 steps on 96³ crops) in {rec['s']:.1f} s: "
+            f"steps {rec['step_times']} s, launches {rec['steps']}; import-torch --kind transeg "
+            f"of its state dict under 'model.': forward bit-equal {same}")
+        if not (len(rec["steps"]) == 2 and same
+                and all(st["attention"] > 0 and st["instance_norm"] > 0 for st in rec["steps"])):
+            raise AssertionError(f"zoo: transeg old CLI check failed: {row['old']}")
+
+        un = work / "unetr"
+        rec = train_cli("train transeg unetr", "transeg", "--mode-model", "0", "--data", every,
+                        "--epochs", "1", "--max-steps", "2", "--ckpt-dir", un, "--log-dir",
+                        work / "unetr_log")
+        t0 = time.perf_counter()
+        rc, res, text = cli("seg-eval", "--mode-model", "0", "--data", every, "--ckpt",
+                            un / "last.pt", "--ckpt-dir", work / "eval_ck", "--log-dir",
+                            work / "eval_log")
+        seg_eval_s = time.perf_counter() - t0
+        free_memory()
+        row["unetr"] = {"s": rec["s"], "step_s": rec["step_times"], "launches": rec["steps"],
+                        "seg_eval": res, "seg_eval_s": seg_eval_s}
+        log(f"zoo: train transeg --mode-model 0 (2 steps) in {rec['s']:.1f} s: steps "
+            f"{rec['step_times']} s, launches {rec['steps']}; seg-eval --mode-model 0 in "
+            f"{seg_eval_s:.1f} s: {res}")
+        if rc != 0 or res is None or not math.isfinite(res["val_loss"]) or \
+                len(rec["steps"]) != 2:
+            raise AssertionError(f"zoo: unetr CLI check failed:\n{text[-2000:]}")
+
+        linked = {}
+        patients = data["dataset"].patients
+        for mode in ("sliding", "dense"):
+            runs = []
+            make = LK.make_cascade_fn
+
+            def recording(*args, **kwargs):
+                run = make(*args, **kwargs)
+
+                def recorded(*volumes):
+                    out = run(*volumes)
+                    runs.append(out)
+                    return out
+                return recorded
+
+            t0 = time.perf_counter()
+            with mock.patch.object(LK, "make_cascade_fn", recording):
+                rc, res, text = cli("linked-eval", "--block-family", "old", "--data", every,
+                                    "--seg-ckpt", old / "last.pt", "--dose-ckpt", dose_ck,
+                                    "--seg-mode", mode, "--serve-dtype", "bfloat16",
+                                    "--sw-batch", "8", "--ckpt-dir", work / "eval_ck",
+                                    "--log-dir", work / "linked_log")
+            seconds = time.perf_counter() - t0
+            if rc != 0 or res is None:
+                raise AssertionError(f"zoo: linked-eval {mode} returned {rc}:\n{text[-3000:]}")
+            got = [r.cpu() for r in runs]
+            del runs
+            free_memory()
+            seg = default_seg_model(block_family="old", img_size=SEG_CROP, device=dev,
+                                    trained_grid=(SEG_CROP[0] // 16,) * 3
+                                    if mode == "dense" else None)
+            seg.load_state_dict(restore_checkpoint(old / "last.pt")["model"])
+            want = zoo_cascade_predictions(dev, seg, dose_ck, patients, mode)
+            del seg
+            equal = len(got) == len(want) and all(same_bits(a, b) for a, b in zip(got, want))
+            preds = [w.float().numpy()[0, ..., 0] for w in want]
+            scores = [M.dose_score(q, p.real_dose, p.dose_mask) for q, p in zip(preds, patients)]
+            dvhs = [M.dvh_score_for_patient(q, p.real_dose, p.structures, p.spacing)["dvh_dif"]
+                    for q, p in zip(preds, patients)]
+            dvhs = [d for d in dvhs if math.isfinite(d)]
+            score_equal = (res["mean_dose_score"] == float(np.mean(scores))
+                           and res["mean_dvh_score"] == float(np.mean(dvhs)))
+            linked[mode] = {"s": seconds, "bit_equal": equal, "scores_equal": score_equal,
+                            **res}
+            log(f"zoo: linked-eval --block-family old bf16 {mode} in {seconds:.1f} s: {res}; "
+                f"predictions bit-equal to make_cascade_fn's {equal}; scores equal to the "
+                f"port's metrics on them {score_equal}")
+            if not (equal and score_equal):
+                raise AssertionError(f"zoo: linked-eval {mode} check failed: {linked[mode]}")
+        row["linked"] = linked
+    return row
+
+
+def phase_zoo(dev, data, root, kernels):
+    """The reference's other seg and dose networks at full width: float32
+    parity of UNETR, 'old' TranSeg and HD-UNet (kernels against plain, K3
+    routing off and on); bf16 serve with the 'old' TranSeg, then UNETR, as
+    stage 1; bf16 train steps of HD-UNet, UNETR and the 'old' TranSeg; a
+    float32 HD-UNet step through the kernels against the plain versions;
+    the CLI (zoo_cli). K2 and K3 launches at a shape the kernels phase did
+    not hold, in that dtype, fail the phase."""
+    from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
+    from dose_prediction_tpu_torch.train import steps
+
+    smi, row = nvidia_smi(), {}
+    with launched_shapes() as seen:
+        models = zoo_models(dev, SEED + 8)
+        crop = seeded_seg_batch(dev, torch.float32)["ct"].permute(0, 4, 1, 2, 3).contiguous()
+        volume = seeded_batch(dev, torch.float32)["input"].permute(0, 4, 1, 2, 3).contiguous()
+        row["parity"] = {}
+        for route in (False, True):
+            for name, x in (("unetr", crop), ("old", crop), ("hdunet", volume)):
+                row["parity"][f"{name} k3={route}"] = zoo_forward_parity(
+                    name, models[name], x, kernels, route, seg=name != "hdunet")
+        del crop, volume
+        free_memory()
+
+        dose = seeded_pyfer(dev)
+        ct, ptv, mask = seeded_volumes(dev, torch.bfloat16)
+        row["serve"] = {}
+        for name in ("old", "unetr"):
+            seg = models[name]
+            run = make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(),
+                                  roi_size=SEG_CROP, sw_batch_size=8, overlap=0.25,
+                                  dose_scale=70.0)
+            times, launches, ok = bf16_requests(run, ct, ptv, mask, ZOO_SERVE_REQUESTS)
+            per = {k: v / ZOO_SERVE_REQUESTS for k, v in launches.items()}
+            row["serve"][name] = {"p50_s": p50(times), "times_s": times,
+                                  "launches_per_request": per}
+            log(f"zoo serve bf16, {name} as stage 1 (96³ windows, sw batch 8) into DOSE-PYFER: "
+                f"request seconds {times}, p50 {p50(times)} s; output checks {ok}; K1 and K2 "
+                f"launches per request {per['attention']}, {per['instance_norm']}; on {smi}")
+            if not (ok and per["attention"] > 0 and per["instance_norm"] > 0):
+                raise AssertionError(f"zoo serve {name} check failed ({launches})")
+        del dose, ct, ptv, mask, run, seg, models
+        free_memory()
+
+        models = zoo_models(dev, SEED + 9)
+        row["train"] = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        row["train"]["hdunet"] = zoo_steps(dev, "hdunet", models.pop("hdunet"),
+                                           steps.make_simple_dose_train_step,
+                                           seeded_batch(dev, torch.bfloat16))
+        for name in ("unetr", "old"):
+            free_memory()
+            torch.cuda.reset_peak_memory_stats(dev)
+            row["train"][name] = zoo_steps(dev, name, models.pop(name),
+                                           steps.make_transeg_train_step,
+                                           seeded_seg_batch(dev, torch.bfloat16))
+        free_memory()
+
+        def make_hdunet():
+            from dose_prediction_tpu_torch.train import state as S
+
+            model = zoo_models_hdunet(dev)
+            opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+            return model, steps.make_simple_dose_train_step(model, opt), S.TrainState(model, opt)
+
+        runs = parity_runs(make_hdunet, seeded_batch(dev, torch.float32), kernels, True, dev,
+                           plane_scaled=True)
+        row["train_parity"] = check_step_parity("zoo hdunet step", runs, True,
+                                                zero_grad=ZOO_ZERO_GRAD_BIAS)
+        del runs
+        free_memory()
+        row["cli"] = zoo_cli(dev, data, root)
+    row["shapes"] = {f"{k} {s} {str(d).replace('torch.', '')}": n for (k, s, d), n in seen.items()}
+    unheld = unheld_shapes(seen)
+    log(f"zoo: K2 and K3 launches by shape and dtype {row['shapes']}; not held by the kernels "
+        f"phase: {unheld}")
+    if unheld:
+        raise AssertionError(f"zoo: K2/K3 shapes the kernels phase did not hold: {unheld}")
+    return row
+
+
+def zoo_models_hdunet(dev):
+    """The full-width HD-UNet of zoo_models from one seed, alone: two calls
+    give identical weights."""
+    from dose_prediction_tpu_torch.models import HDUNet
+    from dose_prediction_tpu_torch.nn.init import init_params
+
+    g = torch.Generator(dev).manual_seed(SEED + 10)
+    return perturb_norms([init_params(HDUNet(device=dev), g)], g)[0]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2003,6 +2422,9 @@ def main() -> int:
             run("train_feed", lambda: phase_train_feed(dev, results["data"]))
             free_memory()
             run("trainer", lambda: phase_trainer(dev, results["data"], root))
+            free_memory()
+            torch.cuda.reset_peak_memory_stats(dev)
+            run("zoo", lambda: phase_zoo(dev, results["data"], root, (k1, k2, k3)))
             del results["data"]["dataset"]
     except Exception:
         return 1
@@ -2023,6 +2445,10 @@ def main() -> int:
         f"float32); eval sweeps {results['trainer']['eval']['host']['sweep_s']} s host, "
         f"{results['trainer']['eval']['device']['sweep_s']} s device; checkpoint writes "
         + ", ".join(f"{n} {s:.2f} s" for n, s, _ in results["trainer"]["pyfer"]["writes"])
+        + "; zoo serve p50 "
+        + ", ".join(f"{k} {v['p50_s']} s" for k, v in results["zoo"]["serve"].items())
+        + ", zoo train p50 "
+        + ", ".join(f"{k} {v['p50_s']} s" for k, v in results["zoo"]["train"].items())
         + f"; total {time.perf_counter() - t_start:.1f} s; on {smi}")
     kernels = []
     for name, source, replaces, shape, phase in (
@@ -2039,6 +2465,24 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": list(shape), "dtype": "bfloat16", "launches_in": phase})
+    zoo_shapes = [("instance_norm", s) for s in K2_ZOO_SHAPES] + \
+        [("conv3d_k3", s) for s in K3_ZOO_SHAPES]
+    for name, shape in zoo_shapes:
+        source, replaces = {
+            "instance_norm": ("dose_prediction_tpu_torch/csrc/instance_norm.cu",
+                              "dose_prediction_tpu/kernels/instance_norm.py:32"),
+            "conv3d_k3": ("dose_prediction_tpu_torch/csrc/conv3d_k3.cu",
+                          "dose_prediction_tpu/kernels/conv3d.py:60")}[name]
+        row = results["kernels"][(name, shape, torch.bfloat16)]
+        launches = results["zoo"]["shapes"][f"{name} {shape} bfloat16"]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches, "max_abs_err": row["max_abs_err"],
+                        "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"], "shape": list(shape),
+                        "dtype": "bfloat16",
+                        "launches_in": f"zoo: HD-UNet bf16 train steps (a warm-up and "
+                                       f"{ZOO_TRAIN_STEPS})"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
