@@ -26,7 +26,8 @@ Phases, each printing its seconds on a line of its own:
             and the HMMA (tensor-core) instructions in its SASS, and K3's
             bfloat16 HMMA and LDSM (ldmatrix) counts; K2's path and chunk
             at each shape (any serve shape on the two-kernel path fails),
-            and both paths timed;
+            and both paths timed; K2 and K3 also at the shapes the zoo
+            phase gives them, in bfloat16 and float32;
 4. parity   the full-width 128³ serve cascade (12-layer ViT-768 TranSeg over
             96³ windows, then DOSE-PYFER) in float32 with TF32 off, once
             through the kernels and once with the plain versions swapped in,
@@ -119,6 +120,27 @@ Phases, each printing its seconds on a line of its own:
             rates) and eval --model c3d; a subprocess train pyfer stopped by
             SIGTERM after its first step, which must exit 0 with a 'last'
             slot that a rerun resumes from; and --help in a subprocess;
+21. zoo     the reference's other seg and dose networks at full width,
+            weights from seeds on the card: float32 parity (TF32 off,
+            kernels against plain versions, K3 routing off and on) of the
+            plain UNETR and the 'old'-family TranSeg on a 96³ crop and of
+            HD-UNet at 128³; three bf16 requests after a warm-up with the
+            'old' TranSeg, then UNETR, as stage 1 over 96³ windows (sw batch
+            8) into DOSE-PYFER: p50, K1 and K2 launches per request; bf16
+            train steps (a warm-up and five, AdamW, K3 routing on) of
+            HD-UNet at 128³ and of UNETR and the 'old' TranSeg on a 96³
+            crop: p50, launches and recomputes per step, peak memory; one
+            float32 HD-UNet step through the kernels against the plain
+            versions, leaf by leaf; then the CLI on the data phase's cohort:
+            train hdunet, eval --model hdunet (host and device metrics),
+            predict --model hdunet; train transeg --block-family old, then
+            import-torch --kind transeg of its state dict under 'model.'
+            (forward bit-equal); train transeg --mode-model 0 and seg-eval;
+            linked-eval --block-family old with the trainer phase's
+            DOSE-PYFER slot, bf16, sliding and dense, each prediction
+            bit-equal to make_cascade_fn's and the scores the port's
+            metrics on them. Any K2 or K3 launch of the phase at a shape
+            the kernels phase did not hold, in that dtype, fails it;
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -1995,18 +2017,19 @@ def unheld_shapes(seen) -> list:
     return sorted((k, s, str(d)) for k, s, d in seen if s not in held[(k, d)])
 
 
-def zoo_models(dev, seed):
-    """Full-width UNETR and 'old'-family TranSeg (8 classes, 96³ windows)
-    and HD-UNet (9 channels, growth 16, 64 upsampling channels), weights
-    drawn on the card from ``seed``, norms off 1/0."""
+def zoo_model(name, dev, seed):
+    """The full-width 'unetr' or 'old'-family TranSeg (8 classes, 96³
+    windows) or 'hdunet' (9 channels, growth 16, 64 upsampling channels),
+    weights drawn on the card from ``seed``, norms off 1/0: two calls give
+    identical weights."""
     from dose_prediction_tpu_torch.models import UNETR, HDUNet, TranSeg
     from dose_prediction_tpu_torch.nn.init import init_params
 
+    make = {"unetr": lambda: UNETR(out_ch=8, device=dev),
+            "old": lambda: TranSeg(out_ch=8, block_family="old", device=dev),
+            "hdunet": lambda: HDUNet(device=dev)}[name]
     g = torch.Generator(dev).manual_seed(seed)
-    made = [init_params(UNETR(out_ch=8, device=dev), g),
-            init_params(TranSeg(out_ch=8, block_family="old", device=dev), g),
-            init_params(HDUNet(device=dev), g)]
-    return dict(zip(("unetr", "old", "hdunet"), perturb_norms(made, g)))
+    return perturb_norms([init_params(make(), g)], g)[0]
 
 
 @torch.inference_mode()
@@ -2272,7 +2295,7 @@ def phase_zoo(dev, data, root, kernels):
 
     smi, row = nvidia_smi(), {}
     with launched_shapes() as seen:
-        models = zoo_models(dev, SEED + 8)
+        models = {name: zoo_model(name, dev, SEED + 8) for name in ("unetr", "old", "hdunet")}
         crop = seeded_seg_batch(dev, torch.float32)["ct"].permute(0, 4, 1, 2, 3).contiguous()
         volume = seeded_batch(dev, torch.float32)["input"].permute(0, 4, 1, 2, 3).contiguous()
         row["parity"] = {}
@@ -2303,24 +2326,21 @@ def phase_zoo(dev, data, root, kernels):
         del dose, ct, ptv, mask, run, seg, models
         free_memory()
 
-        models = zoo_models(dev, SEED + 9)
         row["train"] = {}
-        torch.cuda.reset_peak_memory_stats(dev)
-        row["train"]["hdunet"] = zoo_steps(dev, "hdunet", models.pop("hdunet"),
-                                           steps.make_simple_dose_train_step,
-                                           seeded_batch(dev, torch.bfloat16))
-        for name in ("unetr", "old"):
+        for name, make_step, batch in (
+                ("hdunet", steps.make_simple_dose_train_step, seeded_batch),
+                ("unetr", steps.make_transeg_train_step, seeded_seg_batch),
+                ("old", steps.make_transeg_train_step, seeded_seg_batch)):
             free_memory()
             torch.cuda.reset_peak_memory_stats(dev)
-            row["train"][name] = zoo_steps(dev, name, models.pop(name),
-                                           steps.make_transeg_train_step,
-                                           seeded_seg_batch(dev, torch.bfloat16))
+            row["train"][name] = zoo_steps(dev, name, zoo_model(name, dev, SEED + 9), make_step,
+                                           batch(dev, torch.bfloat16))
         free_memory()
 
         def make_hdunet():
             from dose_prediction_tpu_torch.train import state as S
 
-            model = zoo_models_hdunet(dev)
+            model = zoo_model("hdunet", dev, SEED + 10)
             opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
             return model, steps.make_simple_dose_train_step(model, opt), S.TrainState(model, opt)
 
@@ -2338,16 +2358,6 @@ def phase_zoo(dev, data, root, kernels):
     if unheld:
         raise AssertionError(f"zoo: K2/K3 shapes the kernels phase did not hold: {unheld}")
     return row
-
-
-def zoo_models_hdunet(dev):
-    """The full-width HD-UNet of zoo_models from one seed, alone: two calls
-    give identical weights."""
-    from dose_prediction_tpu_torch.models import HDUNet
-    from dose_prediction_tpu_torch.nn.init import init_params
-
-    g = torch.Generator(dev).manual_seed(SEED + 10)
-    return perturb_norms([init_params(HDUNet(device=dev), g)], g)[0]
 
 
 def main() -> int:

@@ -34,20 +34,12 @@ class DenseConvolve(SingleConv):
         return torch.cat([self.single_conv(x), x], dim=1)
 
 
-class MaxPool3d(nn.Module):
-    """The parameter-free ``pooling`` slot (MaxPool3d(2, 2))."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.max_pool3d(x, 2)
-
-
 class DenseDownsample(SingleConv):
     def __init__(self, cin: int, growth: int):
         super().__init__(cin, growth, stride=2)
-        self.pooling = MaxPool3d()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.cat([self.single_conv(x), self.pooling(x)], dim=1)
+        return torch.cat([self.single_conv(x), ops.max_pool3d(x, 2)], dim=1)
 
 
 class Encoder(nn.Module):

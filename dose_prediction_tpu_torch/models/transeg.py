@@ -4,8 +4,7 @@ OARSegmentation/Models/Networks/oar_transeg.py:14-185).
 
 A ViT with hidden-state taps at num_layers/4 multiples (3/6/9 for 12
 layers), UnetrBasicBlock + UnetrPrUpBlock encoders, ModifiedUnetrUpBlock
-decoders (Conv31, or with ``multiS_conv=False`` the DualDilatedBlock;
-act='relu') and a 1×1 output head. ``block_family`` is the reference's
+decoders (Conv31, act='relu') and a 1×1 output head. ``block_family`` is the reference's
 seg-model matrix (train_light_transeg.py:93-124): 'seg' (the Models/
 blocks), 'old' (the OldModels TRANSEG blocks, BatchNorm inside and a bare
 1×1 fuse: what the reference's mode_model=1 checkpoints hold) or
@@ -54,8 +53,7 @@ class TranSeg(nn.Module):
                  hidden_size: int = 768, mlp_dim: int = 3072, num_layers: int = 12,
                  num_heads: int = 12, act: str = "relu", patch_size: int = 16,
                  trained_grid=None, remat_blocks: bool = False, block_family: str = "seg",
-                 k7_mode: str = "dense", multiS_conv: bool = True,
-                 pos_embed: str = "perceptron", device="cuda"):
+                 k7_mode: str = "dense", device="cuda"):
         super().__init__()
         if block_family not in BLOCK_FAMILIES:
             raise ValueError(f"unknown block_family {block_family!r}; options: "
@@ -64,11 +62,10 @@ class TranSeg(nn.Module):
         self.remat_blocks = remat_blocks
         fs = feature_size
         up = functools.partial(ModifiedUnetrUpBlock, act=act,
-                               family=BLOCK_FAMILIES[block_family], k7_mode=k7_mode,
-                               multiS_conv=multiS_conv)
+                               family=BLOCK_FAMILIES[block_family], k7_mode=k7_mode)
         with torch.device(resolve_device(device)):
             self.vit = ViT(in_ch, img_size, patch_size, hidden_size, mlp_dim, num_layers,
-                           num_heads, trained_grid, pos_embed)
+                           num_heads, trained_grid)
             self.encoder1 = UnetrBasicBlock(in_ch, fs)
             self.encoder2 = UnetrPrUpBlock(hidden_size, fs * 2, 2)
             self.encoder3 = UnetrPrUpBlock(hidden_size, fs * 4, 1)

@@ -30,19 +30,19 @@ class UNETR(nn.Module):
     """``forward(x)`` on ``(N, in_ch, D, H, W)`` returns ``(N, out_ch, D, H,
     W)`` logits. Defaults: 1 input channel, 7 OARs + background, 96³
     windows, feature size 16, a 12-layer ViT-768 (MLP 3072) with 12 heads,
-    patch 16, the perceptron patch embed."""
+    patch 16."""
 
     @records_config
     def __init__(self, in_ch: int = 1, out_ch: int = 8, img_size=96, feature_size: int = 16,
                  hidden_size: int = 768, mlp_dim: int = 3072, num_layers: int = 12,
                  num_heads: int = 12, patch_size: int = 16, res_block: bool = True,
-                 pos_embed: str = "perceptron", trained_grid=None, device="cuda"):
+                 trained_grid=None, device="cuda"):
         super().__init__()
         self.num_layers = num_layers
         fs = feature_size
         with torch.device(resolve_device(device)):
             self.vit = ViT(in_ch, img_size, patch_size, hidden_size, mlp_dim, num_layers,
-                           num_heads, trained_grid, pos_embed)
+                           num_heads, trained_grid)
             self.encoder1 = UnetrBasicBlock(in_ch, fs)
             self.encoder2 = UnetrPrUpBlock(hidden_size, fs * 2, 2)
             self.encoder3 = UnetrPrUpBlock(hidden_size, fs * 4, 1)

@@ -28,7 +28,7 @@ from dose_prediction_tpu_torch.kernels import attention as k1  # noqa: E402
 from dose_prediction_tpu_torch.kernels import conv3d as k3  # noqa: E402
 from dose_prediction_tpu_torch.kernels import cuda_lib  # noqa: E402
 from dose_prediction_tpu_torch.kernels import instance_norm as k2  # noqa: E402
-from dose_prediction_tpu_torch.models import DosePyfer, TranSeg  # noqa: E402
+from dose_prediction_tpu_torch.models import UNETR, DosePyfer, HDUNet, TranSeg  # noqa: E402
 from dose_prediction_tpu_torch.nn.init import init_params  # noqa: E402
 from dose_prediction_tpu_torch.train import state as S  # noqa: E402
 from dose_prediction_tpu_torch.train import steps  # noqa: E402
@@ -242,6 +242,57 @@ def test_reduced_cascade_kernels_match_plain_on_card(card, monkeypatch):
     assert torch.all(struct == struct_p, dim=-1).float().mean().item() >= 0.999
     assert (dose_gy - dose_p).abs().max().item() / 70.0 <= 1e-3
     assert bool(torch.isfinite(dose_gy).all()) and bool((dose_gy[mask < 1] == 0).all())
+
+
+ZOO_CFG = dict(feature_size=4, hidden_size=64, mlp_dim=128, num_layers=4, num_heads=2)
+ZOO_MODELS = {
+    "unetr": lambda card: UNETR(img_size=32, device=card, **ZOO_CFG),
+    "transeg-old": lambda card: TranSeg(img_size=32, block_family="old", device=card, **ZOO_CFG),
+    "transeg-ablation": lambda card: TranSeg(img_size=32, block_family="ablation", device=card,
+                                             **ZOO_CFG),
+    "hdunet": lambda card: HDUNet(growth_rate=4, upsample_chan=8, device=card),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(ZOO_MODELS))
+def test_zoo_models_kernels_match_plain_on_card(card, monkeypatch, name, dtype):
+    """A small UNETR, 'old' and 'ablation' TranSeg and HD-UNet at 32³, eval
+    mode, K3 routing on (HD-UNet's 64- and 32-channel decoder convs take
+    it), TF32 off, through the kernels and with the plain versions swapped
+    in. Seg logits: at least 99.9 % of the argmax labels equal in float32,
+    99 % in bf16 (the kernels round once where the plain versions round
+    twice, and a near-tie goes either way); HD-UNet's dose within 1e-3 of
+    its largest value in float32, 2⁻⁴ (a few bf16 ulps through eleven
+    levels) in bf16. K2 launches, and K1 where the model has attention."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(FLAGS, "use_k3_conv3d", "1")
+    g = torch.Generator(card).manual_seed(0)
+    model = init_params(ZOO_MODELS[name](card), g).eval()
+    channels = 9 if name == "hdunet" else 1
+    x = torch.randn((2, channels, 32, 32, 32), generator=g, device=card).to(dtype)
+    before = (k1.fused_attention.launches, k2.instance_norm_act.launches,
+              k3.conv3d_k3.launches)
+    with torch.no_grad():
+        got = model(x)
+        torch.cuda.synchronize()
+        after = (k1.fused_attention.launches, k2.instance_norm_act.launches,
+                 k3.conv3d_k3.launches)
+        monkeypatch.setattr(k1, "fused_attention", k1.plain_attention)
+        monkeypatch.setattr(k2, "instance_norm_act", k2.plain_instance_norm_act)
+        monkeypatch.setattr(k3, "conv3d_k3", k3.plain_conv3d_k3)
+        want = model(x)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert after[1] > before[1] and (after[0] > before[0]) == (name != "hdunet")
+    if name == "hdunet":
+        assert after[2] > before[2]
+        bar = 1e-3 if dtype == torch.float32 else 2.0 ** -4
+        assert (got.float() - want.float()).abs().max().item() <= bar * want.float().abs().max()
+    else:
+        agree = (got.argmax(1) == want.argmax(1)).float().mean().item()
+        assert agree >= (0.999 if dtype == torch.float32 else 0.99)
 
 
 @pytest.mark.cuda

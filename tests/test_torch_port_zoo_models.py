@@ -1,6 +1,6 @@
 """The port's zoo models against the JAX package on the CPU: TranSeg in
-every block family (seg, old, ablation) and both k7 modes, with the
-DualDilatedBlock decoders, the plain UNETR and HD-UNet; the weights carried
+every block family (seg, old, ablation) and both k7 modes, the plain UNETR
+and HD-UNet; the weights carried
 across in both directions; reference checkpoints imported strictly; the
 recorded configurations; remat_blocks with the BatchNorm families.
 
@@ -10,10 +10,9 @@ rate 4 and 8 upsampling channels, at 32³ so that its fifth level is 2³).
 The port's seeded weights (test_torch_port_models.seeded) go into JAX
 through core/torch_import.py's importers, whose merge must report no
 missing and no unused leaf; where the JAX package has no importer for a
-module (the separable chains, the ablation DualDilatedBlock's BatchNorm
-fuse) through the port's own key maps, whose leaves must equal the JAX
-init's. weights.jax_to_torch carries JAX variables back and loads
-strictly.
+module (the separable chains) through the port's own key maps, whose
+leaves must equal the JAX init's. weights.jax_to_torch carries JAX
+variables back and loads strictly.
 
 Bars: float32 forward ≤ 1e-3 (test_golden_pyfer.py's) in eval and in train
 mode. Reference import: the torch replicas of tests/test_golden_transeg.py
@@ -55,9 +54,8 @@ def port_transeg(seed=0, **kw):
     return M.seeded(TranSeg(out_ch=5, img_size=SIZE, device="cpu", **CFG, **kw), seed)
 
 
-def jax_transeg(block_family="seg", k7_mode="dense", multiS_conv=True):
-    return jmodels.TranSeg(out_ch=5, block_family=block_family, k7_mode=k7_mode,
-                           multiS_conv=multiS_conv, **CFG)
+def jax_transeg(block_family="seg", k7_mode="dense"):
+    return jmodels.TranSeg(out_ch=5, block_family=block_family, k7_mode=k7_mode, **CFG)
 
 
 def target(jax_model, channels):
@@ -109,11 +107,10 @@ def test_transeg_family_imports_into_jax_and_matches(family):
     check_forward(port, jm, imported(port, jm, TI.import_transeg, 1), 1, seed=1)
 
 
-@pytest.mark.parametrize("family,k7_mode,multi", [
-    ("old", "separable", True), ("seg", "separable", True), ("ablation", "dense", False)])
-def test_transeg_separable_and_dual_dilated_match_jax(family, k7_mode, multi):
-    port = port_transeg(seed=2, block_family=family, k7_mode=k7_mode, multiS_conv=multi)
-    jm = jax_transeg(family, k7_mode, multi)
+@pytest.mark.parametrize("family", ["old", "seg", "ablation"])
+def test_transeg_separable_matches_jax(family):
+    port = port_transeg(seed=2, block_family=family, k7_mode="separable")
+    jm = jax_transeg(family, "separable")
     check_forward(port, jm, through_key_map(port, jm, weights.transeg_key_map, 1), 1, seed=2)
 
 
@@ -146,11 +143,10 @@ def test_hdunet_default_widths_are_the_reference():
 
 @pytest.mark.parametrize("make", [
     lambda: port_transeg(seed=5, block_family="old"),
-    lambda: port_transeg(seed=5, block_family="ablation", k7_mode="separable",
-                         multiS_conv=False),
+    lambda: port_transeg(seed=5, block_family="ablation", k7_mode="separable"),
     lambda: M.seeded(UNETR(out_ch=5, img_size=SIZE, device="cpu", **CFG), seed=5),
     lambda: M.seeded(HDUNet(device="cpu", **HD), seed=5)],
-    ids=["transeg-old", "transeg-ablation-separable-dual", "unetr", "hdunet"])
+    ids=["transeg-old", "transeg-ablation-separable", "unetr", "hdunet"])
 def test_jax_to_torch_round_trips_strictly(make):
     model = make()
     key_map = weights._KEY_MAPS[type(model)]
@@ -206,12 +202,10 @@ def test_reference_checkpoints_load_strictly(tmp_path, kind, prefix, container):
 
 def test_model_spec_records_the_new_configurations():
     seg = TranSeg(block_family="old", k7_mode="separable", device="meta")
-    assert {("block_family", "old"), ("k7_mode", "separable"), ("multiS_conv", True),
-            ("pos_embed", "perceptron")} <= set(model_spec(seg).items())
+    assert {("block_family", "old"), ("k7_mode", "separable")} <= set(model_spec(seg).items())
     assert model_spec(UNETR(device="meta")) == dict(
         in_ch=1, out_ch=8, img_size=96, feature_size=16, hidden_size=768, mlp_dim=3072,
-        num_layers=12, num_heads=12, patch_size=16, res_block=True, pos_embed="perceptron",
-        trained_grid=None)
+        num_layers=12, num_heads=12, patch_size=16, res_block=True, trained_grid=None)
     assert model_spec(HDUNet(device="meta")) == dict(in_ch=9, growth_rate=16, upsample_chan=64,
                                                      out_ch=1)
     with pytest.raises(ValueError, match="block_family"):
