@@ -2460,14 +2460,18 @@ def main() -> int:
         + ", zoo train p50 "
         + ", ".join(f"{k} {v['p50_s']} s" for k, v in results["zoo"]["train"].items())
         + f"; total {time.perf_counter() - t_start:.1f} s; on {smi}")
+    sources = {   # each kernel's source and the TPU kernel it replaces
+        "attention": ("dose_prediction_tpu_torch/csrc/attention.cu",
+                      "dose_prediction_tpu/kernels/attention.py:26"),
+        "instance_norm": ("dose_prediction_tpu_torch/csrc/instance_norm.cu",
+                          "dose_prediction_tpu/kernels/instance_norm.py:32"),
+        "conv3d_k3": ("dose_prediction_tpu_torch/csrc/conv3d_k3.cu",
+                      "dose_prediction_tpu/kernels/conv3d.py:60")}
     kernels = []
-    for name, source, replaces, shape, phase in (
-            ("attention", "dose_prediction_tpu_torch/csrc/attention.cu",
-             "dose_prediction_tpu/kernels/attention.py:26", K1_SHAPES[0], "serve"),
-            ("instance_norm", "dose_prediction_tpu_torch/csrc/instance_norm.cu",
-             "dose_prediction_tpu/kernels/instance_norm.py:32", K2_SHAPES[0], "serve"),
-            ("conv3d_k3", "dose_prediction_tpu_torch/csrc/conv3d_k3.cu",
-             "dose_prediction_tpu/kernels/conv3d.py:60", K3_SHAPES[3], "serve_k3")):
+    for name, shape, phase in (("attention", K1_SHAPES[0], "serve"),
+                               ("instance_norm", K2_SHAPES[0], "serve"),
+                               ("conv3d_k3", K3_SHAPES[3], "serve_k3")):
+        source, replaces = sources[name]
         row = results["kernels"][(name, shape, torch.bfloat16)]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": results[phase]["launches"][name],
@@ -2478,11 +2482,7 @@ def main() -> int:
     zoo_shapes = [("instance_norm", s) for s in K2_ZOO_SHAPES] + \
         [("conv3d_k3", s) for s in K3_ZOO_SHAPES]
     for name, shape in zoo_shapes:
-        source, replaces = {
-            "instance_norm": ("dose_prediction_tpu_torch/csrc/instance_norm.cu",
-                              "dose_prediction_tpu/kernels/instance_norm.py:32"),
-            "conv3d_k3": ("dose_prediction_tpu_torch/csrc/conv3d_k3.cu",
-                          "dose_prediction_tpu/kernels/conv3d.py:60")}[name]
+        source, replaces = sources[name]
         row = results["kernels"][(name, shape, torch.bfloat16)]
         launches = results["zoo"]["shapes"][f"{name} {shape} bfloat16"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
