@@ -50,6 +50,18 @@ CFG, SIZE, TOL, REF_TOL = M.CFG, M.SIZE, M.TOL, 1e-5
 HD = dict(growth_rate=4, upsample_chan=8)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's CPU work in one thread: beside the JAX package's thread
+    pool and five other test workers, more threads only contend (a tier-1
+    run of tests/test_torch_port_zoo_train.py took 20 times its time alone
+    at the default)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_transeg(seed=0, **kw):
     return M.seeded(TranSeg(out_ch=5, img_size=SIZE, device="cpu", **CFG, **kw), seed)
 

@@ -16,21 +16,22 @@ its plane's largest |value| (seeded, kept out of the gradient), not 1e-6 of
 its own value. Rounding in the norm's subtraction is of that size, and in
 the ReLU after it moves the few values within it of 0 across 0 (two of the
 last decoder conv's 2¹⁰ · 2¹⁰ outputs here, each then passing or stopping
-a full-size gradient): the packages differ by that, 0.4-1.7 % of some
-leaves' scale, as far as each is from a float64 run of the port; a relative
-noise leaves every sign as it is and moves no leaf by more than 1e-5.
+a full-size gradient): the packages differ by that, up to 20 % of some
+leaves' scale, as far as this noise run moves the port; a relative noise
+leaves every sign as it is and moves no leaf by more than 1e-5.
 
 The trainers, as tests/test_torch_port_trainers.py holds PR 14's, from the
 port's seeded weights given to both (the JAX model's own random
-initialisation is not compiled) on two synthetic 32³ patients, four
-updates: validation and test() before updates at rel 1e-5 and 1e-4, the
-first epoch's train loss at rel 1e-5, later epochs and the final
+initialisation is not compiled) on two synthetic 32³ patients, validated
+after the last epoch: validation and test() before updates at rel 1e-5 and
+1e-4, the first epoch's train loss at rel 1e-5, later epochs and the final
 parameters by that file's noise-run rule, and the port's evaluation of the
 JAX trainer's final weights at rel 1e-5 / 1e-4. UNETR: two epochs of two
-steps, as there. HD-UNet: four epochs of one step (``samples_per_epoch=1``)
-with the plane-scaled noise, since its first epoch must hold the first step
-alone: Adam's first update is about lr · sign(g), and the leaves the ReLU
-flips move are in it, so a second step's loss already differs by 3e-5.
+steps, as there. HD-UNet: three epochs of one step (``samples_per_epoch=1``)
+with three plane-scaled noise runs, since its first epoch must hold the
+first step alone: Adam's first update is about lr · sign(g), and the leaves
+the ReLU flips move are in it, so a second step's loss already differs by
+3e-5.
 
 LinkedModel: the same seeded weights (a small 'old'-family TranSeg over 16³
 windows, a small DOSE-PYFER) in both packages on the synthetic 32³ cohort,
@@ -91,7 +92,18 @@ HD = dict(growth_rate=4, upsample_chan=8)
 # the SingleConv and upsampling convs: each feeds an InstanceNorm
 ZERO_GRAD_HDUNET = re.compile(r"single_conv\.0\.bias$|upconv_\d\.conv\.0\.bias$")
 DOSE_TOL = 1e-3 * 70.0
-NOISE_RUNS = 4      # HD-UNet trainer: the port's fit is ~2 s, its spread worth sampling
+NOISE_RUNS = 3      # HD-UNet trainer: the port's fit is ~2 s, its spread worth sampling
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's CPU work in one thread: beside the JAX package's thread
+    pool and five other test workers, more threads only contend (a tier-1
+    run of this file took 20 times its time alone at the default)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def port_hdunet(seed=0):
@@ -213,9 +225,9 @@ def initialized(jax_cls, variables, **fields):
 
 
 def one_step_epochs(tmp_path, tag):
-    """TR.configs with four epochs of one step."""
+    """TR.configs with three epochs of one step, validated after the last."""
     jcfg, cfg = TR.configs(tmp_path, tag, samples_per_epoch=1)
-    jcfg.max_epochs = cfg.max_epochs = 4
+    jcfg.max_epochs = cfg.max_epochs = jcfg.check_val = cfg.check_val = 3
     return jcfg, cfg
 
 
@@ -250,7 +262,7 @@ def test_hdunet_trainer_matches_jax(tmp_path, cohort32):  # noqa: F811
     TR.assert_close_dict(tr.test(ds), jtr.test(jds), scores, TR.REL_TEST)
     jtr.fit(jds, jds, resume=False)
     tr.fit(ds, ds, resume=False)
-    assert tr.state.step == int(jtr.state.step) == 4
+    assert tr.state.step == int(jtr.state.step) == 3
     runs = []
     for seed in range(NOISE_RUNS):
         twin = make(f"noise{seed}")
@@ -261,16 +273,21 @@ def test_hdunet_trainer_matches_jax(tmp_path, cohort32):  # noqa: F811
     TR.check_epochs(port, ref, runs, "train_mean_loss", ("mean_dose_score", "val_loss"))
     assert_moves_by_noise_rule(init, TR.state_numpy(tr.model), [r for r, _ in runs],
                                TR.jax_state_numpy(jtr.state, tr.model), ZERO_GRAD_HDUNET,
-                               cfg.learning_rate, 4)
+                               cfg.learning_rate, 3)
     tr.model.load_state_dict(weights.jax_to_torch(TR.variables_of(jtr.state), tr.model))
     assert TR.rel_close(tr.validate(ds)["mean_dose_score"], ref["mean_dose_score"][-1],
                         TR.REL_EPOCH)
     TR.assert_close_dict(tr.test(ds), jtr.test(jds), scores, TR.REL_TEST)
 
 
+def validated_at_the_end(jcfg, cfg):
+    jcfg.check_val = cfg.check_val = cfg.max_epochs
+    return jcfg, cfg
+
+
 def test_unetr_seg_trainer_matches_jax(tmp_path, cohort32):  # noqa: F811
     ds, jds = cohort32
-    jcfg, cfg = TR.configs(tmp_path, "u", batch_size=2)
+    jcfg, cfg = validated_at_the_end(*TR.configs(tmp_path, "u", batch_size=2))
     crop = (TR.SIZE32,) * 3
     seeded = M.seeded(CLI.default_unetr_model(small=True, img_size=crop, device="cpu"), seed=4)
     target = jax.eval_shape(JUNETR(out_ch=8, **M.CFG).init, jax.random.PRNGKey(0),
@@ -284,8 +301,9 @@ def test_unetr_seg_trainer_matches_jax(tmp_path, cohort32):  # noqa: F811
     def make(tag):
         model = CLI.default_unetr_model(small=True, img_size=crop, device="cpu")
         model.load_state_dict(weights.jax_to_torch(start, model), strict=True)
-        return T.UNETRSegTrainer(TR.configs(tmp_path, tag, batch_size=2)[1], model=model,
-                                 crop=crop)
+        return T.UNETRSegTrainer(validated_at_the_end(*TR.configs(tmp_path, tag,
+                                                                  batch_size=2))[1],
+                                 model=model, crop=crop)
 
     tr = make("u")
     assert isinstance(tr, T.TranSegTrainer)
