@@ -20,7 +20,7 @@ a full-size gradient): the packages differ by that, up to 20 % of some
 leaves' scale, as far as this noise run moves the port; a relative noise
 leaves every sign as it is and moves no leaf by more than 1e-5.
 
-The trainers, as tests/test_torch_port_trainers.py holds PR 14's, from the
+The trainers, as tests/test_torch_port_trainers.py holds its trainers, from the
 port's seeded weights given to both (the JAX model's own random
 initialisation is not compiled) on two synthetic 32³ patients, validated
 after the last epoch: validation and test() before updates at rel 1e-5 and
