@@ -2008,6 +2008,12 @@ def launched_shapes():
         yield seen
 
 
+def shape_counts(seen) -> dict:
+    """launched_shapes()'s counts keyed 'kernel (shape) dtype', as the
+    kernels line reads them."""
+    return {f"{k} {s} {str(d).replace('torch.', '')}": n for (k, s, d), n in seen.items()}
+
+
 def unheld_shapes(seen) -> list:
     """The (kernel, shape, dtype) of ``seen`` that the kernels phase did not
     hold in that dtype."""
@@ -2333,8 +2339,18 @@ def phase_zoo(dev, data, root, kernels):
                 ("old", steps.make_transeg_train_step, seeded_seg_batch)):
             free_memory()
             torch.cuda.reset_peak_memory_stats(dev)
-            row["train"][name] = zoo_steps(dev, name, zoo_model(name, dev, SEED + 9), make_step,
-                                           batch(dev, torch.bfloat16))
+            model = zoo_model(name, dev, SEED + 9)
+            with launched_shapes() as steps_seen:   # this model's steps alone, from zero
+                row["train"][name] = zoo_steps(dev, name, model, make_step,
+                                               batch(dev, torch.bfloat16))
+            row["train"][name]["shapes"] = shape_counts(steps_seen)
+            del model
+        # the kernels line reads the new bf16 shapes' launches from these steps
+        missing = [(k, s) for k, shapes in (("instance_norm", K2_ZOO_SHAPES),
+                                            ("conv3d_k3", K3_ZOO_SHAPES)) for s in shapes
+                   if f"{k} {s} bfloat16" not in row["train"]["hdunet"]["shapes"]]
+        if missing:
+            raise AssertionError(f"zoo train hdunet: not launched at {missing}")
         free_memory()
 
         def make_hdunet():
@@ -2351,7 +2367,7 @@ def phase_zoo(dev, data, root, kernels):
         del runs
         free_memory()
         row["cli"] = zoo_cli(dev, data, root)
-    row["shapes"] = {f"{k} {s} {str(d).replace('torch.', '')}": n for (k, s, d), n in seen.items()}
+    row["shapes"] = shape_counts(seen)
     unheld = unheld_shapes(seen)
     log(f"zoo: K2 and K3 launches by shape and dtype {row['shapes']}; not held by the kernels "
         f"phase: {unheld}")
@@ -2484,7 +2500,7 @@ def main() -> int:
     for name, shape in zoo_shapes:
         source, replaces = sources[name]
         row = results["kernels"][(name, shape, torch.bfloat16)]
-        launches = results["zoo"]["shapes"][f"{name} {shape} bfloat16"]
+        launches = results["zoo"]["train"]["hdunet"]["shapes"][f"{name} {shape} bfloat16"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches, "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"],
