@@ -682,10 +682,8 @@ def main(argv=None) -> int:
         _check_ckpt_config(args.dose_ckpt, dose)
         _load_into(seg, _read_slot(args.seg_ckpt), "seg model")
         _load_into(dose, _read_slot(args.dose_ckpt), "dose model")
-        model = LinkedModel(seg_model=seg, dose_model=dose, seg_variables=seg.state_dict(),
-                            dose_variables=dose.state_dict(), roi_size=(args.roi,) * 3,
-                            sw_batch_size=args.sw_batch, seg_mode=args.seg_mode,
-                            serve_dtype=args.serve_dtype, device=device)
+        model = LinkedModel(seg, dose, roi_size=(args.roi,) * 3, sw_batch_size=args.sw_batch,
+                            seg_mode=args.seg_mode, serve_dtype=args.serve_dtype)
         results = model.evaluate(ds, log_dir=args.log_dir, plots_dir=args.plots_dir,
                                  with_ivs=not args.no_ivs)
         print(json.dumps({k: v for k, v in results.items() if k not in ("per_patient", "ivs")},

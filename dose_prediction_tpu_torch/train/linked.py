@@ -5,82 +5,47 @@ train_light_linked_model.py LinkedNet :65-130 and test_step :138-228).
 A trained TranSeg (any block family and k7 mode) and a trained DOSE-PYFER
 are composed through make_cascade_fn; each patient of a cohort runs the
 full cascade and is scored (dose score, DVH score, IVS curve), with DVH
-plots and slice triptychs on request. The weights are loaded by name, as
-the JAX package loads them, not by the reference's positional key zip
+plots and slice triptychs on request. The caller loads the weights by
+name, as the JAX package does, not by the reference's positional key zip
 (:83-97).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from dose_prediction_tpu_torch.core import checkpoint as C
-from dose_prediction_tpu_torch.device import resolve_device
 from dose_prediction_tpu_torch.evaluation import metrics as M
 from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
 from dose_prediction_tpu_torch.infer.pipeline import pipeline_map
-from dose_prediction_tpu_torch.models import DosePyfer, TranSeg
+from dose_prediction_tpu_torch.models import DosePyfer
 from dose_prediction_tpu_torch.train.trainers import to_host
 from dose_prediction_tpu_torch.utils.logging import MetricLogger
 
-SEG_PATCH = 16
-
-
-def _variables(variables: Optional[Mapping[str, torch.Tensor]], ckpt: Optional[str],
-               what: str) -> Mapping[str, torch.Tensor]:
-    if variables is not None:
-        return variables
-    if ckpt is None:
-        raise ValueError(f"need {what}_variables or {what}_ckpt")
-    return C.variables_from_checkpoint(C.restore_checkpoint(ckpt))
-
 
 class LinkedModel:
-    """TranSeg + DOSE-PYFER composed for full-cascade inference.
+    """A trained seg model and a trained DOSE-PYFER, weights loaded, composed
+    for full-cascade inference. The seg model carries its own block family
+    and k7 mode, and in ``seg_mode='dense'`` its ``trained_grid`` (roi / 16
+    for a ROI-trained checkpoint); the CLI builds both from a checkpoint's
+    slot. ``serve_dtype='bfloat16'`` casts the volumes, so that the cascade
+    computes in bf16 with float32 parameters. The JAX class's ``aot``
+    (shipped precompiled executables) waits for the port's captured serve
+    path (ROADMAP queue 1 item 7)."""
 
-    Without ``seg_model`` / ``dose_model`` the full-width models are built
-    on ``device``: TranSeg of ``seg_block_family`` and ``seg_k7_mode`` at
-    ``roi_size`` (in ``seg_mode='dense'`` with ``trained_grid`` = roi / 16,
-    so that a ROI-trained checkpoint serves the whole volume) and DOSE-PYFER
-    at ``volume_size``. The weights come from ``*_variables`` (state dicts)
-    or ``*_ckpt`` (slot files) and load strictly. ``serve_dtype='bfloat16'``
-    casts the volumes, so that the cascade computes in bf16 with float32
-    parameters. The JAX class's ``aot`` (shipped precompiled executables)
-    waits for the port's captured serve path (ROADMAP queue 1 item 7)."""
-
-    def __init__(self, *, seg_model: Optional[torch.nn.Module] = None,
-                 dose_model: Optional[DosePyfer] = None,
-                 seg_variables: Optional[Mapping[str, torch.Tensor]] = None,
-                 dose_variables: Optional[Mapping[str, torch.Tensor]] = None,
-                 seg_ckpt: Optional[str] = None, dose_ckpt: Optional[str] = None,
+    def __init__(self, seg_model: torch.nn.Module, dose_model: DosePyfer, *,
                  roi_size: Sequence[int] = (96, 96, 96), sw_batch_size: int = 4,
-                 seg_mode: str = "sliding", serve_dtype: str = "float32",
-                 seg_block_family: str = "seg", seg_k7_mode: str = "dense",
-                 volume_size: Sequence[int] = (128, 128, 128), device="cuda"):
+                 seg_mode: str = "sliding", serve_dtype: str = "float32"):
         if serve_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown serve_dtype {serve_dtype!r}")
-        if seg_model is None:
-            grid = (tuple(int(r) // SEG_PATCH for r in roi_size) if seg_mode == "dense"
-                    else None)
-            seg_model = TranSeg(img_size=tuple(roi_size), trained_grid=grid,
-                                block_family=seg_block_family, k7_mode=seg_k7_mode,
-                                device=resolve_device(device))
-        self.seg_model = seg_model
-        self.dose_model = (dose_model if dose_model is not None
-                           else DosePyfer(img_size=tuple(volume_size),
-                                          device=resolve_device(device)))
-        self.seg_model.load_state_dict(_variables(seg_variables, seg_ckpt, "seg"), strict=True)
-        self.dose_model.load_state_dict(_variables(dose_variables, dose_ckpt, "dose"),
-                                        strict=True)
-        self.device = next(self.seg_model.parameters()).device
+        self.seg_model, self.dose_model = seg_model, dose_model
+        self.device = next(seg_model.parameters()).device
         self.run = make_cascade_fn(
-            self.seg_model, self.seg_model.state_dict(), self.dose_model,
-            self.dose_model.state_dict(), roi_size=roi_size, sw_batch_size=sw_batch_size,
-            seg_mode=seg_mode,
+            seg_model, seg_model.state_dict(), dose_model, dose_model.state_dict(),
+            roi_size=roi_size, sw_batch_size=sw_batch_size, seg_mode=seg_mode,
             input_dtype=torch.bfloat16 if serve_dtype == "bfloat16" else None)
 
     def _request(self, patient) -> torch.Tensor:
