@@ -206,7 +206,7 @@ K2_F32_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96),
                  (4, 16, 96, 96, 96), (4, 32, 48, 48, 48), (4, 32, 24, 24, 24),
                  (4, 64, 24, 24, 24), (4, 128, 12, 12, 12)]
 # the zoo phase's K2 shapes that no earlier phase holds (the kernels line
-# lists each with its launches in a zoo HD-UNet step)
+# lists each with its launches in the zoo HD-UNet train steps)
 K2_ZOO_SHAPES = K2_SHAPES[21:]
 # every shape a bf16 serve_k3 request gives K3: C3D / DOSE-PYFER levels 1-3
 # at 128³, the TranSeg windows' levels at 96³, then the decoders' two
