@@ -140,7 +140,31 @@ Phases, each printing its seconds on a line of its own:
             DOSE-PYFER slot, bf16, sliding and dense, each prediction
             bit-equal to make_cascade_fn's and the scores the port's
             metrics on them. Any K2 or K3 launch of the phase at a shape
-            the kernels phase did not hold, in that dtype, fails it;
+            the kernels phase did not hold, in that dtype, fails it. The
+            float32 HD-UNet step holds each gradient leaf to its own limit,
+            max(1e-3, 2 x its largest departure in three plane-scaled noise
+            runs) x its max |g| (the rule of
+            tests/test_torch_port_zoo_train.py); the DOSE-PYFER and TranSeg
+            steps (phases 13 and 17) keep the worst leaf's noise as every
+            leaf's limit; all three print the worst ratio of a leaf's error
+            to its own per-leaf limit;
+22. hpo_gan DoseGAN and the search, after zoo, on the data phase's cohort:
+            the DoseGAN step at the reference's width (ngf = ndf = 64, 9 ->
+            1 channels, 128³, float32 at TF32 defaults): a warm-up and five
+            steps on a fixed batch, p50, peak memory, K1/K2/K3 launches per
+            step (each must be 0); one float32 step (TF32 off) at ngf = ndf
+            = 4 on 32³ on the card against the port on the CPU from the
+            same weights (losses within 1e-5, each gradient leaf and
+            BatchNorm buffer by its own noise-run limit); the CLI's train
+            dosegan (two epochs of three steps, then --epochs 3 resuming at
+            epoch 2), eval --model dosegan (host and device metrics) and
+            predict, import-torch --kind dosegan-g and dosegan-d of the
+            trained nets under netG./netD. (forward bit-equal); tune
+            --sampler tpe --num-samples 3 --epochs 2 with --max-concurrent 1
+            and then 2 on the one card (wall seconds, best config), tune
+            --resume with --num-samples 4 (exactly one more trial), kfold
+            --folds 2 --epochs 1 (each fold's score). Any K2 or K3 launch of
+            the phase at a shape the kernels phase did not hold fails it;
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -204,7 +228,11 @@ K2_F32_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96),
                  (1, 128, 32, 32, 32), (1, 256, 16, 16, 16),
                  # the zoo CLI's seg-eval (96³ windows, sw batch 4)
                  (4, 16, 96, 96, 96), (4, 32, 48, 48, 48), (4, 32, 24, 24, 24),
-                 (4, 64, 24, 24, 24), (4, 128, 12, 12, 12)]
+                 (4, 64, 24, 24, 24), (4, 128, 12, 12, 12),
+                 # DOSE-PYFER's at 128³ that a float32 search trial or fold
+                 # gives it (hpo_gan; tests/test_torch_port_train_shapes.py)
+                 (1, 32, 64, 64, 64), (1, 32, 32, 32, 32), (1, 128, 16, 16, 16),
+                 (1, 256, 8, 8, 8)]
 # the zoo phase's K2 shapes that no earlier phase holds (the kernels line
 # lists each with its launches in the zoo HD-UNet train steps)
 K2_ZOO_SHAPES = K2_SHAPES[21:]
@@ -250,6 +278,20 @@ SIGTERM_WAIT_S = 420
 # InstanceNorm (zero gradient in exact arithmetic)
 ZOO_SERVE_REQUESTS, ZOO_TRAIN_STEPS = 3, 5
 ZOO_ZERO_GRAD_BIAS = r"single_conv\.0\.bias$|upconv_\d\.conv\.0\.bias$"
+# the float32 HD-UNet step: each leaf against its own largest departure in
+# this many plane-scaled noise runs
+ZOO_NOISE_RUNS = 3
+# hpo_gan: DoseGAN at the reference's width (ngf = ndf = 64) and, for the
+# card-against-CPU step, at 4 on 32³; the trainer's rate and L1 weight
+# (train/trainers.py DoseGANTrainer); conv biases that feed a train-mode
+# BatchNorm (zero gradient in exact arithmetic)
+GAN_WIDTH, GAN_STEPS = 64, 5
+GAN_PARITY_WIDTH, GAN_PARITY_SIZE, GAN_NOISE_RUNS = 4, 32, 3
+GAN_LR, GAN_L1_WEIGHT = 2e-4, 10.0
+GAN_ZERO_GRAD_BIAS = (r"^(g\.initial_block\.0|d\.model\.[06]|.*\.(downsample|pooling)\.0"
+                      r"|.*\.intermediate\.1)\.bias$")
+# the searches: trials and epochs (tune's ASHA sees one round an epoch)
+TUNE_SAMPLES, TUNE_EPOCHS = 3, 2
 
 
 def log(msg: str) -> None:
@@ -1050,17 +1092,19 @@ def noisy_plain_kernels(k1, k2, k3, rel: float, seed: int, dev, plane_scaled: bo
         yield
 
 
-def parity_runs(make, batch, kernels, route_k3, dev, plane_scaled=False):
+def parity_runs(make, batch, kernels, route_k3, dev, plane_scaled=False, noise_runs=1):
     """One float32 step of ``make()`` (a fresh model, step and state, the same
     weights each call) on ``batch``: through the kernels, through their
     plain versions, and through the plain versions with TRAIN_PARITY_NOISE
-    relative noise on their outputs (``plane_scaled``: noisy_plain_kernels).
-    Each run's loss, gradients and kernel launches."""
+    relative noise on their outputs (``plane_scaled``: noisy_plain_kernels),
+    ``noise_runs`` times with seeds SEED, SEED + 1, ... Each run's loss,
+    gradients and kernel launches."""
     k1, k2, k3 = kernels
     runs = {}
-    for name, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels(*kernels)),
-                      ("noise", noisy_plain_kernels(k1, k2, k3, TRAIN_PARITY_NOISE, SEED, dev,
-                                                    plane_scaled))):
+    noisy = [(f"noise{i}", noisy_plain_kernels(k1, k2, k3, TRAIN_PARITY_NOISE, SEED + i, dev,
+                                               plane_scaled)) for i in range(noise_runs)]
+    for name, ctx in [("kernels", contextlib.nullcontext()),
+                      ("plain", plain_kernels(*kernels))] + noisy:
         model, step, state = make()
         with k3_routing(route_k3), ctx:
             zero_counts()
@@ -1074,22 +1118,26 @@ def parity_runs(make, batch, kernels, route_k3, dev, plane_scaled=False):
     return runs
 
 
-def check_step_parity(label, runs, route_k3, zero_grad=ZERO_GRAD_BIAS):
+def check_step_parity(label, runs, route_k3, zero_grad=ZERO_GRAD_BIAS, per_leaf=False):
     """The kernels run against the plain run (parity_runs). The loss must
     agree to a relative 1e-5. A gradient leaf must agree to a max abs of
     1e-3 × its max |g|, or, where the step itself amplifies rounding noise
-    past that, to 2 × the worst leaf-relative deviation that the noise run
-    shows (the model's normalisations turn 1e-6 forward differences into
-    percent-level differences of some leaves, kernels or not), with a floor
-    of 2e-6 × the model's largest |g|. Conv biases that feed a norm have a
-    zero gradient in exact arithmetic and must be below 1e-5 × the largest
-    on both sides (tests/test_torch_port_train.py states the first and last
-    limits on the CPU). The kernel run must launch K1 (where the model has
-    attention), K2, and K3 exactly where ``route_k3``."""
+    past that, to 2 × the noise runs' departure from the plain run (the
+    model's normalisations turn 1e-6 forward differences into percent-level
+    differences of some leaves, kernels or not), with a floor of 2e-6 × the
+    model's largest |g|. That departure is the worst leaf's (a limit shared
+    by every leaf), or with ``per_leaf`` each leaf's own largest over the
+    noise runs, as tests/test_torch_port_zoo_train.py holds HD-UNet's step
+    on the CPU; the worst ratio of a leaf's error to its per-leaf limit is
+    printed either way. Conv biases that feed a norm have a zero gradient in
+    exact arithmetic and must be below 1e-5 × the largest on both sides
+    (tests/test_torch_port_train.py states the first and last limits on the
+    CPU). The kernel run must launch K1 (where the model has attention),
+    K2, and K3 exactly where ``route_k3``."""
     import re
 
-    (loss_k, grads_k, launches_k), (loss_p, grads_p, _), (_, grads_n, _) = (
-        runs["kernels"], runs["plain"], runs["noise"])
+    (loss_k, grads_k, launches_k), (loss_p, grads_p, _) = runs["kernels"], runs["plain"]
+    noisy = [grads for name, (_, grads, _) in runs.items() if name.startswith("noise")]
     g_max = max(g.abs().max().item() for g in grads_p.values())
     zero = re.compile(zero_grad)
     leaves = [n for n in grads_p if not zero.search(n)]
@@ -1099,30 +1147,42 @@ def check_step_parity(label, runs, route_k3, zero_grad=ZERO_GRAD_BIAS):
     def rel_err(grads, n):
         return (grads[n] - grads_p[n]).abs().max().item() / max(scale[n], 1e-30)
 
+    noise = {n: max(rel_err(grads, n) for grads in noisy) for n in leaves}
     worst_k = max(leaves, key=lambda n: rel_err(grads_k, n))
-    worst_n = max(leaves, key=lambda n: rel_err(grads_n, n))
-    noise_level = rel_err(grads_n, worst_n)
-    failed = [n for n in leaves if rel_err(grads_k, n) * scale[n]
-              > max(1e-3 * scale[n], 2 * noise_level * scale[n], 2e-6 * g_max)]
+    worst_n = max(leaves, key=noise.get)
+    noise_level = noise[worst_n]
+
+    def limit(n, departure):
+        return max(max(1e-3, 2 * departure) * scale[n], 2e-6 * g_max)
+
+    own = {n: rel_err(grads_k, n) * scale[n] / limit(n, noise[n]) for n in leaves}
+    held = own if per_leaf else {n: rel_err(grads_k, n) * scale[n] / limit(n, noise_level)
+                                 for n in leaves}
+    worst_own = max(leaves, key=own.get)
+    failed = [n for n in leaves if held[n] > 1.0]
     over_1e3 = sum(rel_err(grads_k, n) > 1e-3 for n in leaves)
     failed += [n for n in zeros if max(grads_k[n].abs().max().item(),
                                        grads_p[n].abs().max().item()) > 1e-5 * g_max]
     rel = abs(loss_k - loss_p) / abs(loss_p)
     route = "K3 routing on" if route_k3 else "K3 routing off"
+    rule = ("each leaf max(1e-3, 2 x its own noise departure)" if per_leaf
+            else f"max(1e-3, {2 * noise_level:.3g}) for every leaf")
     log(f"{label} f32 (TF32 off, {route}): loss kernels {loss_k} plain {loss_p}, "
         f"relative diff {rel:.3g} (limit 1e-5); {len(grads_p)} gradient leaves, largest |g| "
         f"{g_max:.4g}; worst leaf err / its max|g|: kernels vs plain "
-        f"{rel_err(grads_k, worst_k):.3g} ({worst_k}), noise run vs plain {noise_level:.3g} "
-        f"({worst_n}); {over_1e3} of {len(leaves)} leaves over 1e-3, limit "
-        f"max(1e-3, {2 * noise_level:.3g}); {len(zeros)} zero-gradient biases; leaves over "
-        f"their limit: {failed[:5]}; kernel-run launches {launches_k}")
+        f"{rel_err(grads_k, worst_k):.3g} ({worst_k}), {len(noisy)} noise run(s) vs plain "
+        f"{noise_level:.3g} ({worst_n}); {over_1e3} of {len(leaves)} leaves over 1e-3, limit "
+        f"{rule}; worst leaf err / its per-leaf limit {own[worst_own]:.3g} ({worst_own}); "
+        f"{len(zeros)} zero-gradient biases; leaves over their limit: {failed[:5]}; "
+        f"kernel-run launches {launches_k}")
     routed = launches_k["conv3d_k3"] > 0 if route_k3 else launches_k["conv3d_k3"] == 0
     if (set(grads_k) != set(grads_p) or rel > 1e-5 or failed or not routed
             or launches_k["instance_norm"] == 0):
         raise AssertionError(f"{label} parity failed ({route})")
     return {"loss_rel_diff": rel, "worst_leaf_rel_err": rel_err(grads_k, worst_k),
             "noise_worst_leaf_rel_err": noise_level, "leaves_over_1e-3": over_1e3,
-            "leaves": len(grads_p), "launches": launches_k}
+            "worst_per_leaf_ratio": own[worst_own], "worst_per_leaf_leaf": worst_own,
+            "per_leaf": per_leaf, "leaves": len(grads_p), "launches": launches_k}
 
 
 def phase_train_parity(dev, kernels):
@@ -1647,9 +1707,9 @@ def trainer_probes():
         def factory(*args, **kwargs):
             step = make(*args, **kwargs)
 
-            def run(state, batch):
+            def run(*args):
                 before, t0 = read_counts(), time.perf_counter()
-                out = step(state, batch)      # ends in float(loss): the card is done
+                out = step(*args)             # ends in float(loss): the card is done
                 rec["step_times"].append(time.perf_counter() - t0)
                 rec["steps"].append({k: v - before[k] for k, v in read_counts().items()})
                 return out
@@ -1670,7 +1730,8 @@ def trainer_probes():
         stack.enter_context(mock.patch.object(C, "save_checkpoint", timed_save))
         stack.enter_context(mock.patch.object(T, "evaluate_dose_model", timed_sweep))
         for name in ("make_pyfer_train_step", "make_cascade_c3d_train_step",
-                     "make_transeg_train_step", "make_simple_dose_train_step"):
+                     "make_transeg_train_step", "make_simple_dose_train_step",
+                     "make_dosegan_train_steps"):
             stack.enter_context(mock.patch.object(STEP, name, counted(getattr(STEP, name))))
         yield rec
 
@@ -2288,6 +2349,27 @@ def zoo_cli(dev, data, root) -> dict:
     return row
 
 
+def zoo_step_parity(dev, kernels):
+    """One float32 HD-UNet step (K3 routing on) through the kernels against
+    the plain versions, each gradient leaf held to its own limit from
+    ZOO_NOISE_RUNS plane-scaled noise runs (check_step_parity)."""
+    from dose_prediction_tpu_torch.train import state as S
+    from dose_prediction_tpu_torch.train import steps
+
+    def make_hdunet():
+        model = zoo_model("hdunet", dev, SEED + 10)
+        opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+        return model, steps.make_simple_dose_train_step(model, opt), S.TrainState(model, opt)
+
+    runs = parity_runs(make_hdunet, seeded_batch(dev, torch.float32), kernels, True, dev,
+                       plane_scaled=True, noise_runs=ZOO_NOISE_RUNS)
+    row = check_step_parity("zoo hdunet step", runs, True, zero_grad=ZOO_ZERO_GRAD_BIAS,
+                            per_leaf=True)
+    del runs
+    free_memory()
+    return row
+
+
 def phase_zoo(dev, data, root, kernels):
     """The reference's other seg and dose networks at full width: float32
     parity of UNETR, 'old' TranSeg and HD-UNet (kernels against plain, K3
@@ -2353,19 +2435,7 @@ def phase_zoo(dev, data, root, kernels):
             raise AssertionError(f"zoo train hdunet: not launched at {missing}")
         free_memory()
 
-        def make_hdunet():
-            from dose_prediction_tpu_torch.train import state as S
-
-            model = zoo_model("hdunet", dev, SEED + 10)
-            opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
-            return model, steps.make_simple_dose_train_step(model, opt), S.TrainState(model, opt)
-
-        runs = parity_runs(make_hdunet, seeded_batch(dev, torch.float32), kernels, True, dev,
-                           plane_scaled=True)
-        row["train_parity"] = check_step_parity("zoo hdunet step", runs, True,
-                                                zero_grad=ZOO_ZERO_GRAD_BIAS)
-        del runs
-        free_memory()
+        row["train_parity"] = zoo_step_parity(dev, kernels)
         row["cli"] = zoo_cli(dev, data, root)
     row["shapes"] = shape_counts(seen)
     unheld = unheld_shapes(seen)
@@ -2373,6 +2443,342 @@ def phase_zoo(dev, data, root, kernels):
         f"phase: {unheld}")
     if unheld:
         raise AssertionError(f"zoo: K2/K3 shapes the kernels phase did not hold: {unheld}")
+    return row
+
+
+def gan_nets(dev, width, seed=SEED + 11):
+    """DoseGAN's generator (9 channels in) and unconditional critic at
+    ``width``, drawn from ``seed`` (the critic from seed + 1)."""
+    from dose_prediction_tpu_torch.models import NLayerDiscriminator, UnetGenerator3D
+    from dose_prediction_tpu_torch.train.trainers import seeded
+
+    return (seeded(seed, lambda: UnetGenerator3D(ngf=width, device=dev)),
+            seeded(seed + 1, lambda: NLayerDiscriminator(ndf=width, device=dev)))
+
+
+def gan_step(g, d):
+    """make_dosegan_train_steps over both nets (Adam at GAN_LR, b1 0.5) and
+    their states."""
+    from dose_prediction_tpu_torch.train import state as S
+    from dose_prediction_tpu_torch.train import steps
+
+    g_opt = S.make_optimizer(g, learning_rate=GAN_LR, b1=0.5)
+    d_opt = S.make_optimizer(d, learning_rate=GAN_LR, b1=0.5)
+    return (steps.make_dosegan_train_steps(g, d, g_opt, d_opt, l1_weight=GAN_L1_WEIGHT),
+            S.TrainState(g, g_opt), S.TrainState(d, d_opt))
+
+
+def gan_steps(dev):
+    """One warm-up and GAN_STEPS timed DoseGAN steps at the reference's
+    width on the fixed 128³ batch, float32 at PyTorch's TF32 defaults (as
+    the trainer computes): p50, peak memory, losses and K1/K2/K3 launches
+    per step, which must all be 0 (its norms are BatchNorms)."""
+    g, d = gan_nets(dev, GAN_WIDTH)
+    step, gs, ds = gan_step(g, d)
+    batch = seeded_batch(dev, torch.float32)
+    rows = []
+    with torch_default_tf32():
+        gs, ds, info = step(gs, ds, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(GAN_STEPS):
+            zero_counts()
+            t0 = time.perf_counter()
+            gs, ds, info = step(gs, ds, batch)
+            torch.cuda.synchronize()
+            rows.append({"s": time.perf_counter() - t0, "g_loss": float(info["g_loss"]),
+                         "d_loss": float(info["d_loss"]), "launches": read_counts()})
+    times = [r["s"] for r in rows]
+    row = {"p50_s": p50(times), "times_s": times,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "g_losses": [r["g_loss"] for r in rows], "d_losses": [r["d_loss"] for r in rows],
+           "launches_per_step": [r["launches"] for r in rows],
+           "params": {k: sum(p.numel() for p in m.parameters()) for k, m in (("g", g), ("d", d))}}
+    log(f"hpo_gan: DoseGAN step (ngf = ndf = {GAN_WIDTH}, 9 -> 1 channels, 128³, float32 at "
+        f"TF32 defaults): step seconds {times}, p50 {row['p50_s']} s; peak memory "
+        f"{row['peak_gib']:.2f} GiB; g_loss {row['g_losses']}, d_loss {row['d_losses']}; K1/K2/K3 "
+        f"launches per step {row['launches_per_step']}; parameters {row['params']}")
+    if any(any(r["launches"].values()) for r in rows):
+        raise AssertionError("hpo_gan: the DoseGAN step launched K1, K2 or K3")
+    if not all(math.isfinite(x) for x in row["g_losses"] + row["d_losses"]):
+        raise AssertionError("hpo_gan: a DoseGAN loss is not finite")
+    del g, d, step, gs, ds, batch
+    free_memory()
+    return row
+
+
+@contextlib.contextmanager
+def channel_scaled_bn_noise(seed, dev, amplitude=TRAIN_PARITY_NOISE):
+    """Each BatchNorm3d output plus amplitude · u · its channel's largest
+    |value| (u seeded uniform in [-1, 1], kept out of the gradient): the
+    noise run of tests/test_torch_port_dosegan.py."""
+    from dose_prediction_tpu_torch.nn.layers import BatchNorm3d
+
+    g = torch.Generator(dev).manual_seed(seed)
+    forward = BatchNorm3d.forward
+
+    def noisy(self, inp):
+        out = forward(self, inp)
+        u = torch.rand(out.shape, generator=g, device=out.device) * 2 - 1
+        scale = out.detach().abs().amax(dim=(0, 2, 3, 4), keepdim=True)
+        return out + (scale * (amplitude * u)).detach()
+
+    with mock.patch.object(BatchNorm3d, "forward", noisy):
+        yield
+
+
+def gan_parity(dev):
+    """One float32 DoseGAN step (TF32 off) at GAN_PARITY_WIDTH on a seeded
+    GAN_PARITY_SIZE³ batch, on the card and in the port on the CPU from the
+    same weights (the tests hold the CPU path to the JAX package): both
+    losses within rel 1e-5; each gradient leaf within max(1e-3, 2 × its own
+    largest departure in GAN_NOISE_RUNS channel-scaled noise runs on the
+    card) × its max |g| (a floor of 2e-6 × the net's largest |g|), the
+    zero-gradient biases below 1e-4 of it; each BatchNorm buffer within
+    max(1e-5 of its scale, 2 × its noise departure), a running mean's scale
+    being max(|mean|, √var)."""
+    import re
+
+    cpu = torch.device("cpu")
+    g0, d0 = gan_nets(cpu, GAN_PARITY_WIDTH)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    shape = (1, GAN_PARITY_SIZE, GAN_PARITY_SIZE, GAN_PARITY_SIZE)
+    mask = (torch.rand((*shape, 1), generator=gen) < 0.7).float()
+    batch = {"input": torch.randn((*shape, 9), generator=gen),
+             "gt": torch.cat([torch.rand((*shape, 1), generator=gen) * mask, mask], dim=-1)}
+
+    def run(device, noise=contextlib.nullcontext()):
+        g, d = gan_nets(device, GAN_PARITY_WIDTH)
+        g.load_state_dict(g0.state_dict())
+        d.load_state_dict(d0.state_dict())
+        step, gs, ds = gan_step(g, d)
+        with noise:
+            gs, ds, info = step(gs, ds, {k: v.to(device) for k, v in batch.items()})
+        nets = (("g", g), ("d", d))
+        grads = {f"{t}.{n}": p.grad.detach().cpu() for t, m in nets
+                 for n, p in m.named_parameters()}
+        bufs = {f"{t}.{n}": b.detach().cpu() for t, m in nets for n, b in m.named_buffers()}
+        return float(info["g_loss"]), float(info["d_loss"]), grads, bufs
+
+    card, host = run(dev), run(cpu)
+    noisy = [run(dev, channel_scaled_bn_noise(SEED + i, dev)) for i in range(GAN_NOISE_RUNS)]
+    losses = {k: abs(card[i] - host[i]) / abs(host[i]) for i, k in enumerate(("g_loss", "d_loss"))}
+    zero = re.compile(GAN_ZERO_GRAD_BIAS)
+    worst, failed, zeros = {}, [], 0
+    for net in ("g", "d"):
+        names = [n for n in host[2] if n.startswith(f"{net}.")]
+        g_max = max(host[2][n].abs().max().item() for n in names)
+        for n in names:
+            err = (card[2][n] - host[2][n]).abs().max().item()
+            if zero.search(n):
+                zeros += 1
+                if max(card[2][n].abs().max().item(), host[2][n].abs().max().item()) > \
+                        1e-4 * g_max:
+                    failed.append(n)
+                continue
+            scale = host[2][n].abs().max().item()
+            departure = max((r[2][n] - card[2][n]).abs().max().item() for r in noisy) / scale
+            worst[n] = err / max(max(1e-3, 2 * departure) * scale, 2e-6 * g_max)
+    buf_worst = {}
+    for n, want in host[3].items():
+        if n.endswith("num_batches_tracked"):
+            if not torch.equal(card[3][n], want):
+                failed.append(n)
+            continue
+        if n.endswith("running_mean"):
+            var = host[3][n.replace("running_mean", "running_var")].clamp_min(0).sqrt()
+            scale = torch.maximum(want.abs(), var).max().item()
+        else:
+            scale = want.abs().max().item()
+        err = (card[3][n] - want).abs().max().item()
+        departure = max((r[3][n] - card[3][n]).abs().max().item() for r in noisy)
+        buf_worst[n] = err / max(1e-5 * scale, 2 * departure)
+    failed += [n for n, r in {**worst, **buf_worst}.items() if r > 1.0]
+    wg, wb = max(worst, key=worst.get), max(buf_worst, key=buf_worst.get)
+    row = {"loss_rel_diff": losses, "worst_grad_ratio": worst[wg], "worst_grad_leaf": wg,
+           "worst_buffer_ratio": buf_worst[wb], "worst_buffer": wb, "leaves": len(worst),
+           "zero_grad_biases": zeros, "failed": failed[:5]}
+    log(f"hpo_gan: DoseGAN f32 step (TF32 off, ngf = ndf = {GAN_PARITY_WIDTH}, "
+        f"{GAN_PARITY_SIZE}³) card against CPU: g_loss {card[0]} / {host[0]}, d_loss {card[1]} / "
+        f"{host[1]}, relative diffs {losses} (limit 1e-5); worst gradient leaf err / its "
+        f"per-leaf limit {worst[wg]:.3g} ({wg}) over {len(worst)} leaves and {zeros} "
+        f"zero-gradient biases; worst BatchNorm buffer err / its limit {buf_worst[wb]:.3g} "
+        f"({wb}); over their limits: {failed[:5]}")
+    if failed or max(losses.values()) > 1e-5:
+        raise AssertionError(f"hpo_gan: DoseGAN step parity failed: {row}")
+    return row
+
+
+def gan_cli(dev, data, root) -> dict:
+    """The CLI's DoseGAN at the reference's width on the data phase's
+    cohort: train dosegan (two epochs of three steps, validating on the
+    fourth patient), then --epochs 3 (it must resume at epoch 2); eval
+    --model dosegan with host and device metrics (within the bars of
+    tests/test_losses_metrics.py); predict; import-torch --kind dosegan-g
+    and dosegan-d of the trained nets under netG./netD. (each imported
+    forward bit-equal to the trained one)."""
+    from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
+
+    cohort, work = Path(root), Path(root) / "gan"
+    every, train_glob, val_glob = str(cohort / "pt_*"), str(cohort / "pt_[012]"), \
+        str(cohort / "pt_3")
+    ck, row = work / "ck", {}
+    with torch_default_tf32():
+        for epochs in (2, 3):
+            rec = train_cli(f"train dosegan --epochs {epochs}", "dosegan", "--data", train_glob,
+                            "--val-data", val_glob, "--epochs", epochs, "--check-val", "1",
+                            "--ckpt-dir", ck, "--log-dir", work / "log")
+            row[f"train_{epochs}"] = {"s": rec["s"], "step_s": rec["step_times"],
+                                      "step_p50_s": p50(rec["step_times"]),
+                                      "launches": rec["steps"], "writes": rec["writes"],
+                                      "resumed": "resumed from epoch 1" in rec["text"]}
+            log(f"hpo_gan: train dosegan --epochs {epochs} (float32) in {rec['s']:.1f} s: steps "
+                f"{rec['step_times']} s, p50 {p50(rec['step_times'])} s, K1/K2/K3 launches per "
+                f"step {rec['steps']}, checkpoint writes {rec['writes']}")
+        last = restore_checkpoint(ck / "last.pt")
+        first, resumed = row["train_2"], row["train_3"]
+        if not (len(first["launches"]) == 6 and len(resumed["launches"]) == 3
+                and resumed["resumed"] and last["epoch"] == 2 and last["g"]["step"] == 9
+                and last["d"]["step"] == 9
+                and not any(any(c.values()) for c in first["launches"] + resumed["launches"])):
+            raise AssertionError(f"hpo_gan: train dosegan check failed: {row}")
+        evals = {}
+        for label, extra in (("host", ()), ("device", ("--device-metrics",))):
+            with trainer_probes() as probe:
+                rc, res, text = cli("eval", "--model", "dosegan", "--data", every, "--ckpt",
+                                    ck / "last.pt", "--ckpt-dir", work / "eval_ck",
+                                    "--log-dir", work / "eval_log", *extra)
+            if rc != 0 or res is None:
+                raise AssertionError(f"hpo_gan: eval --model dosegan ({label}) returned {rc}:\n"
+                                     f"{text[-3000:]}")
+            evals[label] = {**res, "sweep_s": probe["sweeps"][0]}
+            free_memory()
+        host, device = evals["host"], evals["device"]
+        dose_rel = abs(device["mean_dose_score"] - host["mean_dose_score"]) / \
+            abs(host["mean_dose_score"])
+        dvh_rel = abs(device["mean_dvh_score"] - host["mean_dvh_score"]) / \
+            abs(host["mean_dvh_score"])
+        rc, _, text = cli("predict", "--model", "dosegan", "--data", every, "--ckpt",
+                          ck / "last.pt", "--out-dir", work / "pred", "--ckpt-dir",
+                          work / "eval_ck", "--log-dir", work / "eval_log")
+        predicted = len(list((work / "pred").glob("pt_*/dose.nii.gz"))) if rc == 0 else 0
+        free_memory()
+        row.update(eval_host=host, eval_device=device, dose_rel=dose_rel, dvh_rel=dvh_rel,
+                   predicted=predicted)
+        log(f"hpo_gan: eval --model dosegan: host sweep {host['sweep_s']} s, device sweep "
+            f"{device['sweep_s']} s, mean_dose_score host {host['mean_dose_score']} device "
+            f"{device['mean_dose_score']} (rel {dose_rel:.3g}), mean_dvh_score rel "
+            f"{dvh_rel:.3g}; predict --model dosegan wrote {predicted} NIfTIs")
+        if not (dose_rel <= EVAL_DOSE_REL and dvh_rel <= EVAL_DVH_REL
+                and predicted == DATA_PATIENTS):
+            raise AssertionError(f"hpo_gan: dosegan eval/predict check failed:\n{text[-2000:]}")
+
+        torch.save({"state_dict": {**{f"netG.{k}": v for k, v in last["g"]["model"].items()},
+                                   **{f"netD.{k}": v for k, v in last["d"]["model"].items()}}},
+                   work / "gan_reference.ckpt")
+        batch = seeded_batch(dev, torch.float32)
+        inputs = {"g": batch["input"].permute(0, 4, 1, 2, 3).contiguous(),
+                  "d": batch["gt"][..., :1].permute(0, 4, 1, 2, 3).contiguous()}
+        row["import"] = {}
+        for part in ("g", "d"):
+            dest = work / f"dosegan-{part}.pt"
+            rc, _, text = cli("import-torch", "--kind", f"dosegan-{part}", "--src",
+                              work / "gan_reference.ckpt", "--dest", dest)
+            if rc != 0:
+                raise AssertionError(f"hpo_gan: import-torch --kind dosegan-{part} returned "
+                                     f"{rc}:\n{text[-2000:]}")
+            trained, imported = (gan_nets(dev, GAN_WIDTH)[part == "d"] for _ in range(2))
+            trained.load_state_dict(last[part]["model"])
+            imported.load_state_dict(restore_checkpoint(dest))
+            with torch.inference_mode():
+                same = same_bits(imported.eval()(inputs[part]), trained.eval()(inputs[part]))
+            row["import"][part] = same
+            del trained, imported
+            free_memory()
+        log(f"hpo_gan: import-torch --kind dosegan-g / dosegan-d of the trained nets under "
+            f"netG./netD.: forward bit-equal {row['import']}")
+        if not all(row["import"].values()):
+            raise AssertionError(f"hpo_gan: an imported DoseGAN net's forward differs")
+        del last, batch, inputs
+        free_memory()
+    return row
+
+
+def journal(log_dir: Path) -> list:
+    path = log_dir / "trials.jsonl"
+    return [json.loads(line) for line in path.read_text().splitlines()] if path.exists() else []
+
+
+def search_cli(root) -> dict:
+    """The CLI's tune (TPE, TUNE_SAMPLES trials of TUNE_EPOCHS epochs on
+    three patients, validating on the fourth) with --max-concurrent 1 and
+    then 2 on the one card (each run's wall seconds and best config), tune
+    --resume with one more sample (exactly one more trial), and kfold
+    --folds 2 --epochs 1 over the four patients (each fold's score)."""
+    cohort, work = Path(root), Path(root) / "hpo"
+    every, train_glob, val_glob = str(cohort / "pt_*"), str(cohort / "pt_[012]"), \
+        str(cohort / "pt_3")
+    common = ("--data", train_glob, "--val-data", val_glob, "--epochs", TUNE_EPOCHS,
+              "--check-val", "1", "--sampler", "tpe")
+    row = {}
+    with torch_default_tf32():
+        for concurrent, samples, resume in ((1, TUNE_SAMPLES, ()), (2, TUNE_SAMPLES, ()),
+                                            (1, TUNE_SAMPLES + 1, ("--resume",))):
+            label = f"max_concurrent_{concurrent}" + ("_resume" if resume else "")
+            log_dir = work / f"log{concurrent}"
+            before = len(journal(log_dir))
+            t0 = time.perf_counter()
+            rc, res, text = cli("tune", *common, "--num-samples", samples, "--max-concurrent",
+                                concurrent, "--ckpt-dir", work / f"ck{concurrent}",
+                                "--log-dir", log_dir, *resume)
+            seconds = time.perf_counter() - t0
+            trials = journal(log_dir)
+            free_memory()
+            if rc != 0 or res is None:
+                raise AssertionError(f"hpo_gan: tune ({label}) returned {rc}:\n{text[-3000:]}")
+            row[label] = {"s": seconds, "trials_run": len(trials) - before, **res,
+                          "trial_ids": [t["trial_id"] for t in trials],
+                          "values": [t["last_value"] for t in trials]}
+            log(f"hpo_gan: tune --sampler tpe --num-samples {samples} --epochs {TUNE_EPOCHS} "
+                f"--max-concurrent {concurrent} {' '.join(resume)} in {seconds:.1f} s: "
+                f"{len(trials) - before} trials run, best config {res['best_config']}, best "
+                f"value {res['best_value']}, early-stopped {res['num_early_stopped']}; trial "
+                f"values {row[label]['values']}")
+            if len(trials) - before != (1 if resume else TUNE_SAMPLES) or \
+                    not math.isfinite(res["best_value"]):
+                raise AssertionError(f"hpo_gan: tune ({label}) check failed: {row[label]}")
+        t0 = time.perf_counter()
+        rc, res, text = cli("kfold", "--data", every, "--folds", "2", "--epochs", "1",
+                            "--check-val", "1", "--ckpt-dir", work / "kfold",
+                            "--log-dir", work / "kfold_log")
+        row["kfold"] = {"s": time.perf_counter() - t0, "folds": res}
+        free_memory()
+        log(f"hpo_gan: kfold --folds 2 --epochs 1 in {row['kfold']['s']:.1f} s: {res}")
+        if rc != 0 or res is None or sorted(res) != ["0", "1"] or \
+                not all(math.isfinite(f["mean_dose_score"]) for f in res.values()):
+            raise AssertionError(f"hpo_gan: kfold check failed:\n{text[-3000:]}")
+    return row
+
+
+def phase_hpo_gan(dev, data, root):
+    """DoseGAN's step at full width (gan_steps) and on the card against the
+    CPU (gan_parity), the CLI's DoseGAN (gan_cli), and the search and the
+    folds (search_cli). Any K2 or K3 launch of the phase at a shape the
+    kernels phase did not hold, in that dtype, fails it."""
+    row = {}
+    with launched_shapes() as seen:
+        torch.cuda.reset_peak_memory_stats(dev)
+        row["step"] = gan_steps(dev)
+        row["parity"] = gan_parity(dev)
+        free_memory()
+        row["cli"] = gan_cli(dev, data, root)
+        row["search"] = search_cli(root)
+    row["shapes"] = shape_counts(seen)
+    unheld = unheld_shapes(seen)
+    log(f"hpo_gan: K2 and K3 launches by shape and dtype {row['shapes']}; not held by the "
+        f"kernels phase: {unheld}")
+    if unheld:
+        raise AssertionError(f"hpo_gan: K2/K3 shapes the kernels phase did not hold: {unheld}")
     return row
 
 
@@ -2451,6 +2857,8 @@ def main() -> int:
             free_memory()
             torch.cuda.reset_peak_memory_stats(dev)
             run("zoo", lambda: phase_zoo(dev, results["data"], root, (k1, k2, k3)))
+            free_memory()
+            run("hpo_gan", lambda: phase_hpo_gan(dev, results["data"], root))
             del results["data"]["dataset"]
     except Exception:
         return 1
@@ -2475,6 +2883,9 @@ def main() -> int:
         + ", ".join(f"{k} {v['p50_s']} s" for k, v in results["zoo"]["serve"].items())
         + ", zoo train p50 "
         + ", ".join(f"{k} {v['p50_s']} s" for k, v in results["zoo"]["train"].items())
+        + f"; DoseGAN step p50 {results['hpo_gan']['step']['p50_s']} s, peak "
+        f"{results['hpo_gan']['step']['peak_gib']:.2f} GiB; tune wall "
+        + ", ".join(f"{k} {v['s']:.1f} s" for k, v in results["hpo_gan"]["search"].items())
         + f"; total {time.perf_counter() - t_start:.1f} s; on {smi}")
     sources = {   # each kernel's source and the TPU kernel it replaces
         "attention": ("dose_prediction_tpu_torch/csrc/attention.cu",

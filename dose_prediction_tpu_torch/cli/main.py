@@ -1,20 +1,24 @@
 """The port's command line (counterpart of dose_prediction_tpu/cli/main.py).
 
     python -m dose_prediction_tpu_torch train pyfer --data 'data/pt_*' --val-data ...
-    python -m dose_prediction_tpu_torch train c3d|hdunet|transeg ...
+    python -m dose_prediction_tpu_torch train c3d|hdunet|dosegan|transeg ...
     python -m dose_prediction_tpu_torch eval --data ... --ckpt ckpt/last.pt [--device-metrics]
     python -m dose_prediction_tpu_torch seg-eval|predict|infer|score|import-torch ...
     python -m dose_prediction_tpu_torch linked-eval --data ... --seg-ckpt ... --dose-ckpt ...
+    python -m dose_prediction_tpu_torch tune --data ... --num-samples 10 [--resume]
+    python -m dose_prediction_tpu_torch kfold --data ... --folds 6
 
 Everything runs on the card (``--device cuda``, the default) unless the
 caller passes ``--device cpu``; a missing card is an error, never a silent
 CPU run. ``--device`` takes the place of the JAX CLI's ``--platform``.
 The seg task takes TranSeg (``--mode-model 1``, any ``--block-family`` and
-``--k7-mode``) or the plain UNETR (``--mode-model 0``). Choices the port
-does not have yet (the DoseGAN, ViT-GAN and exp models, meshes, the
-subcommands tune, kfold, bench and doctor, and the imports of their
-networks) are refused with the ROADMAP item that brings them; nothing falls
-back to another model.
+``--k7-mode``) or the plain UNETR (``--mode-model 0``). ``tune`` searches
+DOSE-PYFER's act, multiS_conv, rate and weight decay with ASHA over the
+validation rounds, its concurrent trials spread over the visible cards;
+``kfold`` cross-validates DOSE-PYFER. Choices the port does not have yet
+(the ViT-GAN and exp models, meshes, the subcommands bench and doctor, and
+the imports of their networks) are refused with the ROADMAP item that
+brings them; nothing falls back to another model.
 """
 
 from __future__ import annotations
@@ -32,14 +36,12 @@ _DEFAULT_LR = 0.0006130697604327541
 _MODEL_ZOO = "ROADMAP queue 1 item 6 (the rest of the model zoo)"
 _INFRA = "ROADMAP queue 1 item 7 (parallel and serve infrastructure)"
 _UNPORTED_COMMANDS = {
-    "tune": "ROADMAP queue 1 item 6 (train/tune.py)",
-    "kfold": "ROADMAP queue 1 item 6 (train/kfold.py)",
     "bench": "ROADMAP queue 1 item 1 (bench_gpu.py)",
     "doctor": _INFRA,
 }
 _DOSE_MODELS = ["pyfer", "c3d", "hdunet", "dosegan", "vitgan", "exp"]
-_PORTED_DOSE_MODELS = ("pyfer", "c3d", "hdunet")
-_PORTED_IMPORTS = ("c3d", "pyfer", "transeg", "unetr", "hdunet")
+_PORTED_DOSE_MODELS = ("pyfer", "c3d", "hdunet", "dosegan")
+_PORTED_IMPORTS = ("c3d", "pyfer", "transeg", "unetr", "hdunet", "dosegan-g", "dosegan-d")
 SMALL_LIST_CH = (-1, 2, 4, 8, 16, 32)
 SEG_PATCH = 16   # TranSeg's ViT patch: the dense seg's token grid is roi // 16
 # model-constructor arguments that may differ between training and
@@ -62,18 +64,19 @@ def resolve_optimizer(explicit, model_name) -> str:
 
 
 def default_flagship_model(act="mish", remat_blocks=False, small=False, img_size=128,
-                           device="cuda"):
+                           device="cuda", multiS_conv=True):
     """The DosePyfer of ``train pyfer`` (:36-56): the reference's tuned
-    config, or at ``small`` the reduced-width development model. The port
-    builds only the multi-scale decoder (multiS_conv=True), and the dtype is
-    the input's (``infer --serve-dtype``)."""
+    config, or at ``small`` the reduced-width development model; ``tune``
+    also searches ``act`` and ``multiS_conv``. The dtype is the input's
+    (``infer --serve-dtype``)."""
     from dose_prediction_tpu_torch.models import DosePyfer
 
+    kw = dict(act=act, remat_blocks=remat_blocks, multiS_conv=multiS_conv, img_size=img_size,
+              device=device)
     if small:
         return DosePyfer(out_ch=1, list_ch_A=SMALL_LIST_CH, feature_size=2, hidden_size=24,
-                         mlp_dim=48, num_layers=4, num_heads=2, act=act,
-                         remat_blocks=remat_blocks, img_size=img_size, device=device)
-    return DosePyfer(act=act, remat_blocks=remat_blocks, img_size=img_size, device=device)
+                         mlp_dim=48, num_layers=4, num_heads=2, **kw)
+    return DosePyfer(**kw)
 
 
 def default_seg_model(out_ch=8, block_family="seg", trained_grid=None, remat_blocks=False,
@@ -110,6 +113,11 @@ def default_hdunet_model(small=False, device="cuda"):
     if small:
         return HDUNet(growth_rate=4, upsample_chan=8, device=device)
     return HDUNet(device=device)
+
+
+def default_dosegan_width(small=False) -> int:
+    """ngf = ndf of ``train dosegan``: the reference's 64, or 4 at ``small``."""
+    return 4 if small else 64
 
 
 def small_c3d(device="cuda"):
@@ -214,7 +222,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr = sub.add_parser("train", help="train a model")
     tr.add_argument("model", choices=["pyfer", "c3d", "hdunet", "transeg", "dosegan",
                                       "vitgan", "exp"],
-                    help="ported: pyfer, c3d, hdunet, transeg")
+                    help="ported: pyfer, c3d, hdunet, dosegan, transeg")
     _add_common(tr)
     tr.add_argument("--pretrained-c3d", default=None,
                     help="a trained C3D cascade (a slot of this package, or a reference "
@@ -247,7 +255,7 @@ def build_parser() -> argparse.ArgumentParser:
     ev = sub.add_parser("eval", help="OpenKBP scoring sweep of a dose checkpoint")
     _add_common(ev)
     ev.add_argument("--model", choices=_DOSE_MODELS, default="pyfer",
-                    help="ported: pyfer, c3d, hdunet")
+                    help="ported: " + ", ".join(_PORTED_DOSE_MODELS))
     ev.add_argument("--ckpt", required=True, help="a slot file, e.g. <ckpt-dir>/last.pt")
     ev.add_argument("--act", choices=["relu", "mish"], default="mish")
     ev.add_argument("--device-metrics", action="store_true",
@@ -286,7 +294,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr = sub.add_parser("predict", help="dose predictions for a cohort as NIfTI files")
     _add_common(pr)
     pr.add_argument("--model", choices=_DOSE_MODELS, default="pyfer",
-                    help="ported: pyfer, c3d, hdunet")
+                    help="ported: " + ", ".join(_PORTED_DOSE_MODELS))
     pr.add_argument("--ckpt", required=True)
     pr.add_argument("--act", choices=["relu", "mish"], default="mish")
     pr.add_argument("--out-dir", required=True,
@@ -310,7 +318,7 @@ def build_parser() -> argparse.ArgumentParser:
     it.add_argument("--roi", type=int, default=96, help="transeg window")
     it.add_argument("--strict", action="store_true",
                     help="c3d, pyfer: fail unless every model entry is covered by the source "
-                         "(transeg, unetr and hdunet always load strictly)")
+                         "(transeg, unetr, hdunet and dosegan-g/-d always load strictly)")
 
     op = sub.add_parser("openkbp-prepare",
                         help="the official OpenKBP CSV release into the NIfTI layout "
@@ -344,8 +352,27 @@ def build_parser() -> argparse.ArgumentParser:
     le.add_argument("--no-ivs", action="store_true")
     le.add_argument("--serve-dtype", choices=["float32", "bfloat16"], default="float32",
                     help="'bfloat16' = bf16 activations (parameters stay float32)")
-    _add_unported(sub, "tune", "ASHA hyperparameter search")
-    _add_unported(sub, "kfold", "k-fold cross validation")
+    tu = sub.add_parser("tune", help="ASHA hyperparameter search of DOSE-PYFER (act, "
+                                     "multiS_conv, lr, weight decay)")
+    _add_common(tu)
+    tu.add_argument("--num-samples", type=int, default=10)
+    tu.add_argument("--sampler", choices=["random", "tpe", "gp"], default="tpe",
+                    help="'tpe' = OptunaSearch analogue, 'gp' = BayesOptSearch analogue "
+                         "(GP expected improvement)")
+    tu.add_argument("--max-concurrent", type=int, default=1,
+                    help="trials at once, round-robin over the visible cards (with --device "
+                         "cuda; on one card they share it)")
+    tu.add_argument("--grace-period", type=int, default=1,
+                    help="ASHA grace period in validation rounds")
+    tu.add_argument("--resume", action="store_true",
+                    help="continue an interrupted search from <log-dir>/trials.jsonl "
+                         "(completed trials seed the sampler and the ASHA rungs; only the "
+                         "remaining trials run)")
+
+    kf = sub.add_parser("kfold", help="k-fold cross validation of DOSE-PYFER")
+    _add_common(kf)
+    kf.add_argument("--folds", type=int, default=6)
+    kf.add_argument("--start-fold", type=int, default=0)
     _add_unported(sub, "bench", "the 128³ cascade latency benchmark")
     _add_unported(sub, "doctor", "deployment health report")
     return ap
@@ -464,10 +491,11 @@ def main(argv=None) -> int:
             gamma=getattr(args, "gamma", 0.1), t_max=getattr(args, "t_max", None),
             eta_min=getattr(args, "eta_min", 0.0), device=str(device))
 
-    def pyfer_model(shape, seed):
+    def pyfer_model(shape, seed, act=None, multiS_conv=True, on=None):
         return T.seeded(seed, lambda: default_flagship_model(
-            act=getattr(args, "act", "mish"), remat_blocks=getattr(args, "remat_blocks", False),
-            small=small, img_size=tuple(shape), device=device))
+            act=act or getattr(args, "act", "mish"),
+            remat_blocks=getattr(args, "remat_blocks", False), small=small,
+            img_size=tuple(shape), device=on or device, multiS_conv=multiS_conv))
 
     def transeg_model(seed, out_ch=8, trained_grid=None, roi=None):
         roi = roi or args.roi
@@ -513,20 +541,40 @@ def main(argv=None) -> int:
         if model_name == "hdunet":
             model = T.seeded(cfg.seed, lambda: default_hdunet_model(small, device))
             return T.HDUNetTrainer(cfg, model=model, example_shape=ex)
+        if model_name == "dosegan":
+            # the GAN's rates default to the reference's; an explicit --lr
+            # sets them (the parser's default is the pyfer-tuned rate)
+            kw = {"gan_lr": args.lr} if args.lr != _DEFAULT_LR else {}
+            width = default_dosegan_width(small)
+            return T.DoseGANTrainer(cfg, ngf=width, ndf=width, example_shape=ex, **kw)
         model = T.seeded(cfg.seed, lambda: small_c3d(device)) if small else None
         return T.CascadeC3DTrainer(cfg, model=model, example_shape=ex)
 
     if args.cmd == "import-torch":
         from dose_prediction_tpu_torch.core.checkpoint import merge_partial, save_checkpoint
         from dose_prediction_tpu_torch.core.torch_import import (
+            LIGHTNING_PREFIXES,
+            gan_part,
             load_reference_strict,
             load_torch_checkpoint,
             strip_lightning_prefixes,
         )
 
         source = load_torch_checkpoint(args.src)
-        if args.kind in ("transeg", "unetr", "hdunet"):
-            if args.kind == "hdunet":
+        if args.kind in ("transeg", "unetr", "hdunet", "dosegan-g", "dosegan-d"):
+            prefixes = LIGHTNING_PREFIXES
+            if args.kind.startswith("dosegan"):
+                from dose_prediction_tpu_torch.models import NLayerDiscriminator, UnetGenerator3D
+
+                # a combined GAN checkpoint: this net's netG./netD. entries
+                # (torch_import.py:544-656); the nets' own top module is
+                # 'model', so no Lightning prefix is stripped
+                part = args.kind[-1]
+                source, prefixes = gan_part(source, part), ()
+                width = default_dosegan_width(small)
+                model = T.seeded(0, lambda: UnetGenerator3D(ngf=width, device=device)
+                                 if part == "g" else NLayerDiscriminator(ndf=width, device=device))
+            elif args.kind == "hdunet":
                 model = T.seeded(0, lambda: default_hdunet_model(small, device))
             elif args.kind == "unetr":
                 model = T.seeded(0, lambda: default_unetr_model(
@@ -534,7 +582,7 @@ def main(argv=None) -> int:
             else:
                 model = transeg_model(0, roi=args.roi)
             try:
-                load_reference_strict(model, source)
+                load_reference_strict(model, source, prefixes=prefixes)
             except ValueError as e:
                 raise SystemExit(f"[import-torch] {args.kind}: {e}")
             print(f"[import-torch] {args.kind}: loaded all {len(model.state_dict())} entries "
@@ -593,6 +641,15 @@ def main(argv=None) -> int:
         trainer slot or an import-torch output) and its ``predict_fn(batch)
         -> Gy prediction`` (:883-934)."""
         tr = build_dose_trainer(model_name, make_cfg(model_name), shape)
+        if model_name == "dosegan":
+            from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
+
+            _check_ckpt_config(args.ckpt, tr.gen, tr.disc)
+            slot = restore_checkpoint(args.ckpt)
+            _load_into(tr.gen, _read_slot(args.ckpt), "generator")
+            if isinstance(slot.get("d"), dict):          # a trainer slot holds the critic too
+                _load_into(tr.disc, slot["d"]["model"], "discriminator")
+            return tr, lambda batch: tr.eval_step(batch)["prediction"]
         _check_ckpt_config(args.ckpt, tr.model)
         _load_into(tr.model, _read_slot(args.ckpt), "model")
         if model_name in ("pyfer", "hdunet"):
@@ -601,6 +658,26 @@ def main(argv=None) -> int:
 
         return tr, lambda batch: postprocess_prediction(tr.predict(batch["input"]),
                                                         batch["gt"][..., 1:2])
+
+    if args.cmd == "tune":
+        return _tune(args, make_cfg, pyfer_model, device)
+
+    if args.cmd == "kfold":
+        from dose_prediction_tpu_torch.train.kfold import run_kfold
+
+        ds = OpenKBPDataset(args.data, size=args.size, keep_structures=True)
+
+        def make_trainer(fold, ckpt_dir):
+            cfg = make_cfg("pyfer")
+            cfg = T.TrainConfig(**{**cfg.__dict__, "ckpt_dir": ckpt_dir,
+                                   "log_dir": str(Path(args.log_dir) / f"fold_{fold}")})
+            return build_dose_trainer("pyfer", cfg, ds.patients[0].ct.shape)
+
+        results = run_kfold(ds, make_trainer, n_folds=args.folds, start_fold=args.start_fold,
+                            base_dir=args.ckpt_dir)
+        print(json.dumps({f: {"mean_dose_score": r.get("mean_dose_score")}
+                          for f, r in results.items()}, indent=2))
+        return 0
 
     if args.cmd == "eval":
         ds = OpenKBPDataset(args.data, size=args.size, keep_structures=True)
@@ -691,6 +768,94 @@ def main(argv=None) -> int:
         return 0
 
     return 1
+
+
+def _journaled_trials(journal: Path) -> int:
+    """One more than the largest trial id in a search journal (0 without
+    one); a truncated line is skipped, as train/tune.py::run_search skips it."""
+    ids = []
+    for line in journal.read_text().splitlines() if journal.exists() else []:
+        try:
+            ids.append(int(json.loads(line)["trial_id"]))
+        except (ValueError, KeyError, TypeError):
+            continue
+    return max(ids, default=-1) + 1
+
+
+def _tune(args, make_cfg, pyfer_model, device) -> int:
+    """The ``tune`` subcommand (:1072-1142): DOSE-PYFER trials, each with
+    its own ``trial_<n>`` checkpoint and log directories (numbered on from
+    the journal's trials on ``--resume``), reporting each
+    validation round's -mean_dose_score to ASHA (an early stop ends the
+    trial's fit). Trial i runs on card i mod the visible cards' count, or
+    on the CPU with ``--device cpu``. The settings every trial shares are
+    kept beside the journal, and a ``--resume`` under other settings is
+    refused."""
+    import itertools
+    import threading
+
+    import torch
+
+    from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
+    from dose_prediction_tpu_torch.train import trainers as T
+    from dose_prediction_tpu_torch.train.tune import ASHAScheduler, run_search
+
+    train_ds = OpenKBPDataset(args.data, size=args.size)
+    val_ds = OpenKBPDataset(args.val_data, size=args.size) if args.val_data else train_ds
+    shape = train_ds.patients[0].ct.shape
+    # trial_<n> directories go on from the journaled trials, so that a resumed
+    # search never writes over a finished trial's
+    trial_counter = itertools.count(_journaled_trials(Path(args.log_dir) / "trials.jsonl")
+                                    if args.resume else 0)
+    # one trial builds its model at a time: the seeded construction sets
+    # torch's global generators
+    building = threading.Lock()
+
+    def train_trial(config, report, trial_device):
+        tid = next(trial_counter)
+        cfg = T.TrainConfig(**{**make_cfg("pyfer").__dict__,
+                               "learning_rate": config["lr"],
+                               "weight_decay": config["weight_decay"],
+                               "max_epochs": args.epochs, "device": str(trial_device),
+                               "ckpt_dir": str(Path(args.ckpt_dir) / f"trial_{tid}"),
+                               "log_dir": str(Path(args.log_dir) / f"trial_{tid}")})
+        with building:
+            model = pyfer_model(shape, cfg.seed, act=config["act"],
+                                multiS_conv=config["multiS_conv"], on=trial_device)
+            trainer = T.PyferTrainer(cfg, model=model, example_shape=(1, *shape, 9))
+        rounds = itertools.count(1)
+
+        def on_validation(epoch, metrics):
+            return report(next(rounds), -metrics["mean_dose_score"])
+
+        trainer.fit(train_ds, val_ds, resume=False, on_validation=on_validation)
+        return -trainer.best_val          # the search minimizes
+
+    # the settings every trial shares (not searched): a resume under others
+    # would mix trials trained differently into one sampler and rung history
+    shared = {"optimizer": make_cfg("pyfer").optimizer, "model_size": args.model_size,
+              "feed_dtype": args.feed_dtype}
+    shared_path = Path(args.log_dir) / "tune_config.json"
+    if args.resume and shared_path.exists():
+        prior = json.loads(shared_path.read_text())
+        if prior != shared:
+            raise SystemExit(
+                f"tune --resume: this search's journaled trials ran with {prior}, the current "
+                f"invocation would run {shared}; their scores are not comparable. Relaunch "
+                f"with the recorded settings (e.g. --optimizer {prior.get('optimizer')}) or "
+                "start a fresh --log-dir.")
+    shared_path.parent.mkdir(parents=True, exist_ok=True)
+    shared_path.write_text(json.dumps(shared, indent=2, sort_keys=True))
+    devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+               if device.type == "cuda" else [device])
+    scheduler = ASHAScheduler(max_t=max(1, args.epochs // args.check_val),
+                              grace_period=args.grace_period, mode="min")
+    res = run_search(train_trial, num_samples=args.num_samples, scheduler=scheduler,
+                     sampler=args.sampler, max_concurrent=args.max_concurrent,
+                     out_dir=args.log_dir, resume=args.resume, devices=devices)
+    print(json.dumps({"best_config": res["best_config"], "best_value": res["best_value"],
+                      "num_early_stopped": res["num_early_stopped"]}, indent=2, default=str))
+    return 0
 
 
 if __name__ == "__main__":

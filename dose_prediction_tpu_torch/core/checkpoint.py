@@ -16,11 +16,15 @@ their metrics), ``last.pt`` (the every-epoch crash-resume slot), ``<name>.pt``
 ``run_config.json``. Writes are synchronous: eager PyTorch has no commit
 threads to drain, so ``wait()`` has nothing to wait for.
 
-A ``tree`` is ``{"state": TrainState, "epoch": int, ...}``. Restoring with a
-template is strict and checks before it changes anything: every model
-entry's name and shape, the optimizer's kind, groups and state shapes; then
-the template's model and optimizer are loaded in place and a new tree is
-returned. Without a template a restore returns the file's dict, on the CPU.
+A ``tree`` is ``{"state": TrainState, "epoch": int, ...}``, or for a GAN
+``{"g": TrainState, "d": TrainState, "epoch": int}``: the "state" entry's
+model, optimizer, step and moving loss are stored at the slot's top level,
+any other TrainState's as a dict of the same keys under its own name.
+Restoring with a template is strict and checks before it changes anything:
+every model entry's name and shape, the optimizer's kind, groups and state
+shapes; then the template's models and optimizers are loaded in place and a
+new tree is returned. Without a template a restore returns the file's
+dict, on the CPU.
 """
 
 from __future__ import annotations
@@ -38,15 +42,24 @@ from dose_prediction_tpu_torch.train.state import TrainState
 SUFFIX = ".pt"
 
 
+def _state_payload(state: TrainState) -> Dict[str, Any]:
+    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step), "moving_loss": float(state.moving_loss)}
+
+
 def _payload(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    """The dict a slot stores for ``tree``."""
-    state = tree["state"]
-    out = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-           "step": int(state.step), "moving_loss": float(state.moving_loss)}
+    """The dict a slot stores for ``tree`` (module docstring)."""
+    out: Dict[str, Any] = {}
     for k, v in tree.items():
-        if k != "state":
-            out[k] = v
+        if k == "state":
+            out.update(_state_payload(v))
+        else:
+            out[k] = _state_payload(v) if isinstance(v, TrainState) else v
     return out
+
+
+def _is_trainer_tree(tree: Any) -> bool:
+    return isinstance(tree, Mapping) and any(isinstance(v, TrainState) for v in tree.values())
 
 
 def save_checkpoint(path: str | Path, tree: Any) -> int:
@@ -54,7 +67,7 @@ def save_checkpoint(path: str | Path, tree: Any) -> int:
     to ``path`` atomically; returns the bytes written."""
     path = Path(path).absolute()
     path.parent.mkdir(parents=True, exist_ok=True)
-    payload = _payload(tree) if isinstance(tree, Mapping) and "state" in tree else tree
+    payload = _payload(tree) if _is_trainer_tree(tree) else tree
     tmp = path.parent / f".{path.name}.tmp-{os.getpid()}"
     try:
         torch.save(payload, tmp)
@@ -85,26 +98,34 @@ def restore_checkpoint(path: str | Path, target: Optional[Mapping[str, Any]] = N
     payload = torch.load(Path(path), map_location="cpu", weights_only=True)
     if target is None:
         return payload
-    state: TrainState = target["state"]
-    if not isinstance(payload, dict) or "model" not in payload or "optimizer" not in payload:
-        raise ValueError(f"{path}: not a trainer slot")
-    missing = [k for k in target if k != "state" and k not in payload]
+    states = {k: v for k, v in target.items() if isinstance(v, TrainState)}
+    saved = {k: payload if k == "state" else (payload.get(k) if isinstance(payload, dict) else None)
+             for k in states}
+    if any(not isinstance(v, dict) or "model" not in v or "optimizer" not in v
+           for v in saved.values()):
+        raise ValueError(f"{path}: not a trainer slot of {sorted(states)}")
+    missing = [k for k in target if k not in states and k not in payload]
     if missing:
         raise ValueError(f"{path}: the slot has no {missing}")
-    _check_model(state.model, payload["model"])
-    state.optimizer.check_state_dict(payload["optimizer"])
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
-    out = {k: payload[k] for k in target if k != "state"}
-    out["state"] = dataclasses.replace(state, step=int(payload["step"]),
-                                       moving_loss=float(payload["moving_loss"]))
+    for k, state in states.items():
+        _check_model(state.model, saved[k]["model"])
+        state.optimizer.check_state_dict(saved[k]["optimizer"])
+    out = {k: payload[k] for k in target if k not in states}
+    for k, state in states.items():
+        state.model.load_state_dict(saved[k]["model"], strict=True)
+        state.optimizer.load_state_dict(saved[k]["optimizer"])
+        out[k] = dataclasses.replace(state, step=int(saved[k]["step"]),
+                                     moving_loss=float(saved[k]["moving_loss"]))
     return out
 
 
 def variables_from_checkpoint(tree: Any) -> Dict[str, torch.Tensor]:
     """A model state dict from whatever a slot holds: a trainer slot
-    (``{"model": ...}``) or a bare state dict (what import-torch writes)
+    (``{"model": ...}``; a GAN slot's generator, ``{"g": {"model": ...}}``)
+    or a bare state dict (what import-torch writes)
     (variables_from_checkpoint, :69-85)."""
+    if isinstance(tree, Mapping) and isinstance(tree.get("g"), Mapping):
+        tree = tree["g"]
     if isinstance(tree, Mapping) and isinstance(tree.get("model"), Mapping):
         return dict(tree["model"])
     return dict(tree)

@@ -9,7 +9,7 @@ transposes have no counterpart here.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import torch
 
@@ -17,6 +17,9 @@ import torch
 # self.model_, e.g. HD-UNet's 'model_.model.'), '_model.' (the seg trainer,
 # train_light_transeg.py:126-146) and 'model.'; stripped in this order
 LIGHTNING_PREFIXES = ("model_.", "_model.", "model.")
+# a combined DoseGAN checkpoint's generator and critic entries
+# (torch_import.py:544-656 honours the same prefixes)
+GAN_PREFIXES = {"g": ("netG.", "generator."), "d": ("netD.", "discriminator.")}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -42,22 +45,37 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def strip_lightning_prefixes(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Each key without the LIGHTNING_PREFIXES it starts with."""
+def strip_lightning_prefixes(state_dict: Mapping[str, torch.Tensor],
+                             prefixes: Sequence[str] = LIGHTNING_PREFIXES
+                             ) -> Dict[str, torch.Tensor]:
+    """Each key without the ``prefixes`` it starts with, in their order."""
     out = {}
     for k, v in state_dict.items():
-        for prefix in LIGHTNING_PREFIXES:
+        for prefix in prefixes:
             if k.startswith(prefix):
                 k = k[len(prefix):]
         out[k] = v
     return out
 
 
-def load_reference_strict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
-    """Load a reference state dict (Lightning prefixes stripped) into
-    ``model`` strictly: raises ValueError naming the entries that are
-    missing, unexpected or of another shape."""
-    sd = strip_lightning_prefixes(state_dict)
+def gan_part(state_dict: Mapping[str, torch.Tensor], part: str) -> Dict[str, torch.Tensor]:
+    """The generator's (``part='g'``) or the critic's (``'d'``) entries of a
+    reference DoseGAN checkpoint: from a combined checkpoint the entries
+    under GAN_PREFIXES[part], prefix stripped (the other net's are left
+    out); a bare net's state dict as it is."""
+    prefixes = GAN_PREFIXES[part]
+    if not any(k.startswith(p) for k in state_dict for ps in GAN_PREFIXES.values() for p in ps):
+        return dict(state_dict)
+    return {k[len(p):]: v for k, v in state_dict.items() for p in prefixes if k.startswith(p)}
+
+
+def load_reference_strict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor], *,
+                          prefixes: Sequence[str] = LIGHTNING_PREFIXES) -> None:
+    """Load a reference state dict, ``prefixes`` stripped (the Lightning
+    wrappers by default; DoseGAN's nets name their own top module ``model``,
+    so their callers pass none), into ``model`` strictly: raises ValueError
+    naming the entries that are missing, unexpected or of another shape."""
+    sd = strip_lightning_prefixes(state_dict, prefixes)
     mine = model.state_dict()
     missing, extra = sorted(set(mine) - set(sd)), sorted(set(sd) - set(mine))
     bad = [(k, tuple(sd[k].shape), tuple(v.shape)) for k, v in mine.items()

@@ -25,6 +25,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -39,6 +40,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall")
 LD_FLAGS = ("-shared", "-lz", "-lpthread")
 BUILD_TIMEOUT_S = 300
+# the longest wait for another process's build (its compile limit, and then some)
+LOCK_WAIT_S = BUILD_TIMEOUT_S + 60
 
 _P = ctypes.POINTER
 _F32, _I64, _INT = ctypes.c_float, ctypes.c_int64, ctypes.c_int
@@ -67,6 +70,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdose_io_{h.hexdigest()[:16]}.so"
 
 
+def _wait_for_lock(lock) -> None:
+    """Take the build lock, or raise after LOCK_WAIT_S: a holder that builds
+    for longer than its own compile limit has died or hung."""
+    deadline = time.monotonic() + LOCK_WAIT_S
+    while True:
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            return
+        except BlockingIOError:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"{lock.name}: held for over {LOCK_WAIT_S} s by another "
+                                   "build") from None
+            time.sleep(0.1)
+
+
 def build() -> Path:
     """Compile ``native/dose_io.cpp`` unless the library for this source
     exists. Raises RuntimeError with the compiler's output if it fails."""
@@ -75,7 +93,7 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "libdose_io.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)       # released when the file closes
+        _wait_for_lock(lock)                   # released when the file closes
         if out.is_file():                      # built by the holder before us
             return out
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")

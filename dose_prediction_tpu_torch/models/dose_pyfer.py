@@ -5,9 +5,12 @@ DosePrediction/Models/Networks/dose_pyfer.py Model :325).
 net_A = C3D BaseUNet(list_ch_A) → net_B = MainSubsetModel(cat(out_A, x)):
 a ViT encoder with UNETR skip pyramids, four ModifiedUnetrUpBlock decoder
 stages (seg-family Conv31, act='mish') and 1×1 dose convertors at 1, ½, ¼
-and ⅛ resolution; conv_out_A is net_A's 1×1 head. The flagship decoder
-(mode_multi_dec=True, multiS_conv=True) is the one ported. The reference's
-unused ``net_B.out`` head is left out.
+and ⅛ resolution; conv_out_A is net_A's 1×1 head. The decoder is the
+flagship's multi-scale one (mode_multi_dec=True), its stages Conv31
+(``multiS_conv=True``, the default) or the DualDilatedBlock
+(``multiS_conv=False``, a choice the reference's search samples,
+tune_light_pyfer.py:160-168). The reference's unused ``net_B.out`` head is
+left out.
 """
 
 from __future__ import annotations
@@ -52,14 +55,16 @@ class PyMSCDecoder(nn.Module):
     """Four ModifiedUnetrUpBlock stages; ``remat_blocks`` recomputes each
     stage's activations in the backward (JAX dose_pyfer.py:83-97)."""
 
-    def __init__(self, feature_size: int, hidden: int, act: str, remat_blocks: bool = False):
+    def __init__(self, feature_size: int, hidden: int, act: str, remat_blocks: bool = False,
+                 multiS_conv: bool = True):
         super().__init__()
         fs = feature_size
         self.remat_blocks = remat_blocks
-        self.decoder4 = ModifiedUnetrUpBlock(hidden, fs * 8, act)
-        self.decoder3 = ModifiedUnetrUpBlock(fs * 8, fs * 4, act)
-        self.decoder2 = ModifiedUnetrUpBlock(fs * 4, fs * 2, act)
-        self.decoder1 = ModifiedUnetrUpBlock(fs * 2, fs, act)
+        kw = dict(act=act, multiS_conv=multiS_conv)
+        self.decoder4 = ModifiedUnetrUpBlock(hidden, fs * 8, **kw)
+        self.decoder3 = ModifiedUnetrUpBlock(fs * 8, fs * 4, **kw)
+        self.decoder2 = ModifiedUnetrUpBlock(fs * 4, fs * 2, **kw)
+        self.decoder1 = ModifiedUnetrUpBlock(fs * 2, fs, **kw)
 
     def forward(self, enc: List[torch.Tensor]) -> List[torch.Tensor]:
         e1, e2, e3, e4, e5 = enc
@@ -76,11 +81,11 @@ class MainSubsetModel(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, img_size, feature_size: int,
                  hidden: int, mlp_dim: int, num_layers: int, heads: int, act: str,
-                 remat_blocks: bool = False):
+                 remat_blocks: bool = False, multiS_conv: bool = True):
         super().__init__()
         self.encoder = ViTEncoder(in_ch, img_size, feature_size, hidden, mlp_dim,
                                   num_layers, heads)
-        self.decoder = PyMSCDecoder(feature_size, hidden, act, remat_blocks)
+        self.decoder = PyMSCDecoder(feature_size, hidden, act, remat_blocks, multiS_conv)
         self.dose_convertors = nn.ModuleList(
             [nn.Sequential(Conv3d(feature_size * 2 ** i, out_ch, 1, bias=True))
              for i in range(4)])
@@ -100,20 +105,21 @@ class DosePyfer(nn.Module):
     channels, 128³, feature size 16, an 8-layer ViT-768 with 6 heads, Mish.
     ``img_size`` fixes the ViT's token grid (img_size / 16).
     ``remat_blocks`` recomputes each decoder stage in the backward
-    (nn/remat.py); the parameters are the same."""
+    (nn/remat.py); the parameters are the same. ``multiS_conv=False``
+    builds the DualDilatedBlock decoder stages (module docstring)."""
 
     @records_config
     def __init__(self, in_ch: int = 9, out_ch: int = 1, img_size=128,
                  list_ch_A: Sequence[int] = (-1, 16, 32, 64, 128, 256),
                  feature_size: int = 16, hidden_size: int = 768, mlp_dim: int = 3072,
                  num_layers: int = 8, num_heads: int = 6, act: str = "mish",
-                 remat_blocks: bool = False, device="cuda"):
+                 remat_blocks: bool = False, multiS_conv: bool = True, device="cuda"):
         super().__init__()
         with torch.device(resolve_device(device)):
             self.net_A = BaseUNet(in_ch, list_ch_A)
             self.net_B = MainSubsetModel(in_ch + list_ch_A[1], out_ch, img_size,
                                          feature_size, hidden_size, mlp_dim, num_layers,
-                                         num_heads, act, remat_blocks)
+                                         num_heads, act, remat_blocks, multiS_conv)
             self.conv_out_A = Conv3d(list_ch_A[1], out_ch, 1, bias=True)
 
     def forward(self, x: torch.Tensor, stop_gradient_a: bool = False

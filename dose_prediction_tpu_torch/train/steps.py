@@ -2,23 +2,26 @@
 the DOSE-PYFER step (:24-84) and eval step (:87-119), the C3D cascade's
 step (:122-144), the single-output dose step of HD-UNet (:147-171) with its
 eval step (JAX train/trainers.py:921-949) and the OAR-TranSeg step
-(:174-204), which also trains the plain UNETR; reference
-train_light_{pyfer,c3d,hdunet,transeg}.py.
+(:174-204), which also trains the plain UNETR, and DoseGAN's alternating
+critic and generator steps (:239-307) with their eval step (JAX
+train/trainers.py:1352-1364); reference
+train_light_{pyfer,c3d,hdunet,transeg,dosegan}.py.
 
 Batches keep the JAX package's channels-last layout at this boundary:
 ``input (N, D, H, W, 9)`` and ``gt (N, D, H, W, 2)`` (dose ÷ 70, possible-dose
 mask); the steps permute once to NCDHW. The model computes in the dtype of
 ``batch['input']`` with float32 parameters, or in the step's ``dtype`` where
 one is given (the JAX model's ``dtype`` attribute). With ``packed=True`` the
-DOSE-PYFER, C3D and single-output steps take the packed feed (data/packed.py, steps.py:69-70
-and :132-133): unpacked and augmented in float32 on the batch's device, then
-cast once to ``dtype``. Not ported: ``donate`` (the steps update in place).
+DOSE-PYFER, C3D, single-output and DoseGAN steps take the packed feed
+(data/packed.py, steps.py:69-70 and :132-133): unpacked and augmented in
+float32 on the batch's device, then cast once to ``dtype``. Not ported: ``donate`` (the steps update in place).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -120,6 +123,97 @@ def make_simple_dose_train_step(model: nn.Module, optimizer: torch.optim.Optimiz
         x, gt = _dose_feed(batch, packed, dtype)
         loss = L.masked_l1(model(x), gt[:, 0:1], gt[:, 1:2])
         return _apply_update(state, optimizer, loss)
+
+    return step
+
+
+@contextlib.contextmanager
+def buffers_kept(module: nn.Module) -> Iterator[None]:
+    """Run a train-mode forward whose BatchNorm statistics update is thrown
+    away: ``module``'s buffers are restored as they were on exit (the JAX
+    step discards that ``mutable`` output)."""
+    saved = [b.detach().clone() for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in zip(module.buffers(), saved):
+                b.copy_(s)
+
+
+@contextlib.contextmanager
+def frozen(module: nn.Module) -> Iterator[None]:
+    """``module``'s parameters without gradients for the duration: a
+    backward through it computes its input gradients only."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def make_dosegan_train_steps(generator: nn.Module, discriminator: nn.Module,
+                             g_optimizer: torch.optim.Optimizer,
+                             d_optimizer: torch.optim.Optimizer, *, l1_weight: float = 100.0,
+                             packed: bool = False, dtype: Optional[torch.dtype] = None
+                             ) -> Callable[[TrainState, TrainState, Dict[str, torch.Tensor]],
+                                           Tuple[TrainState, TrainState, Dict]]:
+    """``step(g_state, d_state, batch) -> (g_state, d_state, {'g_loss',
+    'd_loss'})``: one critic update, then one generator update
+    (steps.py:239-307; train_light_dosegan.py:111-142). The critic is
+    unconditional: it sees only a dose volume.
+
+    - Critic: the generator runs in train mode on its pre-update weights,
+      without autograd, and its BatchNorm statistics update is thrown away;
+      the critic runs on the real dose, then on the fake, updating its
+      statistics twice in that order; loss 0.5·(BCE(real, 1) + BCE(fake, 0)).
+    - Generator: its forward runs again and keeps its statistics update; the
+      critic runs on its updated weights in train mode, its statistics
+      update thrown away and no gradient kept for its weights; loss
+      BCE(fake, 1) + ``l1_weight`` · masked L1 against the dose.
+
+    Batches, ``packed`` and ``dtype`` as make_pyfer_train_step's."""
+
+    def step(g_state: TrainState, d_state: TrainState, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[TrainState, TrainState, Dict[str, torch.Tensor]]:
+        generator.train()
+        discriminator.train()
+        x, gt = _dose_feed(batch, packed, dtype)
+        gt_dose, mask = gt[:, 0:1], gt[:, 1:2]
+        with torch.no_grad(), buffers_kept(generator):
+            fake = generator(x)
+        d_optimizer.zero_grad(set_to_none=True)
+        real_logits = discriminator(gt_dose.to(fake.dtype))
+        fake_logits = discriminator(fake)
+        d_loss = 0.5 * (L.bce_with_logits(real_logits, torch.ones_like(real_logits))
+                        + L.bce_with_logits(fake_logits, torch.zeros_like(fake_logits)))
+        d_state, d_loss = _apply_update(d_state, d_optimizer, d_loss)
+        g_optimizer.zero_grad(set_to_none=True)
+        fake = generator(x)
+        with buffers_kept(discriminator), frozen(discriminator):
+            fake_logits = discriminator(fake)
+        g_loss = (L.bce_with_logits(fake_logits, torch.ones_like(fake_logits))
+                  + l1_weight * L.masked_l1(fake, gt_dose, mask))
+        g_state, g_loss = _apply_update(g_state, g_optimizer, g_loss)
+        return g_state, d_state, {"g_loss": g_loss, "d_loss": d_loss}
+
+    return step
+
+
+def make_dosegan_eval_step(generator: nn.Module) -> Callable[[Dict[str, torch.Tensor]], Dict]:
+    """``step(batch)`` of the DoseGAN generator (JAX trainers.py:1352-1364):
+    an eval-mode forward, the unmasked L1 against the dose as the val loss
+    (criterionL1, train_light_dosegan.py:81,168), the ×70 masked dose score
+    and the post-processed prediction."""
+
+    @torch.no_grad()
+    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        generator.eval()
+        return _eval_outputs(generator(to_ncdhw(batch["input"])), batch,
+                             lambda pred, gt: (pred.float() - gt[:, 0:1].float()).abs().mean())
 
     return step
 

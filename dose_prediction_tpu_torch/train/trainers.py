@@ -13,12 +13,15 @@ resume and a graceful stop on SIGTERM.
                       crops; sliding-window validation with Dice and HD95),
                       any block family and k7 mode
 - UNETRSegTrainer   ← the same harness for the plain UNETR (mode_model=0)
+- DoseGANTrainer    ← train_light_dosegan.py (alternating critic and
+                      generator updates; full-volume validation, best slot
+                      on mean_dose_score=max)
 
 The models compute in float32, their default dtype, as the JAX trainers'
 do (the JAX CLI passes no dtype), under PyTorch's TF32 defaults on the
 card. Hyperparameter defaults are the reference's tuned values
-(train_light_pyfer.py:293-300). Not ported yet: the DoseGAN, ViT-GAN and
-exp trainers with their models (ROADMAP queue 1 item 6) and the mesh and
+(train_light_pyfer.py:293-300). Not ported yet: the ViT-GAN and exp
+trainers with their models (ROADMAP queue 1 item 6) and the mesh and
 AOT branches (queue 1 item 7): a set ``mesh_shape`` raises.
 """
 
@@ -42,7 +45,15 @@ from dose_prediction_tpu_torch.device import resolve_device
 from dose_prediction_tpu_torch.evaluation import metrics as M
 from dose_prediction_tpu_torch.infer.pipeline import pipeline_map
 from dose_prediction_tpu_torch.infer.sliding_window import sliding_window_inference
-from dose_prediction_tpu_torch.models import UNETR, CascadeC3D, DosePyfer, HDUNet, TranSeg
+from dose_prediction_tpu_torch.models import (
+    UNETR,
+    CascadeC3D,
+    DosePyfer,
+    HDUNet,
+    NLayerDiscriminator,
+    TranSeg,
+    UnetGenerator3D,
+)
 from dose_prediction_tpu_torch.models.spec import model_spec
 from dose_prediction_tpu_torch.train import losses as L
 from dose_prediction_tpu_torch.train import state as S
@@ -285,6 +296,20 @@ def seeded(seed: int, build: Callable[[], torch.nn.Module]) -> torch.nn.Module:
         return build()
 
 
+def _full_volume_validation(eval_step, val_ds: OpenKBPDataset, device: torch.device
+                            ) -> Dict[str, float]:
+    """The dose trainers' batch-1 full-volume sweep through ``eval_step``:
+    mean_dose_score (negated, to maximize) and val_loss, each the mean over
+    the cohort."""
+    scores, vlosses = [], []
+    for batch in device_prefetch(dose_batches(val_ds, batch_size=1, shuffle=False,
+                                              augment=False), device=device):
+        out = eval_step(batch)
+        scores.append(float(out["dose_score"]))
+        vlosses.append(float(out["val_loss"]))
+    return {"mean_dose_score": -float(np.mean(scores)), "val_loss": float(np.mean(vlosses))}
+
+
 class PyferTrainer:
     """The flagship DOSE-PYFER trainer (:498-655)."""
 
@@ -319,13 +344,7 @@ class PyferTrainer:
     def validate(self, val_ds: OpenKBPDataset) -> Dict[str, float]:
         """The batch-1 full-volume sweep (train_light_pyfer.py:154-179):
         mean_dose_score (negated, to maximize) and val_loss."""
-        scores, vlosses = [], []
-        for batch in device_prefetch(dose_batches(val_ds, batch_size=1, shuffle=False,
-                                                  augment=False), device=self.device):
-            out = self.eval_step(batch)
-            scores.append(float(out["dose_score"]))
-            vlosses.append(float(out["val_loss"]))
-        return {"mean_dose_score": -float(np.mean(scores)), "val_loss": float(np.mean(vlosses))}
+        return _full_volume_validation(self.eval_step, val_ds, self.device)
 
     @_drains_checkpoints
     def fit(self, train_ds: OpenKBPDataset, val_ds: Optional[OpenKBPDataset] = None, *,
@@ -487,13 +506,7 @@ class HDUNetTrainer:
     def validate(self, val_ds: OpenKBPDataset) -> Dict[str, float]:
         """mean_dose_score (negated, to maximize) and the masked-L1 val_loss
         over the cohort, one full volume a batch."""
-        scores, vlosses = [], []
-        for batch in device_prefetch(dose_batches(val_ds, batch_size=1, shuffle=False,
-                                                  augment=False), device=self.device):
-            out = self.eval_step(batch)
-            scores.append(float(out["dose_score"]))
-            vlosses.append(float(out["val_loss"]))
-        return {"mean_dose_score": -float(np.mean(scores)), "val_loss": float(np.mean(vlosses))}
+        return _full_volume_validation(self.eval_step, val_ds, self.device)
 
     @_drains_checkpoints
     def fit(self, train_ds: OpenKBPDataset, val_ds: Optional[OpenKBPDataset] = None, *,
@@ -780,3 +793,91 @@ class UNETRSegTrainer(TranSegTrainer):
                                                    device=resolve_device(cfg.device)))
         super().__init__(cfg, model=model, crop=crop, num_classes=num_classes,
                          pretrained_params=pretrained_params)
+
+
+class DoseGANTrainer:
+    """DoseGAN (train_light_dosegan.py; :1315-1451): one critic and one
+    generator update a batch (STEP.make_dosegan_train_steps), the batch-1
+    full-volume generator validation scored as the unmasked L1 val_loss and
+    the ×70 masked MAE (mean_dose_score, :157-198), best slots on
+    mean_dose_score=max, an every-epoch 'last' slot of ``{"g", "d",
+    "epoch"}`` with resume, and the OpenKBP test sweep (:207-225).
+
+    Defaults are the reference's (:199-205,298): ngf = ndf = 64, the L1
+    weight 10, both nets Adam at 2e-4 with b1 0.5. The critic is
+    unconditional (one dose channel in). Without ``generator`` or
+    ``discriminator`` each is built from the seed (the critic from seed +
+    1, as the JAX trainer draws its keys)."""
+
+    def __init__(self, cfg: TrainConfig, *, ngf: int = 64, ndf: int = 64,
+                 generator: Optional[UnetGenerator3D] = None,
+                 discriminator: Optional[NLayerDiscriminator] = None,
+                 example_shape: Sequence[int] = (1, 128, 128, 128, 9),
+                 l1_weight: float = 10.0, gan_lr: float = 2e-4):
+        _refuse_mesh(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.gen = generator if generator is not None else seeded(cfg.seed, lambda: UnetGenerator3D(
+            in_ch=example_shape[-1], out_ch=1, ngf=ngf, device=self.device))
+        self.disc = discriminator if discriminator is not None else seeded(
+            cfg.seed + 1, lambda: NLayerDiscriminator(in_ch=1, ndf=ndf, device=self.device))
+        g_opt = S.make_optimizer(self.gen, learning_rate=gan_lr, b1=0.5)
+        d_opt = S.make_optimizer(self.disc, learning_rate=gan_lr, b1=0.5)
+        self.g_state = S.TrainState(self.gen, g_opt)
+        self.d_state = S.TrainState(self.disc, d_opt)
+        self.step = STEP.make_dosegan_train_steps(self.gen, self.disc, g_opt, d_opt,
+                                                  l1_weight=l1_weight,
+                                                  packed=cfg.feed_dtype == "packed")
+        self.eval_step = STEP.make_dosegan_eval_step(self.gen)
+        self.logger = MetricLogger(cfg.log_dir, run_name="dosegan")
+        self.ckpt = C.CheckpointManager(cfg.ckpt_dir, monitor="mean_dose_score", mode="max")
+
+    def _tree(self, epoch: int) -> Dict[str, Any]:
+        return {"g": self.g_state, "d": self.d_state, "epoch": epoch}
+
+    def validate(self, val_ds: OpenKBPDataset) -> Dict[str, float]:
+        """mean_dose_score (negated, to maximize) and the unmasked L1
+        val_loss over the cohort, one full volume a batch."""
+        return _full_volume_validation(self.eval_step, val_ds, self.device)
+
+    @_drains_checkpoints
+    def fit(self, train_ds: OpenKBPDataset, val_ds: Optional[OpenKBPDataset] = None, *,
+            resume: bool = True) -> None:
+        cfg = self.cfg
+        start_epoch = 0
+        if resume:
+            restored, start_epoch = _try_resume(
+                self.ckpt, self._tree(0),
+                run_config=_resume_guard_config(cfg, self.gen, self.disc))
+            if restored is not None:
+                self.g_state, self.d_state = restored["g"], restored["d"]
+                self.logger.log_text(f"resumed from epoch {start_epoch - 1}")
+        global_step = int(self.g_state.step)
+        for epoch in range(start_epoch, cfg.max_epochs):
+            g_losses, d_losses = [], []
+            feed = device_prefetch(_train_batches(cfg, train_ds, epoch), device=self.device)
+            with trace(cfg.profile_dir if epoch == start_epoch else None), contextlib.closing(feed):
+                for batch in feed:
+                    self.g_state, self.d_state, info = self.step(self.g_state, self.d_state, batch)
+                    g_losses.append(info["g_loss"])
+                    d_losses.append(info["d_loss"])
+                    global_step += 1
+                    if _stop_requested(cfg, global_step):
+                        break
+            self.logger.log({"gan_loss": _host_mean(g_losses),
+                             "disc_loss": _host_mean(d_losses)}, epoch + 1)
+            if val_ds is not None and (epoch + 1) % cfg.check_val == 0:
+                metrics = self.validate(val_ds)
+                self.logger.log(metrics, epoch + 1)
+                self.ckpt.save(epoch, self._tree(epoch),
+                               {"mean_dose_score": metrics["mean_dose_score"]})
+            _save_epoch_slots(self.ckpt, cfg, epoch, global_step, self._tree(epoch))
+            if _stop_requested(cfg, global_step):
+                break
+
+    def test(self, test_ds: OpenKBPDataset, *, with_ivs: bool = True,
+             device_metrics: bool = False, plots_dir: Optional[str] = None) -> Dict[str, Any]:
+        """OpenKBP test sweep (train_light_dosegan.py:207-225)."""
+        return evaluate_dose_model(lambda batch: self.eval_step(batch)["prediction"], test_ds,
+                                   with_ivs=with_ivs, device_metrics=device_metrics,
+                                   plots_dir=plots_dir, device=self.device)

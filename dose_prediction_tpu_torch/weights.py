@@ -1,16 +1,18 @@
 """Carry JAX variables of the JAX package's models into the port's modules.
 
 ``jax_to_torch(variables, model)`` maps the flax variable tree of
-``DosePyfer``, ``TranSeg`` (every block family, both k7 modes, both decoder
-blocks and patch embeds), ``CascadeC3D``, ``UNETR`` or ``HDUNet``
+``DosePyfer`` (either decoder block, ``multiS_conv``), ``TranSeg`` (every
+block family, both k7 modes, both decoder blocks and patch embeds),
+``CascadeC3D``, ``UNETR``, ``HDUNet`` or DoseGAN's ``UnetGenerator3D`` and
+``NLayerDiscriminator``
 ({'params': ..., 'batch_stats': ...}, nested dicts of numpy arrays) onto
 ``model``'s state dict: every entry of the state dict must come from the
 tree and every leaf of the tree must be used, or it raises. The port's
 module names are the reference torch names, so the key maps are the
 inverse of dose_prediction_tpu/core/torch_import.py's ``pyfer_key_map`` /
 ``transeg_key_map`` / ``c3d_key_map`` / ``unetr_key_map`` /
-``hdunet_key_map``; the port keeps its own copy of those maps (for the
-module names the port builds, the separable chains and the ablation
+``hdunet_key_map`` / ``dosegan_g_key_map`` / ``dosegan_d_key_map``; the
+port keeps its own copy of those maps (for the module names the port builds, the separable chains and the ablation
 DualDilatedBlock's BatchNorm fuse among them, which no reference
 checkpoint holds) and of the layout rules:
 
@@ -28,7 +30,15 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from dose_prediction_tpu_torch.models import UNETR, CascadeC3D, DosePyfer, HDUNet, TranSeg
+from dose_prediction_tpu_torch.models import (
+    UNETR,
+    CascadeC3D,
+    DosePyfer,
+    HDUNet,
+    NLayerDiscriminator,
+    TranSeg,
+    UnetGenerator3D,
+)
 
 Path = Tuple[str, ...]
 
@@ -190,6 +200,55 @@ def hdunet_key_map(module_key: str) -> Optional[Path]:
     return _match(_HDUNET_PATTERNS, module_key)
 
 
+# DoseGAN (torch_import.py:544-640): each generator level at
+# model(.model.3)^depth, its Sequential's 1 = downconv, 2 = downnorm, 5 =
+# upconv, 6 = upnorm (3 = upconv, 4 = upnorm at the innermost level, which
+# has no downnorm and no submodule); the critic's blocks at model.3-5
+_GAN_G_LEVEL = re.compile(r"^model((?:\.model\.3)*)"
+                          r"\.(att_gate\.(?:initial_conv|intermediate\.[12])|model\.[1-6])$")
+_GAN_G_LEAF = {1: "downconv", 2: "downnorm", 3: "upconv", 4: "upnorm", 5: "upconv", 6: "upnorm"}
+_GAN_ATT_LEAF = {"initial_conv": "initial_conv", "1": "inter_conv", "2": "inter_norm"}
+_GAN_G_BARE = {"initial_block.0": ("initial_conv",), "initial_block.1": ("initial_norm",),
+               "outer_block.0": ("outer_conv",)}
+_GAN_D_BARE = {"model.0": ("initial_conv",), "model.1": ("initial_norm",),
+               "model.6": ("final_conv",), "model.7": ("final_norm",)}
+_GAN_D_BLOCK = re.compile(r"^model\.([3-5])\.(downsample\.[01]|pooling\.[01]"
+                          r"|att_gate\.(?:initial_conv|intermediate\.[12]))$")
+_GAN_D_LEAF = {"downsample.0": "down_conv", "downsample.1": "down_norm",
+               "pooling.0": "pool_conv", "pooling.1": "pool_norm"}
+
+
+def _att_gate_path(tail: str) -> Path:
+    return ("att_gate", _GAN_ATT_LEAF[tail.rsplit(".", 1)[-1]])
+
+
+def dosegan_g_key_map(module_key: str) -> Optional[Path]:
+    """Port (= reference) module key of UnetGenerator3D → flax path."""
+    if module_key in _GAN_G_BARE:
+        return _GAN_G_BARE[module_key]
+    m = _GAN_G_LEVEL.match(module_key)
+    if m is None:
+        return None
+    level = ("unet",) + ("submodule",) * m[1].count(".model.3")
+    if m[2].startswith("att_gate"):
+        return level + _att_gate_path(m[2])
+    return level + (_GAN_G_LEAF[int(m[2].rsplit(".", 1)[-1])],)
+
+
+def dosegan_d_key_map(module_key: str) -> Optional[Path]:
+    """Port (= reference) module key of NLayerDiscriminator (three blocks)
+    → flax path."""
+    if module_key in _GAN_D_BARE:
+        return _GAN_D_BARE[module_key]
+    m = _GAN_D_BLOCK.match(module_key)
+    if m is None:
+        return None
+    block = (f"block{int(m[1]) - 3}",)
+    if m[2].startswith("att_gate"):
+        return block + _att_gate_path(m[2])
+    return block + (_GAN_D_LEAF[m[2]],)
+
+
 def is_transposed(module_key: str) -> bool:
     """Modules holding ConvTranspose3d weights: the UnetrPrUpBlock chains and
     the decoder transposed convs."""
@@ -203,6 +262,13 @@ _KEY_MAPS: Dict[type, Callable[[str], Optional[Path]]] = {
     CascadeC3D: c3d_key_map,
     UNETR: unetr_key_map,
     HDUNet: hdunet_key_map,
+    UnetGenerator3D: dosegan_g_key_map,
+    NLayerDiscriminator: dosegan_d_key_map,
+}
+# which modules hold ConvTranspose3d weights, by model type
+_TRANSPOSED: Dict[type, Callable[[str], bool]] = {
+    UnetGenerator3D: lambda key: (dosegan_g_key_map(key) or ("",))[-1] == "upconv",
+    NLayerDiscriminator: lambda key: False,
 }
 # torch leaf → (flax collection, flax leaf); 'weight' depends on rank
 _LEAVES = {
@@ -232,12 +298,13 @@ def _leaves(tree: Mapping, prefix: Path = ()) -> Dict[Path, Any]:
 
 
 def jax_to_torch(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """State dict for ``model`` (a DosePyfer, TranSeg, CascadeC3D, UNETR or
-    HDUNet) from the JAX package's variables of the same configuration.
-    Raises if an entry of the
+    """State dict for ``model`` (a DosePyfer, TranSeg, CascadeC3D, UNETR,
+    HDUNet, UnetGenerator3D or NLayerDiscriminator) from the JAX package's
+    variables of the same configuration. Raises if an entry of the
     state dict has no source, a shape differs, or a JAX leaf is left over;
     the result loads with ``model.load_state_dict(sd, strict=True)``."""
     key_map = _KEY_MAPS[type(model)]
+    transposed = _TRANSPOSED.get(type(model), is_transposed)
     source = _leaves({c: variables.get(c, {}) for c in ("params", "batch_stats")})
     used = set()
     state: Dict[str, torch.Tensor] = {}
@@ -256,7 +323,7 @@ def jax_to_torch(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.
         src = (collection,) + path + (flax_leaf,)
         if src not in source:
             raise ValueError(f"{key}: JAX leaf {'/'.join(src)} not found")
-        value = _to_torch_layout(np.asarray(source[src]), ref.ndim, is_transposed(module_key))
+        value = _to_torch_layout(np.asarray(source[src]), ref.ndim, transposed(module_key))
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: shape {tuple(value.shape)} from {'/'.join(src)}, "
                              f"want {tuple(ref.shape)}")

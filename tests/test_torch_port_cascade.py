@@ -25,6 +25,8 @@ import jax
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.core import torch_import as TI  # noqa: E402
 from dose_prediction_tpu.infer.cascade import make_cascade_stages as jax_stages  # noqa: E402
 from dose_prediction_tpu.infer.sliding_window import sliding_window_inference  # noqa: E402
@@ -180,7 +182,8 @@ def test_port_runs_without_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
                           text=True, timeout=300, env={"PATH": "/usr/bin:/bin",
                                                        "PYTHONPATH": str(REPO),
-                                                       "HOME": str(tmp_path)})
+                                                       "HOME": str(tmp_path),
+                                                       "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "FORBIDDEN []" in proc.stdout
 

@@ -21,6 +21,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.core import checkpoint as JC  # noqa: E402
 from dose_prediction_tpu.models import CascadeC3D as JCascadeC3D  # noqa: E402
 from dose_prediction_tpu.models import DosePyfer as JDosePyfer  # noqa: E402

@@ -3,8 +3,8 @@ on the CPU at ``--model-size small``.
 
 The parser covers the ported subcommands and refuses, before any device
 work and by name, what the port does not have (the message names the
-ROADMAP item; the re-pointed cases name the DoseGAN, ViT-GAN and exp models
-and their imports, which the port does not have). train → eval → predict →
+ROADMAP item; the re-pointed cases name the ViT-GAN and exp models, their
+imports and meshes, which the port does not have). train → eval → predict →
 score on a synthetic 16³ cohort:
 eval's device metrics against its host metrics (dose score rel 1e-4, DVH
 score rel 1e-3, IVS rtol 1e-4 atol 1e-5 where the host's is defined: the
@@ -12,9 +12,18 @@ bars of tests/test_losses_metrics.py:252-254) and score's dose score against
 eval's host one (rel 1e-4). import-torch of a replica of the reference
 C3D cascade, then eval. The eval/serve guard refuses ``--act relu`` over a
 mish checkpoint. infer writes the NIfTI that make_cascade_fn gives from the
-same restored weights, bit for bit. In subprocesses where importing jax or
-the JAX package fails: ``--help``, one train run of DOSE-PYFER and one of
-HD-UNet, and a linked-eval; and a train run that
+same restored weights, bit for bit. tune runs its trials in their own
+directories, journals them, resumes with one more trial, and refuses a
+resume under another shared setting; kfold prints each fold's score.
+DoseGAN (ngf = ndf = 4 on a 32³ cohort): train, then a resumed third
+epoch, eval (device metrics against host metrics by the bars above),
+predict, an explicit --lr as the GAN's rate, and import-torch --kind
+dosegan-g|dosegan-d of a combined netG./netD. checkpoint (the slots equal
+the state dicts) and of the reference torch replicas of
+tests/test_golden_hdunet_dosegan.py (strict). In subprocesses where
+importing jax or the JAX package fails: ``--help``, one train run of
+DOSE-PYFER, one of HD-UNet and one of DoseGAN, a linked-eval, a tune and a
+kfold; and a train run that
 gets SIGTERM stops gracefully, exits 0 with a 'last' slot, and a rerun
 resumes from it.
 """
@@ -32,6 +41,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu_torch.cli import main as CLI  # noqa: E402
 from dose_prediction_tpu_torch.core.checkpoint import CheckpointManager, restore_checkpoint  # noqa: E402,E501
 from dose_prediction_tpu_torch.data.nifti import read_nifti  # noqa: E402
@@ -39,10 +50,12 @@ from dose_prediction_tpu_torch.data.openkbp import load_patient  # noqa: E402
 from dose_prediction_tpu_torch.data.synthetic import make_synthetic_dataset  # noqa: E402
 from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn  # noqa: E402
 
+from test_golden_hdunet_dosegan import _torch_dosegan_d, _torch_dosegan_g  # noqa: E402
 from test_torch_import import _torch_cascade  # noqa: E402  (the reference C3D replica)
 
 REPO = Path(__file__).resolve().parents[1]
 SIZE = 16
+GAN_SIZE = 32        # DoseGAN's five levels need 32³
 
 
 def run_cli(argv, capsys):
@@ -80,21 +93,22 @@ def trained(cohort):
 
 @pytest.mark.parametrize("argv,item", [
     (["train", "vitgan", "--data", "x"], "the vitgan model"),
-    (["train", "dosegan", "--data", "x"], "item 6"),
+    (["train", "exp", "--data", "x", "--model-size", "small"], "item 6"),
     (["eval", "--model", "vitgan", "--data", "x", "--ckpt", "c"], "item 6"),
     (["predict", "--model", "exp", "--data", "x", "--ckpt", "c", "--out-dir", "o"], "item 6"),
     (["train", "exp", "--data", "x"], "the exp model"),
-    (["eval", "--model", "dosegan", "--data", "x", "--ckpt", "c"], "the dosegan model"),
-    (["predict", "--model", "dosegan", "--data", "x", "--ckpt", "c", "--out-dir", "o"],
-     "the dosegan model"),
+    (["eval", "--model", "exp", "--data", "x", "--ckpt", "c"], "the exp model"),
+    (["predict", "--model", "vitgan", "--data", "x", "--ckpt", "c", "--out-dir", "o"],
+     "the vitgan model"),
     (["import-torch", "--kind", "resnet10", "--src", "a", "--dest", "b"], "kind resnet10"),
-    (["import-torch", "--kind", "dosegan-g", "--src", "a", "--dest", "b"], "kind dosegan-g"),
-    (["import-torch", "--kind", "dosegan-d", "--src", "a", "--dest", "b"], "kind dosegan-d"),
+    (["import-torch", "--kind", "vitgan-g", "--model-size", "small", "--src", "a", "--dest",
+      "b"], "item 6"),
+    (["train", "dosegan", "--data", "x", "--mesh", "data=4"], "item 7"),
     (["import-torch", "--kind", "vitgan-g", "--src", "a", "--dest", "b"], "kind vitgan-g"),
     (["train", "pyfer", "--data", "x", "--mesh", "data=4"], "item 7"),
     (["import-torch", "--kind", "exp-gen", "--src", "a", "--dest", "b"], "kind exp-gen"),
-    (["tune"], "train/tune.py"),
-    (["kfold"], "train/kfold.py"),
+    (["tune", "--data", "x", "--mesh", "data=4"], "item 7"),
+    (["kfold", "--data", "x", "--mesh", "data=2"], "item 7"),
     (["bench"], "bench_gpu.py"),
     (["doctor"], "item 7"),
 ])
@@ -109,7 +123,7 @@ def test_parser_covers_the_ported_subcommands():
     parser = CLI.build_parser()
     sub = next(a for a in parser._actions if a.dest == "cmd")
     assert {"train", "eval", "seg-eval", "predict", "infer", "score", "openkbp-prepare",
-            "import-torch"} <= set(sub.choices)
+            "import-torch", "tune", "kfold"} <= set(sub.choices)
     args = parser.parse_args(["train", "c3d", "--data", "x", "--scheduler", "cosine",
                               "--lr-encoder", "1e-3", "--t-max", "4"])
     assert (args.device, args.scheduler, args.t_max) == ("cuda", "cosine", 4)
@@ -207,6 +221,116 @@ def test_infer_writes_what_make_cascade_fn_gives(trained, cohort, tmp_path, seg_
     assert np.array_equal(read_nifti(out).data, want)
 
 
+def tune_argv(pattern, root, *extra):
+    return small("tune", "--data", pattern, "--epochs", "2", "--check-val", "1",
+                 "--sampler", "random", "--ckpt-dir", str(root / "tck"), "--log-dir",
+                 str(root / "tlog"), *extra)
+
+
+def test_tune_journals_resumes_and_guards_its_settings(tmp_path, cohort, capsys):
+    _, pattern = cohort
+    rc, res = run_cli(tune_argv(pattern, tmp_path, "--num-samples", "2"), capsys)
+    assert rc == 0 and set(res["best_config"]) == {"act", "multiS_conv", "lr", "weight_decay"}
+    journal = tmp_path / "tlog" / "trials.jsonl"
+    trials = [json.loads(line) for line in journal.read_text().splitlines()]
+    assert [t["trial_id"] for t in trials] == [0, 1]
+    assert res["best_value"] == min(t["last_value"] for t in trials)
+    for n in (0, 1):   # each trial's own slots and log; ASHA may stop it after round 1
+        assert (tmp_path / "tck" / f"trial_{n}" / "monitored").is_dir()
+        assert (tmp_path / "tlog" / f"trial_{n}" / "metrics.jsonl").exists()
+        rounds = [e for e, _ in trials[n]["report_log"]]
+        assert rounds == ([1] if trials[n]["stopped"] else [1, 2])
+        assert (tmp_path / "tck" / f"trial_{n}" / "last.pt").exists() == (rounds == [1, 2])
+    settings = json.loads((tmp_path / "tlog" / "tune_config.json").read_text())
+    assert settings == {"optimizer": "adam8bit", "model_size": "small", "feed_dtype": "float32"}
+    rc, _ = run_cli(tune_argv(pattern, tmp_path, "--num-samples", "3", "--resume"), capsys)
+    assert rc == 0
+    assert [json.loads(line)["trial_id"] for line in journal.read_text().splitlines()] == [0, 1, 2]
+    assert (tmp_path / "tlog" / "trial_2" / "metrics.jsonl").exists()   # not trial_0's
+    with pytest.raises(SystemExit, match="tune --resume"):
+        CLI.main(tune_argv(pattern, tmp_path, "--num-samples", "4", "--resume",
+                           "--optimizer", "adamw"))
+    assert len(journal.read_text().splitlines()) == 3
+
+
+def test_kfold_prints_each_folds_score(tmp_path, cohort, capsys):
+    _, pattern = cohort
+    rc, res = run_cli(small("kfold", "--data", pattern, "--folds", "2", "--epochs", "1",
+                            "--check-val", "1", "--ckpt-dir", str(tmp_path / "k"),
+                            "--log-dir", str(tmp_path / "kl")), capsys)
+    assert rc == 0 and sorted(res) == ["0", "1"]
+    assert all(np.isfinite(r["mean_dose_score"]) for r in res.values())
+    assert all((tmp_path / "k" / f"fold_{f}" / "last.pt").exists() for f in (0, 1))
+
+
+@pytest.fixture(scope="module")
+def gan_cohort(tmp_path_factory):
+    root = tmp_path_factory.mktemp("gan")
+    return root, make_synthetic_dataset(root / "data", n_patients=2, shape=(GAN_SIZE,) * 3,
+                                        seed=4)
+
+
+def gan_train(pattern, root, epochs, *extra):
+    return small("train", "dosegan", "--data", pattern, "--val-data", pattern, "--epochs",
+                 str(epochs), "--check-val", "1", "--samples-per-epoch", "1",
+                 "--ckpt-dir", str(root / "gck"), "--log-dir", str(root / "glog"), *extra)
+
+
+def test_dosegan_train_resume_eval_predict(gan_cohort, capsys):
+    root, pattern = gan_cohort
+    assert CLI.main(gan_train(pattern, root, 2)) == 0
+    assert CLI.main(gan_train(pattern, root, 3)) == 0
+    assert "resumed from epoch 1" in capsys.readouterr().out
+    last = restore_checkpoint(root / "gck" / "last.pt")
+    assert set(last) == {"g", "d", "epoch"} and last["epoch"] == 2
+    assert last["g"]["step"] == last["d"]["step"] == 3
+    assert last["g"]["optimizer"]["param_groups"][0]["lr"] == 2e-4     # the GAN's own rate
+    evaluate = small("eval", "--model", "dosegan", "--data", pattern, "--ckpt",
+                     str(root / "gck" / "last.pt"))
+    rc, host = run_cli(evaluate, capsys)
+    rc2, device = run_cli(evaluate + ["--device-metrics"], capsys)
+    assert rc == rc2 == 0 and np.isfinite(host["mean_dose_score"])
+    assert abs(device["mean_dose_score"] - host["mean_dose_score"]) <= \
+        1e-4 * abs(host["mean_dose_score"])
+    assert abs(device["mean_dvh_score"] - host["mean_dvh_score"]) <= \
+        1e-3 * abs(host["mean_dvh_score"])
+    assert CLI.main(small("predict", "--model", "dosegan", "--data", pattern, "--ckpt",
+                          str(root / "gck" / "last.pt"), "--out-dir", str(root / "gpred"))) == 0
+    assert sorted(p.name for p in (root / "gpred").iterdir()) == ["pt_0", "pt_1"]
+    assert CLI.main(small("train", "dosegan", "--data", pattern, "--epochs", "1",
+                          "--samples-per-epoch", "1", "--lr", "1e-3", "--ckpt-dir",
+                          str(root / "lr"), "--log-dir", str(root / "lrl"))) == 0
+    assert restore_checkpoint(root / "lr" / "last.pt")["d"]["optimizer"]["param_groups"][0][
+        "lr"] == 1e-3
+
+
+@pytest.mark.parametrize("kind", ["dosegan-g", "dosegan-d"])
+def test_import_dosegan_nets(tmp_path, gan_cohort, kind):
+    """A combined netG./netD. checkpoint (what a Lightning GAN saves) of
+    trained nets, and a bare reference-layout replica, each strictly."""
+    root, pattern = gan_cohort
+    if not (root / "gck" / "last.pt").exists():
+        assert CLI.main(gan_train(pattern, root, 1)) == 0
+    slot = restore_checkpoint(root / "gck" / "last.pt")
+    src = tmp_path / "gan.ckpt"
+    torch.save({"state_dict": {**{f"netG.{k}": v for k, v in slot["g"]["model"].items()},
+                               **{f"netD.{k}": v for k, v in slot["d"]["model"].items()}}}, src)
+    dest = tmp_path / "net.pt"
+    assert CLI.main(small("import-torch", "--kind", kind, "--src", str(src),
+                          "--dest", str(dest))) == 0
+    want = slot["g" if kind == "dosegan-g" else "d"]["model"]
+    got = restore_checkpoint(dest)
+    assert set(got) == set(want) and all(torch.equal(got[k], v) for k, v in want.items())
+    torch.manual_seed(0)
+    replica = _torch_dosegan_g(ngf=4) if kind == "dosegan-g" else _torch_dosegan_d(ndf=4)
+    bare = tmp_path / "replica.pth"
+    torch.save(replica.state_dict(), bare)
+    assert CLI.main(small("import-torch", "--kind", kind, "--src", str(bare),
+                          "--dest", str(dest))) == 0
+    got = restore_checkpoint(dest)
+    assert all(torch.equal(got[k], v) for k, v in replica.state_dict().items())
+
+
 def without_jax(tmp_path) -> dict:
     """An environment in which ``import jax`` and ``import dose_prediction_tpu``
     fail: shadow packages that raise, ahead of the repository on the path."""
@@ -216,10 +340,12 @@ def without_jax(tmp_path) -> dict:
         (shadow / name / "__init__.py").write_text(
             f"raise ImportError('{name} is not importable here')\n")
     return {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
-            "PYTHONPATH": f"{shadow}{os.pathsep}{REPO}", "HOME": str(tmp_path)}
+            "PYTHONPATH": f"{shadow}{os.pathsep}{REPO}", "HOME": str(tmp_path),
+            "OMP_NUM_THREADS": "1"}
 
 
-def test_cli_runs_where_jax_cannot_be_imported(tmp_path, cohort, trained):
+def test_cli_runs_where_jax_cannot_be_imported(tmp_path, cohort, trained,
+                                               gan_cohort):
     root, pattern = cohort
     env = without_jax(tmp_path)
     proc = subprocess.run([sys.executable, "-c", "import jax"], cwd=tmp_path, env=env,
@@ -250,6 +376,21 @@ def test_cli_runs_where_jax_cannot_be_imported(tmp_path, cohort, trained):
     assert linked.returncode == 0, linked.stderr[-2000:]
     assert np.isfinite(json.loads(linked.stdout[linked.stdout.rfind("\n{\n") + 1:])[
         "mean_dose_score"])
+    _, gan_pattern = gan_cohort
+    for name, argv in (
+            ("tune", tune_argv(pattern, tmp_path, "--num-samples", "1", "--epochs", "1")),
+            ("kfold", small("kfold", "--data", pattern, "--folds", "2", "--epochs", "1",
+                            "--max-steps", "1", "--ckpt-dir", str(tmp_path / "kf"),
+                            "--log-dir", str(tmp_path / "kfl"))),
+            ("dosegan", small("train", "dosegan", "--data", gan_pattern, "--epochs", "1",
+                              "--max-steps", "1", "--ckpt-dir", str(tmp_path / "gan"),
+                              "--log-dir", str(tmp_path / "ganl")))):
+        proc = subprocess.run([sys.executable, "-m", "dose_prediction_tpu_torch", *argv],
+                              cwd=tmp_path, env=env, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, (name, proc.stderr[-2000:])
+    assert (tmp_path / "tlog" / "trials.jsonl").exists()
+    assert (tmp_path / "gan" / "last.pt").exists()
 
 
 def test_sigterm_stops_gracefully_and_the_rerun_resumes(tmp_path, cohort):
@@ -262,7 +403,7 @@ def test_sigterm_stops_gracefully_and_the_rerun_resumes(tmp_path, cohort):
         "train", "pyfer", "--data", pattern, "--epochs", "100000", "--check-val", "100000",
         "--samples-per-epoch", "1", "--ckpt-dir", str(tmp_path / "ck"),
         "--log-dir", str(tmp_path / "log"))]
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     proc = subprocess.Popen(argv, cwd=tmp_path, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     last = tmp_path / "ck" / "last.pt"

@@ -591,3 +591,24 @@ def test_unpack_on_card_matches_the_cpu(card):
     for k in ("input", "gt"):
         assert gpu[k].device.type == "cuda"
         assert torch.equal(gpu[k].cpu().view(torch.int32), cpu[k].view(torch.int32)), k
+
+
+@pytest.mark.cuda
+def test_dosegan_step_on_card_matches_the_cpu(card, monkeypatch):
+    """One float32 DoseGAN step (ngf = ndf = 4, 32³, TF32 off) on the card
+    against the port on the CPU from the same weights, by chip_smoke.py's
+    gan_parity rule: both losses within rel 1e-5, each gradient leaf and
+    BatchNorm buffer within its own noise-run limit; no K1, K2 or K3."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    chip_smoke.zero_counts()
+    row = chip_smoke.gan_parity(card)
+    assert not row["failed"] and max(row["loss_rel_diff"].values()) <= 1e-5
+    assert row["worst_grad_ratio"] <= 1.0 and row["worst_buffer_ratio"] <= 1.0
+    assert not any(chip_smoke.read_counts().values())

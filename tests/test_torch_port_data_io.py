@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.data import native as JN  # noqa: E402
 from dose_prediction_tpu.data import nifti as JNI  # noqa: E402
 from dose_prediction_tpu.data import openkbp as JO  # noqa: E402

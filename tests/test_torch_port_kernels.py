@@ -15,6 +15,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu import ops as jops  # noqa: E402
 from dose_prediction_tpu.kernels.attention import fused_attention as j_fused  # noqa: E402
 from dose_prediction_tpu.kernels.attention import xla_attention  # noqa: E402

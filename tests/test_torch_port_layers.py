@@ -19,6 +19,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.nn.layers import Dense  # noqa: E402
 
 from dose_prediction_tpu_torch.nn.layers import Linear  # noqa: E402

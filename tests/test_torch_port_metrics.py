@@ -14,6 +14,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.data.nifti import write_nifti as jax_write_nifti  # noqa: E402
 from dose_prediction_tpu.evaluation import metrics as JM  # noqa: E402
 

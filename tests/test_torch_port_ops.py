@@ -15,6 +15,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu import ops as jops  # noqa: E402
 from dose_prediction_tpu.evaluation.metrics import postprocess_prediction_jax  # noqa: E402
 from dose_prediction_tpu.infer import sliding_window as jsw  # noqa: E402

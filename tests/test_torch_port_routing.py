@@ -22,6 +22,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.nn.layers import InstanceNorm as JInstanceNorm  # noqa: E402
 from dose_prediction_tpu.nn.vit import Attention as JAttention  # noqa: E402
 

@@ -22,6 +22,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.core import torch_import as TI  # noqa: E402
 from dose_prediction_tpu.infer.cascade import make_cascade_fn as jax_cascade_fn  # noqa: E402
 from dose_prediction_tpu.infer.pipeline import pipeline_map as jax_pipeline_map  # noqa: E402

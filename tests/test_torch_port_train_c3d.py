@@ -34,6 +34,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu import models as jmodels  # noqa: E402
 from dose_prediction_tpu.core import torch_import as TI  # noqa: E402
 from dose_prediction_tpu.train import losses as JL  # noqa: E402

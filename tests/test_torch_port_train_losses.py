@@ -14,6 +14,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.train import losses as JL  # noqa: E402
 
 from dose_prediction_tpu_torch.train import losses as L  # noqa: E402

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.core import torch_import as TI  # noqa: E402
 from dose_prediction_tpu.train import state as JS  # noqa: E402
 from dose_prediction_tpu.train import steps as JSTEP  # noqa: E402

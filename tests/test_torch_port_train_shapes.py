@@ -2,15 +2,18 @@
 tensors, against the lists chip_smoke.py holds each kernel at on the card.
 
 The full-width TranSeg on one 96³ crop and the full-width C3D cascade on a
-128³ volume, and the zoo phase's train steps (UNETR and the 'old' TranSeg
-on one 96³ crop, HD-UNet at 128³), bfloat16, run forward on the meta
+128³ volume, the zoo phase's train steps (UNETR and the 'old' TranSeg on
+one 96³ crop, HD-UNet at 128³), the DOSE-PYFERs a search trains
+(DualDilatedBlock stages, ReLU) and DoseGAN's generator and critic at
+128³, bfloat16, run forward on the meta
 device in training mode with the K3 routing on (no data, no arithmetic);
 each kernel wrapper is replaced by its plain version and records its input
 shapes. A backward launches no kernel (it recomputes the plain versions),
 so these are the step's launches. Every shape must be in chip_smoke.py's
 K1_SHAPES, K2_SHAPES or K3_SHAPES (K2 also in K2_F32_SHAPES for the zoo
-models, whose float32 parity runs at these shapes), and the counts are
-those PERF.md states.
+models, whose float32 parity runs at these shapes, and for the searched
+DOSE-PYFERs, which the CLI trains in float32), and the counts are those
+PERF.md states. DoseGAN launches none of the three kernels.
 """
 
 import collections
@@ -22,11 +25,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu_torch.core.config import FLAGS  # noqa: E402
 from dose_prediction_tpu_torch.kernels import attention as k1  # noqa: E402
 from dose_prediction_tpu_torch.kernels import conv3d as k3  # noqa: E402
 from dose_prediction_tpu_torch.kernels import instance_norm as k2  # noqa: E402
-from dose_prediction_tpu_torch.models import UNETR, CascadeC3D, HDUNet, TranSeg  # noqa: E402
+from dose_prediction_tpu_torch.models import (  # noqa: E402
+    UNETR,
+    CascadeC3D,
+    DosePyfer,
+    HDUNet,
+    NLayerDiscriminator,
+    TranSeg,
+    UnetGenerator3D,
+)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
@@ -61,11 +74,21 @@ def kernel_shapes(model, shape):
     ("transeg-old", lambda: TranSeg(out_ch=8, block_family="old", device="meta"),
      (1, 1, 96, 96, 96), {"K1": 12, "K2": 9, "K3": 10}),
     ("hdunet", lambda: HDUNet(device="meta"), (1, 9, 128, 128, 128),
-     {"K1": 0, "K2": 28, "K3": 3})])
+     {"K1": 0, "K2": 28, "K3": 3}),
+    ("pyfer-dual-mish", lambda: DosePyfer(multiS_conv=False, device="meta"), (1, 9, 128, 128, 128),
+     {"K1": 8, "K2": 58, "K3": 15}),
+    ("pyfer-dual-relu", lambda: DosePyfer(multiS_conv=False, act="relu", device="meta"),
+     (1, 9, 128, 128, 128), {"K1": 8, "K2": 58, "K3": 15}),
+    ("pyfer-relu", lambda: DosePyfer(act="relu", device="meta"), (1, 9, 128, 128, 128),
+     {"K1": 8, "K2": 50, "K3": 15}),
+    ("dosegan-g", lambda: UnetGenerator3D(device="meta"), (1, 9, 128, 128, 128),
+     {"K1": 0, "K2": 0, "K3": 0}),
+    ("dosegan-d", lambda: NLayerDiscriminator(device="meta"), (1, 1, 128, 128, 128),
+     {"K1": 0, "K2": 0, "K3": 0})])
 def test_train_step_kernel_shapes_are_held_by_chip_smoke(name, make, shape, calls):
     seen = kernel_shapes(make(), shape)
     lists = {"K1": chip_smoke.K1_SHAPES, "K2": chip_smoke.K2_SHAPES, "K3": chip_smoke.K3_SHAPES}
-    if name in ("unetr", "transeg-old", "hdunet"):
+    if name in ("unetr", "transeg-old", "hdunet") or name.startswith("pyfer"):
         lists["K2"] = [s for s in lists["K2"] if s in chip_smoke.K2_F32_SHAPES]
     unheld = sorted(key for key in seen if key[1] not in lists[key[0]])
     assert not unheld, f"{name}: shapes chip_smoke.py does not hold: {unheld}"

@@ -41,9 +41,18 @@ models; after three updates the packages' losses differ by 6.3e-4 and a
 the adam8bit trajectory is held by the second epoch's train loss within
 2e-3 only.
 
-Then the port against itself: an interrupted and resumed fit ends bit for
-bit where an uninterrupted one ends, and the resume guard refuses a
-changed ``act``.
+The port's CPU work runs in one torch thread (``one_torch_thread``): beside
+the JAX package's thread pool and five other test workers, more threads
+only contend. The thread count moves no bar: a bar that a reduction's
+order could move is a noise-run bar.
+
+The tests are split by trainer, so that ``--dist loadfile`` spreads them
+over workers: DOSE-PYFER here; the C3D cascade and TranSeg in
+tests/test_torch_port_trainers_seg_c3d.py; the port against itself (an
+interrupted and resumed fit ends bit for bit where an uninterrupted one
+ends, the resume guard refuses a changed ``act``, a mesh is refused) in
+tests/test_torch_port_trainers_resume.py. Those files take this file's
+helpers and fixtures.
 """
 import contextlib
 import json
@@ -57,10 +66,11 @@ import jax
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.cli import main as JCLI  # noqa: E402
 from dose_prediction_tpu.data import native as JN  # noqa: E402
 from dose_prediction_tpu.data.openkbp import OpenKBPDataset as JDataset  # noqa: E402
-from dose_prediction_tpu.models import CascadeC3D as JCascadeC3D  # noqa: E402
 from dose_prediction_tpu.train import trainers as JT  # noqa: E402
 
 from dose_prediction_tpu_torch import weights  # noqa: E402
@@ -206,12 +216,16 @@ def noise_runs(make, fit, amplitude):
     return runs
 
 
-def check_epochs(port, ref, runs, loss_key, shown):
+def check_epochs(port, ref, runs, loss_key, shown, strict_first=True):
     """The first epoch's train loss within rel 1e-5; each later epoch's
     within max(1e-5, 2 × the noise runs' largest relative gap); the
-    validation metrics after updates printed (module docstring)."""
-    assert rel_close(port[loss_key][0], ref[loss_key][0], REL_EPOCH), (port, ref)
-    for e in range(1, len(ref[loss_key])):
+    validation metrics after updates printed (module docstring). Without
+    ``strict_first`` the first epoch too is held by the noise rule: where
+    a first epoch of several steps holds losses after an update that the
+    order of a reduction moves (the C3D trainer's, in its test)."""
+    if strict_first:
+        assert rel_close(port[loss_key][0], ref[loss_key][0], REL_EPOCH), (port, ref)
+    for e in range(1 if strict_first else 0, len(ref[loss_key])):
         noise = max(abs(r[loss_key][e] - port[loss_key][e]) for _, r in runs)
         limit = max(REL_EPOCH, 2 * noise / abs(port[loss_key][e]))
         gap = abs(port[loss_key][e] - ref[loss_key][e]) / abs(ref[loss_key][e])
@@ -303,145 +317,3 @@ def jtr_validate(jtr, jds):
         scores.append(float(out["dose_score"]))
         vlosses.append(float(out["val_loss"]))
     return {"mean_dose_score": -float(np.mean(scores)), "val_loss": float(np.mean(vlosses))}
-
-
-@pytest.mark.parametrize("sched", [
-    dict(scheduler="cosine", t_max=4, lr_encoder=1e-3, lr_decoder=2e-3),
-    dict(scheduler="plateau", learning_rate=1e-3),
-])
-def test_cascade_c3d_trainer_matches_jax(tmp_path, cohort32, sched):
-    ds, jds = cohort32
-    jcfg, cfg = configs(tmp_path, "c", **sched)
-    jtr = JT.CascadeC3DTrainer(jcfg, model=JCascadeC3D(
-        out_ch=1, list_ch_A=CLI.SMALL_LIST_CH, list_ch_B=CLI.SMALL_LIST_CH),
-        example_shape=SHAPE32)
-    start = variables_of(jtr.state)
-    plateau = sched["scheduler"] == "plateau"
-
-    def never_improves(trainer):       # a plateau that never improves: the rate halves
-        if plateau:
-            trainer.plateau.patience, trainer.plateau.best = 0, -np.inf
-        return trainer
-
-    def make(tag):
-        model = CLI.small_c3d(device="cpu")
-        model.load_state_dict(weights.jax_to_torch(start, model), strict=True)
-        return never_improves(T.CascadeC3DTrainer(configs(tmp_path, tag, **sched)[1],
-                                                  model=model, example_shape=SHAPE32))
-
-    never_improves(jtr)
-    tr = make("c")
-    init = state_numpy(tr.model)
-    x = next(jax_val_batches(jds))["input"]
-    amplitude = noise_amplitude(tr.predict(torch.from_numpy(np.asarray(x))),
-                                jtr._predict(jtr.state.params, x))
-    scores = ("mean_dose_score", "mean_dvh_score")
-    assert_close_dict(tr.test(ds), jtr.test(jds), scores, REL_TEST)
-    jtr.fit(jds, jds, resume=False)
-    tr.fit(ds, ds, resume=False)
-    runs = noise_runs(make, lambda t: t.fit(ds, ds, resume=False), amplitude)
-    port, ref = records(cfg.log_dir), records(jcfg.log_dir)
-    check_epochs(port, ref, runs, "train_mean_loss", ("mean_dose_score",))
-    if plateau:
-        from dose_prediction_tpu.train import state as JS
-        from dose_prediction_tpu_torch.train import state as S
-
-        assert S.get_learning_rate(tr.state.optimizer) == pytest.approx(
-            JS.get_learning_rate(jtr.state.opt_state)) == pytest.approx(2.5e-4)
-        assert port["lr"] == ref["lr"]
-    lr = max(sched.get("lr_decoder", 0.0), sched.get("learning_rate", 0.0))
-    assert_params_by_noise_rule(init, state_numpy(tr.model), [r for r, _ in runs],
-                                jax_state_numpy(jtr.state, tr.model), ZERO_GRAD_C3D, lr, 4)
-    tr.model.load_state_dict(weights.jax_to_torch(variables_of(jtr.state), tr.model))
-    assert_close_dict(tr.test(ds), jtr.test(jds), scores, REL_TEST)
-
-
-def test_transeg_trainer_matches_jax(tmp_path, cohort32):
-    ds, jds = cohort32
-    jcfg, cfg = configs(tmp_path, "s", batch_size=2)
-    crop = (SIZE32,) * 3
-    jtr = JT.TranSegTrainer(jcfg, model=JCLI.default_seg_model(small=True), crop=crop)
-    start = variables_of(jtr.state)
-
-    def make(tag):
-        model = CLI.default_seg_model(small=True, img_size=crop, device="cpu")
-        model.load_state_dict(weights.jax_to_torch(start, model), strict=True)
-        return T.TranSegTrainer(configs(tmp_path, tag, batch_size=2)[1], model=model, crop=crop)
-
-    tr = make("s")
-    init = state_numpy(tr.model)
-    ct = jds.patients[0].ct[None, ..., None]
-    with torch.no_grad():
-        port_logits = tr.model.eval()(torch.from_numpy(np.ascontiguousarray(
-            ct.transpose(0, 4, 1, 2, 3))))
-    jax_logits, _ = jtr.model.apply(start, ct, train=False, mutable=["batch_stats"])
-    amplitude = noise_amplitude(port_logits.numpy(),
-                                np.asarray(jax_logits).transpose(0, 4, 1, 2, 3))
-    # before any update: Dice, HD95 and the val loss of the sliding-window sweep
-    assert rel_close(tr.validate(ds, sw_batch_size=2), jtr.validate(jds, sw_batch_size=2),
-                     REL_EPOCH)
-    jtr.fit(jds, jds, num_samples=2, resume=False)
-    tr.fit(ds, ds, num_samples=2, resume=False)
-    runs = noise_runs(make, lambda t: t.fit(ds, ds, num_samples=2, resume=False), amplitude)
-    port, ref = records(cfg.log_dir), records(jcfg.log_dir)
-    check_epochs(port, ref, runs, "train_loss", ("val_loss", "dice_metric"))
-    assert_params_by_noise_rule(init, state_numpy(tr.model), [r for r, _ in runs],
-                                jax_state_numpy(jtr.state, tr.model), ZERO_GRAD_CONV31,
-                                cfg.learning_rate, int(jtr.state.step))
-    tr.model.load_state_dict(weights.jax_to_torch(variables_of(jtr.state), tr.model))
-    got = tr.validate(ds, sw_batch_size=2)
-    assert rel_close(got, (ref["dice_metric"][-1], ref["hd95_metric"][-1], ref["val_loss"][-1]),
-                     REL_EPOCH), (got, ref)
-
-
-def port_pyfer(seed=0):
-    return T.seeded(seed, lambda: CLI.default_flagship_model(small=True, img_size=(SIZE,) * 3,
-                                                             device="cpu"))
-
-
-@pytest.mark.parametrize("kind", ["adamw", "adam8bit"])
-def test_interrupted_fit_resumes_bit_for_bit(tmp_path, cohort, kind):
-    ds, _ = cohort
-    kw = dict(check_val=1, optimizer=kind, device="cpu", feed_dtype="packed")
-    whole = T.PyferTrainer(T.TrainConfig(max_epochs=3, ckpt_dir=str(tmp_path / "w"),
-                                         log_dir=str(tmp_path / "wl"), **kw),
-                           model=port_pyfer(), example_shape=SHAPE)
-    whole.fit(ds, ds)
-    first = T.PyferTrainer(T.TrainConfig(max_epochs=3, max_steps=2, ckpt_dir=str(tmp_path / "r"),
-                                         log_dir=str(tmp_path / "rl"), **kw),
-                           model=port_pyfer(), example_shape=SHAPE)
-    first.fit(ds, ds)
-    assert first.state.step == 2
-    resumed = T.PyferTrainer(T.TrainConfig(max_epochs=3, ckpt_dir=str(tmp_path / "r"),
-                                           log_dir=str(tmp_path / "rl"), **kw),
-                             model=port_pyfer(seed=5), example_shape=SHAPE)
-    resumed.fit(ds, ds)
-    assert resumed.state.step == whole.state.step == 6
-    assert resumed.state.moving_loss == whole.state.moving_loss
-    a, b = state_numpy(resumed.model), state_numpy(whole.model)
-    assert all(np.array_equal(a[k], b[k]) for k in b)
-    assert records(tmp_path / "rl")["val_loss"] == records(tmp_path / "wl")["val_loss"]
-    # the best slot holds the best validation of the whole run
-    assert resumed.ckpt.best_step() == whole.ckpt.best_step()
-
-
-def test_resume_guard_refuses_a_changed_act(tmp_path, cohort, monkeypatch):
-    ds, _ = cohort
-    cfg = T.TrainConfig(max_epochs=1, check_val=5, device="cpu", ckpt_dir=str(tmp_path / "g"),
-                        log_dir=str(tmp_path / "gl"))
-    T.PyferTrainer(cfg, model=port_pyfer(), example_shape=SHAPE).fit(ds)
-    relu = CLI.default_flagship_model(small=True, act="relu", img_size=(SIZE,) * 3,
-                                      device="cpu")
-    cfg2 = T.TrainConfig(**{**cfg.__dict__, "max_epochs": 2})
-    with pytest.raises(RuntimeError, match="act"):
-        T.PyferTrainer(cfg2, model=relu, example_shape=SHAPE).fit(ds)
-    monkeypatch.setenv("DPT_FRESH_ON_MISMATCH", "1")
-    fresh = T.PyferTrainer(cfg2, model=relu, example_shape=SHAPE)
-    fresh.fit(ds)
-    assert fresh.state.step == 4          # started over: two epochs of two steps
-
-
-def test_mesh_shape_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        T.PyferTrainer(T.TrainConfig(mesh_shape={"data": 2}, device="cpu"),
-                       model=port_pyfer(), example_shape=SHAPE)

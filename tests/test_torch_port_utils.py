@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu.utils import logging as JLOG  # noqa: E402
 
 from dose_prediction_tpu_torch.utils import logging as LOG  # noqa: E402

@@ -32,6 +32,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu import ops as jops  # noqa: E402
 from dose_prediction_tpu.nn import mdunet as jmd  # noqa: E402
 from dose_prediction_tpu.nn import separable as jsep  # noqa: E402

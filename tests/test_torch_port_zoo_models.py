@@ -30,6 +30,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from dose_prediction_tpu import models as jmodels  # noqa: E402
 from dose_prediction_tpu.core import torch_import as TI  # noqa: E402
 
@@ -48,18 +50,6 @@ import test_torch_port_zoo_blocks as B  # noqa: E402
 
 CFG, SIZE, TOL, REF_TOL = M.CFG, M.SIZE, M.TOL, 1e-5
 HD = dict(growth_rate=4, upsample_chan=8)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's CPU work in one thread: beside the JAX package's thread
-    pool and five other test workers, more threads only contend (a tier-1
-    run of tests/test_torch_port_zoo_train.py took 20 times its time alone
-    at the default)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def port_transeg(seed=0, **kw):

@@ -106,9 +106,14 @@ NOISE_RUNS = 3      # HD-UNet trainer: the port's fit is ~2 s, its spread worth 
 
 @pytest.fixture(autouse=True)
 def one_torch_thread():
-    """The port's CPU work in one thread: beside the JAX package's thread
-    pool and five other test workers, more threads only contend (a tier-1
-    run of this file took 20 times its time alone at the default)."""
+    """The port's CPU work in one thread, test by test (tests/torch_threads.py
+    says why). Function-scoped, unlike that module's: ``hdunet_step``, a
+    module fixture, computes the port's float32 gradient at torch's default
+    thread count, the order under which
+    ``test_simple_dose_step_is_exact_in_float64`` holds it within 1e-3 of
+    the exact gradient (4.54e-4); in one thread its sums take another order
+    and flip a ReLU input, as the JAX package's float32 step does, and the
+    port's departure is 2.34e-3."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
