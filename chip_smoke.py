@@ -165,6 +165,28 @@ Phases, each printing its seconds on a line of its own:
             --resume with --num-samples 4 (exactly one more trial), kfold
             --folds 2 --epochs 1 (each fold's score). Any K2 or K3 launch of
             the phase at a shape the kernels phase did not hold fails it;
+23. exp_gan the experiments zoo and ViT-GAN, after hpo_gan, on the data
+            phase's cohort: one full-width float32 forward (TF32 off) through
+            the kernels and through the plain versions of ViT-GAN's and the
+            exp model's generators, SharedEncoderModel, ExperimentalCascade
+            (C3D widths) and SharedUNetRModel (within DOSE_TOL_OF_SCALE, K1
+            and K2 launched where the model has them, K3 not); the ViT-GAN
+            step (a narrow generator, hidden size 64 with 2 heads, feature
+            size 2; ResNet-10 of widths 4-32; 32³, float32, TF32 off) on the
+            card against the CPU with train_d on, off, and
+            freeze_d with a mask (g_loss within 1e-5, d_loss and each
+            gradient leaf by its own noise-run limit, frozen leaves bit-unchanged with their
+            moments moved); the full-width ViT-GAN step (ResNet-10 critic)
+            and the full-width exp deep-supervision step, float32 at TF32
+            defaults: a warm-up and three steps, p50, peak memory, K1/K2/K3
+            launches a step, K2 calls by shape; the CLI: train vitgan with a
+            seeded MedicalNet-layout --pretrained-critic and --unfreeze-epoch
+            1 over two one-step epochs (both optimizers restarted at epoch
+            1), train exp, eval and predict of both, and import-torch
+            --kind resnet10, vitgan-g and exp-gen (bit-equal). Any K2 or K3
+            launch of the phase (but the narrow step's) at a shape the
+            kernels phase did not hold, and any K1 launch at a shape not in
+            K1_SHAPES, fails it;
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -197,8 +219,10 @@ DOSE_TOL_OF_SCALE = 1e-3     # f32 cascade: |dose_kernels - dose_plain| ≤ 1e-3
 LABEL_AGREEMENT_MIN = 0.999
 
 # TranSeg windows, DOSE-PYFER, the dense TranSeg at 128³ (8³ tokens), the
-# TranSeg train step (one 96³ crop)
-K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (1, 12, 512, 64), (1, 12, 216, 64)]
+# TranSeg train step (one 96³ crop); the ViT generators' sliding-window
+# evaluation (four 128³ windows a batch, exp_gan)
+K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (1, 12, 512, 64), (1, 12, 216, 64),
+             (4, 6, 512, 128)]
 # every shape a bf16 serve request gives K2: the TranSeg windows' (8 per
 # call) decoder levels, then DOSE-PYFER's at 128³ (the dense TranSeg's five
 # shapes are among these: the dense phase fails on any other); then the
@@ -232,10 +256,18 @@ K2_F32_SHAPES = [(1, 16, 128, 128, 128), (8, 16, 96, 96, 96),
                  # DOSE-PYFER's at 128³ that a float32 search trial or fold
                  # gives it (hpo_gan; tests/test_torch_port_train_shapes.py)
                  (1, 32, 64, 64, 64), (1, 32, 32, 32, 32), (1, 128, 16, 16, 16),
-                 (1, 256, 8, 8, 8)]
+                 (1, 256, 8, 8, 8),
+                 # exp_gan: ExperimentalCascade's net_B bottom level, then the ViT
+                 # generators' sliding-window evaluation (sw batch 4 over one
+                 # 128³ window: the batch repeats it)
+                 (1, 512, 8, 8, 8), (4, 16, 128, 128, 128), (4, 32, 64, 64, 64),
+                 (4, 32, 32, 32, 32), (4, 64, 32, 32, 32), (4, 128, 16, 16, 16)]
 # the zoo phase's K2 shapes that no earlier phase holds (the kernels line
 # lists each with its launches in the zoo HD-UNet train steps)
 K2_ZOO_SHAPES = K2_SHAPES[21:]
+# the float32 K2 shapes only exp_gan gives (the kernels line lists each with
+# its launches in that phase)
+K2_EXP_GAN_SHAPES = K2_F32_SHAPES[-6:]
 # every shape a bf16 serve_k3 request gives K3: C3D / DOSE-PYFER levels 1-3
 # at 128³, the TranSeg windows' levels at 96³, then the decoders' two
 # narrower convs (appended, so that K3_SHAPES[3] stays the kernels line's);
@@ -292,6 +324,14 @@ GAN_ZERO_GRAD_BIAS = (r"^(g\.initial_block\.0|d\.model\.[06]|.*\.(downsample|poo
                       r"|.*\.intermediate\.1)\.bias$")
 # the searches: trials and epochs (tune's ASHA sees one round an epoch)
 TUNE_SAMPLES, TUNE_EPOCHS = 3, 2
+# exp_gan: timed full-width steps; ViT-GAN's rates and δ3 and the exp
+# step's GenLoss weights (train/gan.py, train/trainers.py defaults); the
+# card-against-CPU step at the small width on 32³
+EXP_GAN_STEPS = 3
+VITGAN_G_LR, VITGAN_D_LR, VITGAN_DELTA3 = 1e-4, 5e-3, 2.0
+EXP_DELTA1, EXP_DELTA2 = 10.0, 8.0
+VITGAN_PARITY_SIZE, VITGAN_PARITY_WIDTHS, VITGAN_NOISE_RUNS = 32, (4, 8, 16, 32), 3
+VITGAN_PARITY_VIT = dict(hidden_size=64, mlp_dim=128, num_layers=2, num_heads=2, feature_size=2)
 
 
 def log(msg: str) -> None:
@@ -2782,6 +2822,400 @@ def phase_hpo_gan(dev, data, root):
     return row
 
 
+@contextlib.contextmanager
+def k1_launched_shapes():
+    """Every K1 launch while the context is open, counted by (shape, dtype)."""
+    import collections
+
+    from dose_prediction_tpu_torch.kernels import attention as k1
+
+    seen = collections.Counter()
+    direct = k1._direct
+
+    def record(q, *args):
+        seen[(tuple(q.shape), q.dtype)] += 1
+        return direct(q, *args)
+
+    with mock.patch.object(k1, "_direct", record):
+        yield seen
+
+
+def exp_zoo_model(name, dev, seed):
+    """A full-width model of the experiments zoo, weights drawn on the card
+    from ``seed``, norms off 1/0."""
+    from dose_prediction_tpu_torch.models import experiments as E
+    from dose_prediction_tpu_torch.nn.init import init_params
+
+    make = {"vitgan": lambda: E.vitgan_generator(device=dev),
+            "exp": lambda: E.exp_generator(device=dev),
+            "shared_encoder": lambda: E.SharedEncoderModel(device=dev),
+            "experimental_cascade": lambda: E.ExperimentalCascade(device=dev),
+            "shared_unetr": lambda: E.SharedUNetRModel(device=dev),
+            "resnet10": lambda: E.resnet10(device=dev)}[name]
+    g = torch.Generator(dev).manual_seed(seed)
+    return perturb_norms([init_params(make(), g)], g)[0]
+
+
+def flat_outputs(out):
+    return [out] if torch.is_tensor(out) else [t for o in out for t in flat_outputs(o)]
+
+
+@torch.inference_mode()
+def exp_forward_parity(dev, kernels) -> dict:
+    """One float32 forward (TF32 off, K3 routing off) of each full-width zoo
+    model through the kernels and with the plain versions swapped in: every
+    output within DOSE_TOL_OF_SCALE of the plain run's largest |value|; K1
+    launched where the model has a ViT, K2 launched, K3 not."""
+    x = seeded_batch(dev, torch.float32)["input"].permute(0, 4, 1, 2, 3).contiguous()
+    rows = {}
+    for name in ("vitgan", "exp", "shared_encoder", "experimental_cascade", "shared_unetr"):
+        model = exp_zoo_model(name, dev, SEED + 13).eval()
+        with k3_routing(False):
+            zero_counts()
+            out_k = flat_outputs(model(x))
+            torch.cuda.synchronize()
+            launches = read_counts()
+            with plain_kernels(*kernels):
+                out_p = flat_outputs(model(x))
+            torch.cuda.synchronize()
+        value = max(((k - p).abs().max() / p.abs().max()).item() for k, p in zip(out_k, out_p))
+        finite = all(bool(torch.isfinite(k).all()) for k in out_k)
+        vit = name != "experimental_cascade"
+        rows[name] = {"max |kernels - plain| / max |plain|": value, "launches": launches,
+                      "outputs": len(out_k)}
+        log(f"exp_gan parity {name} f32 (TF32 off): max |kernels - plain| / max |plain| over "
+            f"{len(out_k)} outputs {value:.6g}; launches {launches}")
+        if not (finite and value <= DOSE_TOL_OF_SCALE and launches["instance_norm"] > 0
+                and (launches["attention"] > 0) == vit and launches["conv3d_k3"] == 0):
+            raise AssertionError(f"exp_gan parity {name} failed: {rows[name]}")
+        del model, out_k, out_p
+        free_memory()
+    return rows
+
+
+@contextlib.contextmanager
+def scaled_norm_noise(seed, dev, amplitude=TRAIN_PARITY_NOISE):
+    """Each InstanceNorm and Linear output × (1 + amplitude·u) and each
+    BatchNorm output plus amplitude·u × its channel's largest |value| (u
+    seeded uniform in [-1, 1], kept out of the gradient): the noise run of
+    tests/test_torch_port_vitgan.py."""
+    from dose_prediction_tpu_torch.nn.layers import InstanceNorm3d, Linear
+
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def noisy(forward):
+        def run(self, inp):
+            out = forward(self, inp)
+            u = torch.rand(out.shape, generator=g, device=out.device) * 2 - 1
+            return out + (out * (amplitude * u)).detach()
+        return run
+
+    with mock.patch.object(InstanceNorm3d, "forward", noisy(InstanceNorm3d.forward)), \
+            mock.patch.object(Linear, "forward", noisy(Linear.forward)), \
+            channel_scaled_bn_noise(seed + 100, dev, amplitude):
+        yield
+
+
+def vitgan_parity(dev) -> dict:
+    """One float32 ViT-GAN step (TF32 off) of a narrow generator
+    (VITGAN_PARITY_VIT: head dim 32, the least K1 takes) and a ResNet-10 of
+    VITGAN_PARITY_WIDTHS on a seeded VITGAN_PARITY_SIZE³ batch,
+    on the card and on the CPU from the same weights, in each mode: train_d,
+    no train_d, freeze_d with the mask of every critic leaf but fc. g_loss
+    within rel 1e-5, d_loss (after the generator's update) within max(1e-5,
+    2 × its departure in the noise runs); each gradient leaf within max(1e-3, 2 × its largest
+    departure in VITGAN_NOISE_RUNS noise runs on the card) × its max |g| (a
+    floor of 2e-6 × the net's largest |g|); without train_d the critic
+    unchanged and d_loss 0; with freeze_d the masked leaves bit-unchanged
+    and their first moments nonzero."""
+    from dose_prediction_tpu_torch.models import experiments as E
+    from dose_prediction_tpu_torch.train import gan
+    from dose_prediction_tpu_torch.train import state as S
+    from dose_prediction_tpu_torch.train.trainers import seeded
+
+    cpu, size = torch.device("cpu"), VITGAN_PARITY_SIZE
+
+    def generator(device):          # K1 takes head dims 32, 64 and 128
+        return E.VitGenerator(img_size=size, mode_multi_dec=True, act="mish",
+                              multiS_conv=False, device=device, **VITGAN_PARITY_VIT)
+
+    g0 = seeded(SEED + 14, lambda: generator(cpu))
+    d0 = seeded(SEED + 15, lambda: E.resnet10(widths=VITGAN_PARITY_WIDTHS, device=cpu))
+    mask = {n: not n.startswith("fc.") for n, _ in d0.named_parameters()}
+    gen = torch.Generator().manual_seed(SEED + 16)
+    shape = (1, size, size, size)
+    dmask = (torch.rand((*shape, 1), generator=gen) < 0.7).float()
+    batch = {"input": torch.randn((*shape, 9), generator=gen),
+             "gt": torch.cat([torch.rand((*shape, 1), generator=gen) * dmask, dmask], dim=-1)}
+    modes = {"train_d": dict(train_d=True), "no_train_d": dict(train_d=False),
+             "freeze_d": dict(train_d=True, freeze_d=True)}
+
+    def run(device, mode, noise=contextlib.nullcontext()):
+        g = generator(device)
+        d = E.resnet10(widths=VITGAN_PARITY_WIDTHS, device=device)
+        g.load_state_dict(g0.state_dict())
+        d.load_state_dict(d0.state_dict())
+        g_opt = S.make_optimizer(g, learning_rate=VITGAN_G_LR)
+        d_opt = S.make_optimizer(d, learning_rate=VITGAN_D_LR)
+        step = gan.make_vitgan_train_step(g, d, g_opt, d_opt, delta3=VITGAN_DELTA3,
+                                          delta1=EXP_DELTA1, delta2=EXP_DELTA2,
+                                          d_freeze_mask=mask)
+        with noise:
+            gs, ds, info = step(S.TrainState(g, g_opt), S.TrainState(d, d_opt),
+                                {k: v.to(device) for k, v in batch.items()}, **modes[mode])
+        nets = (("g", g), ("d", d))
+        return {"losses": (float(info["g_loss"]), float(info["d_loss"])),
+                "steps": (gs.step, ds.step),
+                "grads": {f"{t}.{n}": p.grad.detach().cpu() for t, m in nets
+                          for n, p in m.named_parameters() if p.grad is not None},
+                "d": {n: p.detach().cpu() for n, p in d.named_parameters()},
+                "mu": {n: d_opt.state[p]["mu"].cpu() for n, p in d.named_parameters()
+                       if p in d_opt.state}}
+
+    noise_runs = [run(dev, "train_d", scaled_norm_noise(SEED + i, dev))
+                  for i in range(VITGAN_NOISE_RUNS)]
+    noisy = [r["grads"] for r in noise_runs]
+    rows, failed = {}, []
+    for mode in modes:
+        card, host = run(dev, mode), run(cpu, mode)
+        rel = [abs(c - h) / abs(h) if h else abs(c) for c, h in zip(card["losses"],
+                                                                     host["losses"])]
+        # d_loss follows the generator's update of the same step: Adam's first
+        # update turns rounding-sized gradients into ±lr, so it is held by
+        # the noise runs' own departure
+        d_noise = max(abs(r["losses"][1] - card["losses"][1]) for r in noise_runs)
+        d_limit = max(1e-5, 2 * d_noise / abs(host["losses"][1])) if host["losses"][1] else 0.0
+        worst = {}
+        for net in ("g", "d"):
+            names = [n for n in host["grads"] if n.startswith(f"{net}.")]
+            if not names:
+                continue
+            g_max = max(host["grads"][n].abs().max().item() for n in names)
+            for n in names:
+                scale = host["grads"][n].abs().max().item()
+                departure = max((r[n] - card["grads"][n]).abs().max().item() for r in noisy)
+                err = (card["grads"][n] - host["grads"][n]).abs().max().item()
+                worst[n] = err / max(max(1e-3, 2 * departure / max(scale, 1e-30)) * scale,
+                                     2e-6 * g_max)
+        ok = rel[0] <= 1e-5 and rel[1] <= max(d_limit, 1e-5) and \
+            all(v <= 1.0 for v in worst.values()) and card["steps"] == host["steps"]
+        if mode == "no_train_d":
+            ok = ok and card["losses"][1] == 0.0 and card["steps"] == (1, 0) and \
+                all(torch.equal(card["d"][n], p.detach()) for n, p in d0.named_parameters())
+        if mode == "freeze_d":
+            held = all(torch.equal(card["d"][n], p.detach()) == mask[n]
+                       for n, p in d0.named_parameters())
+            moved = all(card["mu"][n].abs().max().item() > 0 for n in mask if mask[n])
+            ok = ok and held and moved
+        wl = max(worst, key=worst.get)
+        rows[mode] = {"loss_rel_diff": rel, "d_loss_limit": d_limit,
+                      "worst_grad_ratio": worst[wl],
+                      "worst_grad_leaf": wl, "leaves": len(worst), "steps": card["steps"]}
+        log(f"exp_gan: ViT-GAN f32 step ({mode}, TF32 off, generator {VITGAN_PARITY_VIT}, "
+            f"ResNet-10 "
+            f"{VITGAN_PARITY_WIDTHS}, {size}³) card against CPU: g_loss {card['losses'][0]} / "
+            f"{host['losses'][0]}, d_loss {card['losses'][1]} / {host['losses'][1]}, "
+            f"relative diffs {rel} (limits 1e-5, d_loss {d_limit:.3g}: twice its noise runs' "
+            f"departure, floor 1e-5); worst gradient leaf err / its per-leaf limit "
+            f"{worst[wl]:.3g} ({wl}) over {len(worst)} leaves; steps {card['steps']}")
+        if not ok:
+            failed.append(mode)
+    if failed:
+        raise AssertionError(f"exp_gan: ViT-GAN step parity failed in {failed}: {rows}")
+    return rows
+
+
+def exp_gan_steps(dev) -> dict:
+    """One warm-up and EXP_GAN_STEPS timed full-width steps, float32 at
+    PyTorch's TF32 defaults (as the trainers compute): ViT-GAN's (its
+    generator and a ResNet-10 critic, Adam at the trainer's rates, critic
+    trained) and the exp model's deep-supervision step (AdamW at TRAIN_LR /
+    TRAIN_WD). p50, peak memory, K1/K2/K3 launches a step (K1 and K2 in
+    every step, K3 in none), K2 calls by shape."""
+    from dose_prediction_tpu_torch.train import gan
+    from dose_prediction_tpu_torch.train import state as S
+    from dose_prediction_tpu_torch.train import steps as STEP
+
+    batch = seeded_batch(dev, torch.float32)
+    rows = {}
+    for name in ("vitgan", "exp"):
+        free_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        g = exp_zoo_model(name, dev, SEED + 17)
+        if name == "vitgan":
+            d = exp_zoo_model("resnet10", dev, SEED + 18)
+            g_opt = S.make_optimizer(g, learning_rate=VITGAN_G_LR)
+            d_opt = S.make_optimizer(d, learning_rate=VITGAN_D_LR)
+            inner = gan.make_vitgan_train_step(g, d, g_opt, d_opt, delta3=VITGAN_DELTA3,
+                                               delta1=EXP_DELTA1, delta2=EXP_DELTA2)
+            states = [S.TrainState(g, g_opt), S.TrainState(d, d_opt)]
+
+            def step(_, b):
+                states[0], states[1], info = inner(states[0], states[1], b)
+                return None, info["g_loss"]
+        else:
+            opt = S.make_optimizer(g, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+            train = STEP.make_deep_supervision_train_step(g, opt, delta1=EXP_DELTA1,
+                                                          delta2=EXP_DELTA2)
+            states = [S.TrainState(g, opt)]
+
+            def step(_, b):
+                states[0], loss = train(states[0], b)
+                return None, loss
+        with torch_default_tf32(), k3_routing(False), launched_shapes() as seen:
+            _, loss0, steps = timed_steps(dev, step, None, batch, EXP_GAN_STEPS)
+        times = [r["s"] for r in steps]
+        row = {"p50_s": p50(times), "times_s": times,
+               "losses": [loss0] + [r["loss"] for r in steps],
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               "launches_per_step": steps[-1]["launches"],
+               "recomputes_per_step": steps[-1]["recomputes"],
+               "shapes": {k: v // (EXP_GAN_STEPS + 1) for k, v in shape_counts(seen).items()}}
+        rows[name] = row
+        log(f"exp_gan: {name} step (full width, 128³, float32 at TF32 defaults): step seconds "
+            f"{times}, p50 {row['p50_s']} s; peak memory {row['peak_gib']:.2f} GiB; losses "
+            f"(warm-up first) {row['losses']}; launches per step {row['launches_per_step']}, "
+            f"recomputes per step {row['recomputes_per_step']}; K2 calls a step by shape "
+            f"{row['shapes']}")
+        if not (all(math.isfinite(v) for v in row["losses"])
+                and all(r["launches"]["attention"] > 0 and r["launches"]["instance_norm"] > 0
+                        and r["launches"]["conv3d_k3"] == 0 for r in steps)):
+            raise AssertionError(f"exp_gan: the {name} step check failed: {row}")
+        del g, states, step, steps
+    free_memory()
+    return rows
+
+
+def write_medicalnet(path: Path, dev) -> dict:
+    """A MedicalNet-layout resnet_10 pickle: a seeded full-width ResNet-10's
+    entries without fc, under DataParallel's 'module.' prefix. Returns its
+    state dict."""
+    d = exp_zoo_model("resnet10", dev, SEED + 19)
+    sd = {k: v.cpu() for k, v in d.state_dict().items() if not k.startswith("fc.")}
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, path)
+    return sd
+
+
+def exp_gan_cli(dev, data, root) -> dict:
+    """The CLI's ViT-GAN and exp model at full width on the data phase's
+    cohort (three patients, validating on the fourth; float32 at TF32
+    defaults): train vitgan --pretrained-critic (a seeded MedicalNet-layout
+    pickle) --unfreeze-epoch 1 over two one-step epochs, validating after
+    the second (both optimizers restarted at epoch 1: one update counted
+    in the slot), train exp (one epoch of two steps, validated), eval and predict --model vitgan and exp, import-torch --kind
+    resnet10 (of the pickle), vitgan-g (the trained generator under
+    'generator.' beside critic entries) and exp-gen (under 'model_.' beside
+    the reference's unused 'out' head): each slot bit-equal to its source."""
+    from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
+
+    cohort, work = Path(root), Path(root) / "exp_gan"
+    work.mkdir(parents=True, exist_ok=True)
+    every, train_glob, val_glob = str(cohort / "pt_*"), str(cohort / "pt_[012]"), \
+        str(cohort / "pt_3")
+    pickle = work / "resnet_10.pth"
+    critic = write_medicalnet(pickle, dev)
+    row = {}
+    with torch_default_tf32():
+        # slots of about 1.3 GB each: validation at the last epoch only, so
+        # that the run's disk writes stay within the card machine's 45 GiB
+        runs = {"vitgan": ("--pretrained-critic", pickle, "--unfreeze-epoch", "1",
+                           "--samples-per-epoch", "1", "--epochs", "2", "--check-val", "2"),
+                "exp": ("--samples-per-epoch", "2", "--epochs", "1", "--check-val", "1")}
+        for name, extra in runs.items():
+            rec = train_cli(f"train {name}", name, "--data", train_glob, "--val-data", val_glob,
+                            "--ckpt-dir", work / name, "--log-dir", work / f"{name}_log", *extra)
+            row[f"train_{name}"] = {"s": rec["s"], "writes": rec["writes"],
+                                    "sweeps_s": rec["sweeps"]}
+            log(f"exp_gan: train {name} (float32) in {rec['s']:.1f} s; checkpoint writes "
+                f"{rec['writes']}")
+        slot = restore_checkpoint(work / "vitgan" / "last.pt")
+        restarted = "critic unfrozen, optimizers restarted" in \
+            (work / "vitgan_log" / "log.txt").read_text()
+        counts = (slot["g"]["optimizer"]["count"], slot["d"]["optimizer"]["count"])
+        row["vitgan_restart"] = {"logged": restarted, "optimizer_counts": counts,
+                                 "steps": (slot["g"]["step"], slot["d"]["step"])}
+        log(f"exp_gan: train vitgan: optimizers restarted at epoch 1 {restarted}, update counts "
+            f"(g, d) in the last slot {counts}, steps {row['vitgan_restart']['steps']}")
+        if not (restarted and counts == (1, 1) and slot["epoch"] == 1
+                and (slot["g"]["step"], slot["d"]["step"]) == (2, 2)):
+            raise AssertionError(f"exp_gan: the unfreeze restart check failed: {row}")
+        for name in runs:
+            with trainer_probes() as probe:
+                rc, res, text = cli("eval", "--model", name, "--data", every, "--ckpt",
+                                    work / name / "last.pt", "--ckpt-dir", work / "eval_ck",
+                                    "--log-dir", work / "eval_log")
+            if rc != 0 or res is None or not math.isfinite(res["mean_dose_score"]):
+                raise AssertionError(f"exp_gan: eval --model {name} returned {rc}:\n"
+                                     f"{text[-3000:]}")
+            out = work / f"{name}_pred"
+            rc, _, text = cli("predict", "--model", name, "--data", every, "--ckpt",
+                              work / name / "last.pt", "--out-dir", out, "--ckpt-dir",
+                              work / "eval_ck", "--log-dir", work / "eval_log")
+            predicted = len(list(out.glob("pt_*/dose.nii.gz"))) if rc == 0 else 0
+            row[f"eval_{name}"] = {**res, "sweep_s": probe["sweeps"][0], "predicted": predicted}
+            log(f"exp_gan: eval --model {name}: sweep {probe['sweeps'][0]:.2f} s, "
+                f"mean_dose_score {res['mean_dose_score']}, mean_dvh_score "
+                f"{res['mean_dvh_score']}; predict wrote {predicted} NIfTIs")
+            if predicted != DATA_PATIENTS:
+                raise AssertionError(f"exp_gan: predict --model {name} failed:\n{text[-2000:]}")
+            free_memory()
+        generator = restore_checkpoint(work / "vitgan" / "last.pt")["g"]["model"]
+        exp_model = restore_checkpoint(work / "exp" / "last.pt")["model"]
+        sources = {
+            "resnet10": (pickle, critic),
+            "vitgan-g": ({**{f"generator.{k}": v for k, v in generator.items()},
+                          **{f"discriminator.{k}": v for k, v in critic.items()}}, generator),
+            "exp-gen": ({**{f"model_.{k}": v for k, v in exp_model.items()},
+                         "model_.out.0.weight": torch.zeros(1, 16, 1, 1, 1),
+                         "model_.out.0.bias": torch.zeros(1)}, exp_model)}
+        row["import"] = {}
+        for kind, (src, want) in sources.items():
+            if not isinstance(src, Path):
+                path = work / f"{kind}.ckpt"
+                torch.save({"state_dict": src}, path)
+                src = path
+            dest = work / f"{kind}.pt"
+            rc, _, text = cli("import-torch", "--kind", kind, "--src", src, "--dest", dest)
+            got = restore_checkpoint(dest) if rc == 0 else {}
+            same = rc == 0 and all(torch.equal(got[k].cpu(), v.cpu()) for k, v in want.items())
+            row["import"][kind] = same
+            if not same:
+                raise AssertionError(f"exp_gan: import-torch --kind {kind} returned {rc} or "
+                                     f"differs from its source:\n{text[-2000:]}")
+        log(f"exp_gan: import-torch --kind resnet10 / vitgan-g / exp-gen: bit-equal "
+            f"{row['import']}")
+        free_memory()
+    return row
+
+
+def phase_exp_gan(dev, data, root, kernels):
+    """The experiments zoo and ViT-GAN: the narrow ViT-GAN step on the card
+    against the CPU (vitgan_parity, whose kernel launches its CPU run holds),
+    then forwards against the plain versions (exp_forward_parity), the
+    full-width steps (exp_gan_steps) and the CLI (exp_gan_cli), where K2 and
+    K3 launches at a shape the kernels phase did not hold, in that dtype,
+    and K1 launches at a shape outside K1_SHAPES fail the phase."""
+    # the narrow step's kernel shapes are held by its CPU run itself
+    row = {"step_parity": vitgan_parity(dev)}
+    free_memory()
+    with launched_shapes() as seen, k1_launched_shapes() as k1_seen:
+        row["parity"] = exp_forward_parity(dev, kernels)
+        row["steps"] = exp_gan_steps(dev)
+        with launched_shapes() as cli_seen:
+            row["cli"] = exp_gan_cli(dev, data, root)
+        row["cli_shapes"] = shape_counts(cli_seen)
+    row["shapes"] = shape_counts(seen)
+    row["k1_shapes"] = {f"attention {s} {str(d).replace('torch.', '')}": n
+                        for (s, d), n in k1_seen.items()}
+    unheld = unheld_shapes(seen) + sorted(("attention", s, str(d)) for s, d in k1_seen
+                                          if s not in K1_SHAPES)
+    log(f"exp_gan: K2 and K3 launches by shape and dtype {row['shapes']}; K1 launches "
+        f"{row['k1_shapes']}; not held by the kernels phase: {unheld}")
+    if unheld:
+        raise AssertionError(f"exp_gan: shapes the kernels phase did not hold: {unheld}")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2859,6 +3293,9 @@ def main() -> int:
             run("zoo", lambda: phase_zoo(dev, results["data"], root, (k1, k2, k3)))
             free_memory()
             run("hpo_gan", lambda: phase_hpo_gan(dev, results["data"], root))
+            free_memory()
+            torch.cuda.reset_peak_memory_stats(dev)
+            run("exp_gan", lambda: phase_exp_gan(dev, results["data"], root, (k1, k2, k3)))
             del results["data"]["dataset"]
     except Exception:
         return 1
@@ -2886,6 +3323,9 @@ def main() -> int:
         + f"; DoseGAN step p50 {results['hpo_gan']['step']['p50_s']} s, peak "
         f"{results['hpo_gan']['step']['peak_gib']:.2f} GiB; tune wall "
         + ", ".join(f"{k} {v['s']:.1f} s" for k, v in results["hpo_gan"]["search"].items())
+        + "; exp_gan step p50 "
+        + ", ".join(f"{k} {v['p50_s']} s (peak {v['peak_gib']:.2f} GiB)"
+                    for k, v in results["exp_gan"]["steps"].items())
         + f"; total {time.perf_counter() - t_start:.1f} s; on {smi}")
     sources = {   # each kernel's source and the TPU kernel it replaces
         "attention": ("dose_prediction_tpu_torch/csrc/attention.cu",
@@ -2920,6 +3360,20 @@ def main() -> int:
                         "dtype": "bfloat16",
                         "launches_in": f"zoo: HD-UNet bf16 train steps (a warm-up and "
                                        f"{ZOO_TRAIN_STEPS})"})
+    exp_gan = results["exp_gan"]
+    for name, shape, counts, where in (
+            [("instance_norm", s, exp_gan["shapes"], "exp_gan: the zoo forwards, the ViT-GAN "
+              "and exp steps and their CLI (train, eval, predict)") for s in K2_EXP_GAN_SHAPES]
+            + [("attention", K1_SHAPES[4], exp_gan["k1_shapes"], "exp_gan: the ViT generators' "
+                "sliding-window evaluation in the CLI (sw batch 4)")]):
+        source, replaces = sources[name]
+        row = results["kernels"][(name, shape, torch.float32)]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": counts.get(f"{name} {shape} float32", 0),
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "shape": list(shape), "dtype": "float32", "launches_in": where})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """The port's command line (counterpart of dose_prediction_tpu/cli/main.py).
 
     python -m dose_prediction_tpu_torch train pyfer --data 'data/pt_*' --val-data ...
-    python -m dose_prediction_tpu_torch train c3d|hdunet|dosegan|transeg ...
+    python -m dose_prediction_tpu_torch train c3d|hdunet|dosegan|vitgan|exp|transeg ...
     python -m dose_prediction_tpu_torch eval --data ... --ckpt ckpt/last.pt [--device-metrics]
     python -m dose_prediction_tpu_torch seg-eval|predict|infer|score|import-torch ...
     python -m dose_prediction_tpu_torch linked-eval --data ... --seg-ckpt ... --dose-ckpt ...
@@ -15,9 +15,11 @@ The seg task takes TranSeg (``--mode-model 1``, any ``--block-family`` and
 ``--k7-mode``) or the plain UNETR (``--mode-model 0``). ``tune`` searches
 DOSE-PYFER's act, multiS_conv, rate and weight decay with ASHA over the
 validation rounds, its concurrent trials spread over the visible cards;
-``kfold`` cross-validates DOSE-PYFER. Choices the port does not have yet
-(the ViT-GAN and exp models, meshes, the subcommands bench and doctor, and
-the imports of their networks) are refused with the ROADMAP item that
+``kfold`` cross-validates DOSE-PYFER. ``train vitgan`` trains ViT-GAN (its
+critic optionally from a MedicalNet pickle, ``--pretrained-critic``) and
+``train exp`` the exp model; both validate, evaluate and predict through
+the sliding window at ×80. Choices the port does not have yet (meshes and
+the subcommands bench and doctor) are refused with the ROADMAP item that
 brings them; nothing falls back to another model.
 """
 
@@ -33,15 +35,12 @@ from pathlib import Path
 # the pyfer-tuned default (train_light_pyfer.py:296)
 _DEFAULT_LR = 0.0006130697604327541
 # ROADMAP queue 1 items of what the port refuses
-_MODEL_ZOO = "ROADMAP queue 1 item 6 (the rest of the model zoo)"
 _INFRA = "ROADMAP queue 1 item 7 (parallel and serve infrastructure)"
 _UNPORTED_COMMANDS = {
     "bench": "ROADMAP queue 1 item 1 (bench_gpu.py)",
     "doctor": _INFRA,
 }
 _DOSE_MODELS = ["pyfer", "c3d", "hdunet", "dosegan", "vitgan", "exp"]
-_PORTED_DOSE_MODELS = ("pyfer", "c3d", "hdunet", "dosegan")
-_PORTED_IMPORTS = ("c3d", "pyfer", "transeg", "unetr", "hdunet", "dosegan-g", "dosegan-d")
 SMALL_LIST_CH = (-1, 2, 4, 8, 16, 32)
 SEG_PATCH = 16   # TranSeg's ViT patch: the dense seg's token grid is roi // 16
 # model-constructor arguments that may differ between training and
@@ -118,6 +117,28 @@ def default_hdunet_model(small=False, device="cuda"):
 def default_dosegan_width(small=False) -> int:
     """ngf = ndf of ``train dosegan``: the reference's 64, or 4 at ``small``."""
     return 4 if small else 64
+
+
+def default_vitgan_generator(small=False, img_size=128, device="cuda"):
+    """ViT-GAN's generator of ``train vitgan`` (:691-699)."""
+    from dose_prediction_tpu_torch.models.experiments import vitgan_generator
+
+    return vitgan_generator(small, img_size=img_size, device=device)
+
+
+def default_exp_generator(small=False, img_size=128, device="cuda", act="mish"):
+    """The exp model of ``train exp`` (:701-706)."""
+    from dose_prediction_tpu_torch.models.experiments import exp_generator
+
+    return exp_generator(small, act=act, img_size=img_size, device=device)
+
+
+def default_resnet10(small=False, device="cuda"):
+    """The ResNet-10 of ``import-torch --kind resnet10`` (:724-728): MedicalNet's
+    widths, or 4-32 at ``small``."""
+    from dose_prediction_tpu_torch.models.experiments import resnet10
+
+    return resnet10(widths=(4, 8, 16, 32) if small else (64, 128, 256, 512), device=device)
 
 
 def small_c3d(device="cuda"):
@@ -221,9 +242,14 @@ def build_parser() -> argparse.ArgumentParser:
 
     tr = sub.add_parser("train", help="train a model")
     tr.add_argument("model", choices=["pyfer", "c3d", "hdunet", "transeg", "dosegan",
-                                      "vitgan", "exp"],
-                    help="ported: pyfer, c3d, hdunet, dosegan, transeg")
+                                      "vitgan", "exp"])
     _add_common(tr)
+    tr.add_argument("--pretrained-critic", default=None,
+                    help="vitgan: a MedicalNet resnet_10 torch pickle for the critic; its "
+                         "leaves stay frozen until the unfreeze epoch")
+    tr.add_argument("--unfreeze-epoch", type=int, default=10,
+                    help="vitgan: the epoch at which the critic unfreezes and both "
+                         "optimizers restart")
     tr.add_argument("--pretrained-c3d", default=None,
                     help="a trained C3D cascade (a slot of this package, or a reference "
                          "torch checkpoint .pkl/.pt/.pth/.ckpt) for net_A surgery")
@@ -231,7 +257,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--delta1", type=float, default=10.0)
     tr.add_argument("--delta2", type=float, default=8.0)
     tr.add_argument("--act", choices=["relu", "mish"], default="mish",
-                    help="pyfer decoder activation (tuned default mish)")
+                    help="pyfer and exp decoder activation (tuned default mish)")
     tr.add_argument("--mode-model", type=int, choices=[0, 1], default=1,
                     help="seg task: 1 = TranSeg; 0 = plain UNETR")
     tr.add_argument("--block-family", choices=["seg", "old", "ablation"], default="seg",
@@ -254,8 +280,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     ev = sub.add_parser("eval", help="OpenKBP scoring sweep of a dose checkpoint")
     _add_common(ev)
-    ev.add_argument("--model", choices=_DOSE_MODELS, default="pyfer",
-                    help="ported: " + ", ".join(_PORTED_DOSE_MODELS))
+    ev.add_argument("--model", choices=_DOSE_MODELS, default="pyfer")
     ev.add_argument("--ckpt", required=True, help="a slot file, e.g. <ckpt-dir>/last.pt")
     ev.add_argument("--act", choices=["relu", "mish"], default="mish")
     ev.add_argument("--device-metrics", action="store_true",
@@ -293,8 +318,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     pr = sub.add_parser("predict", help="dose predictions for a cohort as NIfTI files")
     _add_common(pr)
-    pr.add_argument("--model", choices=_DOSE_MODELS, default="pyfer",
-                    help="ported: " + ", ".join(_PORTED_DOSE_MODELS))
+    pr.add_argument("--model", choices=_DOSE_MODELS, default="pyfer")
     pr.add_argument("--ckpt", required=True)
     pr.add_argument("--act", choices=["relu", "mish"], default="mish")
     pr.add_argument("--out-dir", required=True,
@@ -306,19 +330,23 @@ def build_parser() -> argparse.ArgumentParser:
     it.add_argument("--kind", required=True,
                     choices=["c3d", "pyfer", "transeg", "unetr", "resnet10", "hdunet",
                              "dosegan-g", "dosegan-d", "vitgan-g", "exp-gen"],
-                    help="ported: " + ", ".join(_PORTED_IMPORTS))
-    it.add_argument("--act", choices=["relu", "mish"], default="mish")
+                    help="'vitgan-g' = ViT-GAN's generator, 'exp-gen' = the exp models' "
+                         "generator, 'resnet10' = a MedicalNet resnet_10 (the ViT-GAN critic)")
+    it.add_argument("--act", choices=["relu", "mish"], default="mish",
+                    help="exp-gen: the activation the source was trained with")
     it.add_argument("--src", required=True, help="torch checkpoint path")
     it.add_argument("--dest", required=True, help="output slot file")
     it.add_argument("--model-size", choices=["full", "small"], default="full")
     it.add_argument("--block-family", choices=["seg", "old", "ablation"], default="old",
                     help="the transeg flavor the source was trained with; the reference's "
                          "mode_model=1 trains the OldModels TRANSEG flavor = 'old'")
-    it.add_argument("--volume-size", type=int, default=128, help="pyfer volume (its ViT grid)")
+    it.add_argument("--volume-size", type=int, default=128,
+                    help="pyfer, vitgan-g, exp-gen volume (their ViT grid)")
     it.add_argument("--roi", type=int, default=96, help="transeg window")
     it.add_argument("--strict", action="store_true",
-                    help="c3d, pyfer: fail unless every model entry is covered by the source "
-                         "(transeg, unetr, hdunet and dosegan-g/-d always load strictly)")
+                    help="c3d, pyfer, resnet10: fail unless every model entry is covered by "
+                         "the source (transeg, unetr, hdunet, dosegan-g/-d, vitgan-g and "
+                         "exp-gen always load strictly)")
 
     op = sub.add_parser("openkbp-prepare",
                         help="the official OpenKBP CSV release into the NIfTI layout "
@@ -409,11 +437,6 @@ def _refuse_unported(args) -> None:
     """Refuse, before any device work, a choice the port does not have."""
     if args.cmd in _UNPORTED_COMMANDS:
         raise refuse(f"the {args.cmd} subcommand", _UNPORTED_COMMANDS[args.cmd])
-    model = args.model if args.cmd in ("train", "eval", "predict") else None
-    if model is not None and model not in _PORTED_DOSE_MODELS + ("transeg",):
-        raise refuse(f"the {model} model", _MODEL_ZOO)
-    if args.cmd == "import-torch" and args.kind not in _PORTED_IMPORTS:
-        raise refuse(f"--kind {args.kind}", _MODEL_ZOO)
     if getattr(args, "mesh", None):
         raise refuse("--mesh", _INFRA)
 
@@ -547,6 +570,18 @@ def main(argv=None) -> int:
             kw = {"gan_lr": args.lr} if args.lr != _DEFAULT_LR else {}
             width = default_dosegan_width(small)
             return T.DoseGANTrainer(cfg, ngf=width, ndf=width, example_shape=ex, **kw)
+        if model_name == "vitgan":
+            from dose_prediction_tpu_torch.train.gan import VitGANTrainer
+
+            kw = {"g_lr": args.lr, "d_lr": args.lr} if args.lr != _DEFAULT_LR else {}
+            gen = T.seeded(cfg.seed, lambda: default_vitgan_generator(small, shape, device))
+            return VitGANTrainer(cfg, generator=gen, example_shape=ex,
+                                 unfreeze_epoch=getattr(args, "unfreeze_epoch", 10),
+                                 pretrained_critic=getattr(args, "pretrained_critic", None), **kw)
+        if model_name == "exp":
+            model = T.seeded(cfg.seed, lambda: default_exp_generator(
+                small, shape, device, act=getattr(args, "act", "mish")))
+            return T.ExpModelTrainer(cfg, model, example_shape=ex)
         model = T.seeded(cfg.seed, lambda: small_c3d(device)) if small else None
         return T.CascadeC3DTrainer(cfg, model=model, example_shape=ex)
 
@@ -558,12 +593,22 @@ def main(argv=None) -> int:
             load_reference_strict,
             load_torch_checkpoint,
             strip_lightning_prefixes,
+            vit_generator_part,
         )
 
         source = load_torch_checkpoint(args.src)
-        if args.kind in ("transeg", "unetr", "hdunet", "dosegan-g", "dosegan-d"):
+        if args.kind in ("transeg", "unetr", "hdunet", "dosegan-g", "dosegan-d", "vitgan-g",
+                         "exp-gen"):
             prefixes = LIGHTNING_PREFIXES
-            if args.kind.startswith("dosegan"):
+            if args.kind in ("vitgan-g", "exp-gen"):
+                # the generator's entries under its Lightning prefix, without
+                # the critic's and the unused head (torch_import.py:284-311)
+                source, prefixes = vit_generator_part(source), ()
+                volume = (args.volume_size,) * 3
+                model = T.seeded(0, lambda: default_vitgan_generator(small, volume, device)
+                                 if args.kind == "vitgan-g" else
+                                 default_exp_generator(small, volume, device, act=args.act))
+            elif args.kind.startswith("dosegan"):
                 from dose_prediction_tpu_torch.models import NLayerDiscriminator, UnetGenerator3D
 
                 # a combined GAN checkpoint: this net's netG./netD. entries
@@ -592,6 +637,10 @@ def main(argv=None) -> int:
             return 0
         if args.kind == "pyfer":
             model = pyfer_model((args.volume_size,) * 3, 0)
+        elif args.kind == "resnet10":
+            # a MedicalNet segmentation pretrain holds no fc: strict=False
+            # keeps the model's own (train_light_gan.py:136-141)
+            model = T.seeded(0, lambda: default_resnet10(small, device))
         else:
             from dose_prediction_tpu_torch.models import CascadeC3D
 
@@ -641,7 +690,7 @@ def main(argv=None) -> int:
         trainer slot or an import-torch output) and its ``predict_fn(batch)
         -> Gy prediction`` (:883-934)."""
         tr = build_dose_trainer(model_name, make_cfg(model_name), shape)
-        if model_name == "dosegan":
+        if model_name in ("dosegan", "vitgan"):
             from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
 
             _check_ckpt_config(args.ckpt, tr.gen, tr.disc)
@@ -649,11 +698,15 @@ def main(argv=None) -> int:
             _load_into(tr.gen, _read_slot(args.ckpt), "generator")
             if isinstance(slot.get("d"), dict):          # a trainer slot holds the critic too
                 _load_into(tr.disc, slot["d"]["model"], "discriminator")
+            if model_name == "vitgan":                    # sliding window ×80 (:925-933)
+                return tr, tr.predict_fn()
             return tr, lambda batch: tr.eval_step(batch)["prediction"]
         _check_ckpt_config(args.ckpt, tr.model)
         _load_into(tr.model, _read_slot(args.ckpt), "model")
         if model_name in ("pyfer", "hdunet"):
             return tr, lambda batch: tr.eval_step(batch)["prediction"]
+        if model_name == "exp":
+            return tr, tr.predict_fn()
         from dose_prediction_tpu_torch.evaluation.metrics import postprocess_prediction
 
         return tr, lambda batch: postprocess_prediction(tr.predict(batch["input"]),

@@ -58,6 +58,31 @@ def strip_lightning_prefixes(state_dict: Mapping[str, torch.Tensor],
     return out
 
 
+# the ViT generator's Lightning wrappers: the exp model's 'model_.'
+# (train_light_exp_models.py:118) and ViT-GAN's 'generator.'
+# (train_light_gan.py:124); the critic's entries and the reference's unused
+# 'out' head (MainSubsetModel.out, never called) have no counterpart
+VIT_GENERATOR_PREFIXES = ("model_.", "generator.")
+
+
+def vit_generator_part(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference ViT generator's entries (torch_import.py:284-311): its
+    Lightning prefix stripped, a combined GAN checkpoint's critic entries
+    and the unused ``out`` head left out."""
+    out = {}
+    for k, v in state_dict.items():
+        for prefix in VIT_GENERATOR_PREFIXES:
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+                break
+        else:
+            if k.startswith("discriminator."):
+                continue
+        if not k.startswith("out."):
+            out[k] = v
+    return out
+
+
 def gan_part(state_dict: Mapping[str, torch.Tensor], part: str) -> Dict[str, torch.Tensor]:
     """The generator's (``part='g'``) or the critic's (``'d'``) entries of a
     reference DoseGAN checkpoint: from a combined checkpoint the entries

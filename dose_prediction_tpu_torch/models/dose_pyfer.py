@@ -25,7 +25,12 @@ from dose_prediction_tpu_torch.models.spec import records_config
 from dose_prediction_tpu_torch.models.c3d import BaseUNet
 from dose_prediction_tpu_torch.nn import remat
 from dose_prediction_tpu_torch.nn.layers import Conv3d
-from dose_prediction_tpu_torch.nn.unetr import ModifiedUnetrUpBlock, UnetrBasicBlock, UnetrPrUpBlock
+from dose_prediction_tpu_torch.nn.unetr import (
+    ModifiedUnetrUpBlock,
+    UnetrBasicBlock,
+    UnetrPrUpBlock,
+    UnetrUpBlock,
+)
 from dose_prediction_tpu_torch.nn.vit import ViT, tokens_to_volume
 
 
@@ -52,19 +57,32 @@ class ViTEncoder(nn.Module):
 
 
 class PyMSCDecoder(nn.Module):
-    """Four ModifiedUnetrUpBlock stages; ``remat_blocks`` recomputes each
+    """Four decoder stages (JAX dose_pyfer.py:77-111): ModifiedUnetrUpBlock
+    (``mode_multi``; Conv31 or, without ``multiS_conv``, DualDilatedBlock)
+    or the plain UnetrUpBlock of ``norm`` ('instance', the only one
+    ported). ``skip_ch`` gives the skips' channels (decoder1 first) where
+    they differ from the stages' own; ``remat_blocks`` recomputes each
     stage's activations in the backward (JAX dose_pyfer.py:83-97)."""
 
     def __init__(self, feature_size: int, hidden: int, act: str, remat_blocks: bool = False,
-                 multiS_conv: bool = True):
+                 multiS_conv: bool = True, mode_multi: bool = True, norm: str = "instance",
+                 skip_ch=None):
         super().__init__()
+        if norm != "instance":
+            raise ValueError(f"norm={norm!r} is not ported; the decoders use 'instance'")
         fs = feature_size
         self.remat_blocks = remat_blocks
         kw = dict(act=act, multiS_conv=multiS_conv)
-        self.decoder4 = ModifiedUnetrUpBlock(hidden, fs * 8, **kw)
-        self.decoder3 = ModifiedUnetrUpBlock(fs * 8, fs * 4, **kw)
-        self.decoder2 = ModifiedUnetrUpBlock(fs * 4, fs * 2, **kw)
-        self.decoder1 = ModifiedUnetrUpBlock(fs * 2, fs, **kw)
+        skip = list(skip_ch) if skip_ch is not None else [None] * 4
+        for level, cin, cout in ((4, hidden, fs * 8), (3, fs * 8, fs * 4), (2, fs * 4, fs * 2),
+                                 (1, fs * 2, fs)):
+            if mode_multi:
+                if skip[level - 1] is not None:
+                    raise ValueError("skip_ch needs the plain decoder (mode_multi=False)")
+                stage = ModifiedUnetrUpBlock(cin, cout, **kw)
+            else:
+                stage = UnetrUpBlock(cin, cout, skip_ch=skip[level - 1])
+            setattr(self, f"decoder{level}", stage)
 
     def forward(self, enc: List[torch.Tensor]) -> List[torch.Tensor]:
         e1, e2, e3, e4, e5 = enc

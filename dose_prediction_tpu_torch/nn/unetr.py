@@ -98,10 +98,13 @@ class UnetrPrUpBlock(nn.Module):
 
 
 class UnetrUpBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, res_block: bool = False):
+    """``skip_ch``: the skip's channels where they differ from ``cout``."""
+
+    def __init__(self, cin: int, cout: int, res_block: bool = False, skip_ch=None):
         super().__init__()
         self.transp_conv = Convolution(cin, cout, 2, 2, transposed=True)
-        self.conv_block = (UnetResBlock if res_block else UnetBasicBlock)(2 * cout, cout)
+        block = UnetResBlock if res_block else UnetBasicBlock
+        self.conv_block = block(cout + (cout if skip_ch is None else skip_ch), cout)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=1))

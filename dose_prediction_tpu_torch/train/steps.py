@@ -1,8 +1,8 @@
 """Train and eval steps (counterpart of dose_prediction_tpu/train/steps.py):
 the DOSE-PYFER step (:24-84) and eval step (:87-119), the C3D cascade's
-step (:122-144), the single-output dose step of HD-UNet (:147-171) with its
-eval step (JAX train/trainers.py:921-949) and the OAR-TranSeg step
-(:174-204), which also trains the plain UNETR, and DoseGAN's alternating
+step (:122-144), the experiments zoo's deep-supervision step (:204-235),
+the single-output dose step of HD-UNet (:147-171) with its eval step
+(JAX train/trainers.py:921-949) and the OAR-TranSeg step (:174-204), which also trains the plain UNETR, and DoseGAN's alternating
 critic and generator steps (:239-307) with their eval step (JAX
 train/trainers.py:1352-1364); reference
 train_light_{pyfer,c3d,hdunet,transeg,dosegan}.py.
@@ -122,6 +122,27 @@ def make_simple_dose_train_step(model: nn.Module, optimizer: torch.optim.Optimiz
         optimizer.zero_grad(set_to_none=True)
         x, gt = _dose_feed(batch, packed, dtype)
         loss = L.masked_l1(model(x), gt[:, 0:1], gt[:, 1:2])
+        return _apply_update(state, optimizer, loss)
+
+    return step
+
+
+def make_deep_supervision_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
+                                     delta1: float = 10.0, delta2: float = 8.0,
+                                     huber: bool = False, packed: bool = False
+                                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                                   Tuple[TrainState, torch.Tensor]]:
+    """The experiments zoo's step (steps.py:204-235; train_light_exp_models.py:193):
+    a model returning a deep-supervision output list trains with the
+    non-cascade GenLoss (``huber`` for the Huber reconstruction term).
+    The model's BatchNorm statistics update is kept. Batches and
+    ``packed`` as make_pyfer_train_step's."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        x, gt = _dose_feed(batch, packed, None)
+        loss = L.gen_loss(model(x), gt, delta1=delta1, delta2=delta2, huber=huber)
         return _apply_update(state, optimizer, loss)
 
     return step

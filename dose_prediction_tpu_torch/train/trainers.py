@@ -16,13 +16,17 @@ resume and a graceful stop on SIGTERM.
 - DoseGANTrainer    ← train_light_dosegan.py (alternating critic and
                       generator updates; full-volume validation, best slot
                       on mean_dose_score=max)
+- ExpModelTrainer   ← train_light_exp_models.py (any deep-supervision
+                      model, non-cascade GenLoss; sliding-window validation
+                      at ×80, best slot on mean_dose_score=max)
+
+ViT-GAN's trainer is train/gan.py::VitGANTrainer.
 
 The models compute in float32, their default dtype, as the JAX trainers'
 do (the JAX CLI passes no dtype), under PyTorch's TF32 defaults on the
 card. Hyperparameter defaults are the reference's tuned values
-(train_light_pyfer.py:293-300). Not ported yet: the ViT-GAN and exp
-trainers with their models (ROADMAP queue 1 item 6) and the mesh and
-AOT branches (queue 1 item 7): a set ``mesh_shape`` raises.
+(train_light_pyfer.py:293-300). Not ported yet: the mesh and AOT
+branches (ROADMAP queue 1 item 7): a set ``mesh_shape`` raises.
 """
 
 from __future__ import annotations
@@ -308,6 +312,83 @@ def _full_volume_validation(eval_step, val_ds: OpenKBPDataset, device: torch.dev
         scores.append(float(out["dose_score"]))
         vlosses.append(float(out["val_loss"]))
     return {"mean_dose_score": -float(np.mean(scores)), "val_loss": float(np.mean(vlosses))}
+
+
+def _sliding_val_sweep(predictor, val_ds: OpenKBPDataset, *, roi_size: Sequence[int],
+                       sw_batch_size: int, val_scale: float, device: torch.device
+                       ) -> Dict[str, float]:
+    """The ×``val_scale`` sliding-window validation of the exp and ViT-GAN
+    trainers (JAX trainers.py:279-309; train_light_{exp_models,gan}.py:218-247):
+    per patient the blended full-resolution prediction, its GenLoss val loss
+    and the masked MAE of the post-processed prediction against
+    ``val_scale`` × the dose; mean_dose_score is that MAE's mean, negated
+    (to maximize). Patient i+1's sweep is queued before patient i is scored."""
+    scores, vlosses = [], []
+
+    @torch.no_grad()
+    def produce(p):
+        x = torch.from_numpy(np.ascontiguousarray(p.model_input[None], np.float32)).to(device)
+        gt = torch.from_numpy(np.ascontiguousarray(p.gt[None], np.float32)).to(device)
+        pred = sliding_window_inference(STEP.to_ncdhw(x), predictor, roi_size=roi_size,
+                                        sw_batch_size=sw_batch_size, out_channels=1)
+        vloss = L.gen_loss(pred, STEP.to_ncdhw(gt), mode="val")
+        return p, to_host({"pred": pred, "vloss": vloss})
+
+    def consume(staged):
+        p, wait = staged
+        out = wait()
+        vlosses.append(float(out["vloss"]))
+        post = M.postprocess_prediction(out["pred"].numpy()[0, 0], p.dose_mask, scale=val_scale)
+        scores.append(M.dose_score(post, val_scale * p.dose, p.dose_mask))
+
+    for _ in pipeline_map(produce, consume, val_ds.patients):
+        pass
+    return {"mean_dose_score": -float(np.mean(scores)), "val_loss": float(np.mean(vlosses))}
+
+
+class _SlidingDose:
+    """The sliding-window ×``val_scale`` evaluation of a deep-supervision
+    generator ``self.<attr>`` that the exp and ViT-GAN trainers share: its
+    full-resolution head (``lambda x: self.forward(x)[0]``) in eval mode
+    over windows of ``self.roi_size``."""
+
+    _generator_attr = "model"
+
+    def _predictor(self):
+        model = getattr(self, self._generator_attr)
+        model.eval()
+        return lambda windows: model(windows)[0]
+
+    def validate(self, val_ds: OpenKBPDataset, *, sw_batch_size: int = 4) -> Dict[str, float]:
+        """mean_dose_score (negated, to maximize) and the GenLoss val_loss of
+        the blended prediction over the cohort."""
+        return _sliding_val_sweep(self._predictor(), val_ds, roi_size=self.roi_size,
+                                  sw_batch_size=sw_batch_size, val_scale=self.val_scale,
+                                  device=self.device)
+
+    def predict_fn(self, sw_batch_size: int = 4) -> Callable[[Dict[str, torch.Tensor]],
+                                                             torch.Tensor]:
+        """``predict_fn(batch)``: the post-processed ×``val_scale`` prediction
+        (NDHWC) of an NDHWC batch on the device."""
+        predictor = self._predictor()
+
+        @torch.no_grad()
+        def predict(batch):
+            pred = sliding_window_inference(STEP.to_ncdhw(batch["input"]), predictor,
+                                            roi_size=self.roi_size, sw_batch_size=sw_batch_size,
+                                            out_channels=1)
+            return M.postprocess_prediction(pred.permute(0, 2, 3, 4, 1), batch["gt"][..., 1:2],
+                                            scale=self.val_scale)
+
+        return predict
+
+    def test(self, test_ds: OpenKBPDataset, *, sw_batch_size: int = 4, with_ivs: bool = True,
+             device_metrics: bool = False, plots_dir: Optional[str] = None) -> Dict[str, Any]:
+        """The OpenKBP test sweep on the sliding-window ×``val_scale``
+        predictions (train_light_{exp_models,gan}.py:263-300)."""
+        return evaluate_dose_model(self.predict_fn(sw_batch_size), test_ds, with_ivs=with_ivs,
+                                   device_metrics=device_metrics, plots_dir=plots_dir,
+                                   device=self.device)
 
 
 class PyferTrainer:
@@ -881,3 +962,69 @@ class DoseGANTrainer:
         return evaluate_dose_model(lambda batch: self.eval_step(batch)["prediction"], test_ds,
                                    with_ivs=with_ivs, device_metrics=device_metrics,
                                    plots_dir=plots_dir, device=self.device)
+
+
+class ExpModelTrainer(_SlidingDose):
+    """The experiments zoo's harness (train_light_exp_models.py TestModel;
+    :1202-1320): any model returning a deep-supervision output list trains
+    with non-cascade GenLoss (``huber`` optional, :193) under AdamW at
+    cfg.learning_rate and cfg.weight_decay; validation and test run the
+    sliding window with roi = the full example size and a ×80 dose scale
+    (:222-236,271-280); best slots on mean_dose_score=max, an every-epoch
+    'last' slot and resume (:372-374,412). Without ``model`` it trains the
+    exp generator (models/experiments.py::exp_generator) from cfg.seed."""
+
+    def __init__(self, cfg: TrainConfig, model: Optional[torch.nn.Module] = None, *,
+                 example_shape: Sequence[int] = (1, 128, 128, 128, 9), huber: bool = False,
+                 val_scale: float = 80.0, roi_size: Optional[Sequence[int]] = None):
+        from dose_prediction_tpu_torch.models.experiments import exp_generator
+
+        _refuse_mesh(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.val_scale = val_scale
+        self.roi_size = tuple(roi_size) if roi_size is not None else tuple(example_shape[1:4])
+        self.model = model if model is not None else seeded(cfg.seed, lambda: exp_generator(
+            img_size=tuple(example_shape[1:4]), device=self.device))
+        optimizer = S.make_optimizer(self.model, learning_rate=cfg.learning_rate,
+                                     weight_decay=cfg.weight_decay)
+        self.state = S.TrainState(self.model, optimizer)
+        self.train_step = STEP.make_deep_supervision_train_step(
+            self.model, optimizer, delta1=cfg.delta1, delta2=cfg.delta2, huber=huber,
+            packed=cfg.feed_dtype == "packed")
+        self.logger = MetricLogger(cfg.log_dir, run_name="exp_model")
+        self.ckpt = C.CheckpointManager(cfg.ckpt_dir, monitor="mean_dose_score", mode="max")
+
+    @_drains_checkpoints
+    def fit(self, train_ds: OpenKBPDataset, val_ds: Optional[OpenKBPDataset] = None, *,
+            resume: bool = True) -> None:
+        cfg = self.cfg
+        start_epoch = 0
+        if resume:
+            restored, start_epoch = _try_resume(
+                self.ckpt, {"state": self.state, "epoch": 0},
+                run_config=_resume_guard_config(cfg, self.model))
+            if restored is not None:
+                self.state = restored["state"]
+                self.logger.log_text(f"resumed from epoch {start_epoch - 1}")
+        global_step = int(self.state.step)
+        for epoch in range(start_epoch, cfg.max_epochs):
+            losses = []
+            feed = device_prefetch(_train_batches(cfg, train_ds, epoch), device=self.device)
+            with trace(cfg.profile_dir if epoch == start_epoch else None), contextlib.closing(feed):
+                for batch in feed:
+                    self.state, loss = self.train_step(self.state, batch)
+                    losses.append(loss)
+                    global_step += 1
+                    if _stop_requested(cfg, global_step):
+                        break
+            self.logger.log({"train_mean_loss": _host_mean(losses)}, epoch + 1)
+            if val_ds is not None and (epoch + 1) % cfg.check_val == 0:
+                metrics = self.validate(val_ds)
+                self.logger.log(metrics, epoch + 1)
+                self.ckpt.save(epoch, {"state": self.state, "epoch": epoch},
+                               {"mean_dose_score": metrics["mean_dose_score"]})
+            _save_epoch_slots(self.ckpt, cfg, epoch, global_step,
+                              {"state": self.state, "epoch": epoch})
+            if _stop_requested(cfg, global_step):
+                break

@@ -14,7 +14,11 @@ inverse of dose_prediction_tpu/core/torch_import.py's ``pyfer_key_map`` /
 ``hdunet_key_map`` / ``dosegan_g_key_map`` / ``dosegan_d_key_map``; the
 port keeps its own copy of those maps (for the module names the port builds, the separable chains and the ablation
 DualDilatedBlock's BatchNorm fuse among them, which no reference
-checkpoint holds) and of the layout rules:
+checkpoint holds) and of the layout rules. The experiments zoo
+(models/experiments.py: ``VitGenerator``, ``ResNet3D`` and the rest) is
+mapped by walking the module tree (``zoo_key_map``): each block class
+names its children as the JAX block does, every other module keeps its
+own name.
 
 - Conv3d (O, I, k..) ↔ flax (k.., I, O); ConvTranspose3d (I, O, k..) ↔
   (k.., I, O); Linear (O, I) ↔ (I, O);
@@ -30,6 +34,8 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from torch import nn
+
 from dose_prediction_tpu_torch.models import (
     UNETR,
     CascadeC3D,
@@ -39,6 +45,12 @@ from dose_prediction_tpu_torch.models import (
     TranSeg,
     UnetGenerator3D,
 )
+from dose_prediction_tpu_torch.models import c3d as _c3d
+from dose_prediction_tpu_torch.models import experiments as _exp
+from dose_prediction_tpu_torch.nn import blocks as _blocks
+from dose_prediction_tpu_torch.nn import mdunet as _md
+from dose_prediction_tpu_torch.nn import unetr as _unetr
+from dose_prediction_tpu_torch.nn import vit as _vit
 
 Path = Tuple[str, ...]
 
@@ -256,6 +268,130 @@ def is_transposed(module_key: str) -> bool:
                 or re.search(r"\.blocks\.\d+\.0\.conv$", module_key))
 
 
+# -- the experiments zoo: a walk down the module tree -------------------------
+# Each rule takes a module and the remaining components of a key below it,
+# and returns (flax names, components consumed) or None; the walk goes on
+# in the child the consumed components name. A module without a rule keeps
+# its child's name.
+
+def _single_conv(_, parts):         # SingleConv: single_conv.{0: conv, 1: norm}
+    if parts[:1] == ["single_conv"] and parts[1:2] in (["0"], ["1"]):
+        return ("conv" if parts[1] == "0" else "norm",), 2
+    return None
+
+
+def _up_conv(_, parts):             # UpConv: conv.{0, 1} → conv/{conv, norm}
+    if parts[:1] == ["conv"] and parts[1:2] in (["0"], ["1"]):
+        return ("conv", "conv" if parts[1] == "0" else "norm"), 2
+    return None
+
+
+def _conv_block_k(_, parts):        # ConvBlockK: conv.{0, 3} convs, {1, 4} norms
+    leaf = {"0": "conv0", "1": "norm0", "3": "conv1", "4": "norm1"}
+    if parts[:1] == ["conv"] and len(parts) > 1 and parts[1] in leaf:
+        return (leaf[parts[1]],), 2
+    return None
+
+
+def _multi_scale(module, parts):    # Conv31 / DualDilatedBlock
+    m = re.match(r"^conv_([357])$", parts[0])
+    if m:
+        wrapped = isinstance(getattr(module, parts[0]), nn.Sequential)
+        return (f"branch{m[1]}",), 2 if wrapped else 1
+    if parts[0] == "conv":
+        if isinstance(module.conv, nn.Sequential):     # a fuse stage with its norm
+            return ("fuse" if parts[1] == "0" else "fuse_norm",), 2
+        return ("fuse",), 1
+    return None
+
+
+def _res_block(_, parts):           # UnetResBlock / UnetBasicBlock
+    path = _res_block_path((), ".".join(parts[:2]) if parts[1:2] == ["conv"] else parts[0])
+    return (path, 2 if parts[1:2] == ["conv"] else 1) if path else None
+
+
+def _pr_up_block(_, parts):         # UnetrPrUpBlock
+    if parts[:2] == ["transp_conv_init", "conv"]:
+        return ("transp_conv_init",), 2
+    if parts[:1] == ["blocks"] and parts[2:3] == ["0"]:
+        return (f"up{parts[1]}",), 4
+    if parts[:1] == ["blocks"] and parts[2:3] == ["1"]:
+        return (f"block{parts[1]}",), 3
+    return None
+
+
+def _up_block(_, parts):            # UnetrUpBlock / ModifiedUnetrUpBlock
+    if parts[:2] == ["transp_conv", "conv"]:
+        return ("transp_conv",), 2
+    return None
+
+
+def _vit_walk(_, parts):            # the ViT trunk: the regular patterns, whole
+    path = _match(_compile(_VIT_PATTERNS), "vit." + ".".join(parts))
+    return (path[1:], len(parts)) if path else None
+
+
+def _c3d_encoder(_, parts):         # encoder_L.S → encoder_L_conv{S+1}
+    return (f"{parts[0]}_conv{int(parts[1]) + 1}",), 2
+
+
+def _c3d_decoder(_, parts):         # decoder_conv_L.S → decoder_L_conv{S+1}
+    m = re.match(r"^decoder_conv_(\d)$", parts[0])
+    return ((f"decoder_{m[1]}_conv{int(parts[1]) + 1}",), 2) if m else None
+
+
+def _vit_generator(_, parts):       # dose_convertors.{i}.0 → dose_convertor{i}
+    if parts[:1] == ["dose_convertors"]:
+        return (f"dose_convertor{parts[1]}",), 3
+    return None
+
+
+def _resnet(_, parts):              # MedicalNet names → ResNet3D's
+    if parts[0] in ("conv1", "bn1"):
+        return ("stem" if parts[0] == "conv1" else "stem_bn",), 1
+    m = re.match(r"^layer(\d)$", parts[0])
+    if m:
+        return (f"stage{int(m[1]) - 1}_block{parts[1]}",), 2
+    return None
+
+
+def _res_block3d(_, parts):         # downsample.{0: conv, 1: BatchNorm}
+    if parts[:1] == ["downsample"]:
+        return ("downsample" if parts[1] == "0" else "bn_down",), 2
+    return None
+
+
+_WALK_RULES = {
+    _blocks.SingleConv: _single_conv, _blocks.UpConv: _up_conv,
+    _md.ConvBlockK: _conv_block_k, _md.Conv31: _multi_scale,
+    _md.DualDilatedBlock: _multi_scale,
+    _md.MultiUnetBasicBlock: lambda _, parts: ((), 1) if parts[0] == "cov_" else None,
+    _unetr.UnetResBlock: _res_block, _unetr.UnetBasicBlock: _res_block,
+    _unetr.UnetrPrUpBlock: _pr_up_block, _unetr.UnetrUpBlock: _up_block,
+    _unetr.ModifiedUnetrUpBlock: _up_block, _vit.ViT: _vit_walk,
+    _c3d.Encoder: _c3d_encoder, _c3d.Decoder: _c3d_decoder,
+    _exp.VitGenerator: _vit_generator, _exp.ResNet3D: _resnet,
+    _exp.ResBlock3D: _res_block3d,
+}
+ZOO_MODELS = (_exp.VitGenerator, _exp.ResNet3D, _exp.SharedEncoderModel,
+              _exp.ExperimentalCascade, _exp.SharedUNetModel, _exp.SharedUNetRModelA,
+              _exp.SharedUNetRModel, _exp.ModelMonai)
+
+
+def zoo_key_map(model: nn.Module, module_key: str) -> Optional[Path]:
+    """Port module key of a zoo model (or of any module built of the
+    zoo's blocks) → flax path."""
+    parts, module, path = module_key.split("."), model, ()
+    while parts:
+        rule = _WALK_RULES.get(type(module))
+        found = rule(module, parts) if rule else None
+        names, used = found if found else ((parts[0],), 1)
+        for name in parts[:used]:
+            module = getattr(module, name, None) if module is not None else None
+        path, parts = path + tuple(names), parts[used:]
+    return path
+
+
 _KEY_MAPS: Dict[type, Callable[[str], Optional[Path]]] = {
     DosePyfer: pyfer_key_map,
     TranSeg: transeg_key_map,
@@ -299,12 +435,18 @@ def _leaves(tree: Mapping, prefix: Path = ()) -> Dict[Path, Any]:
 
 def jax_to_torch(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """State dict for ``model`` (a DosePyfer, TranSeg, CascadeC3D, UNETR,
-    HDUNet, UnetGenerator3D or NLayerDiscriminator) from the JAX package's
+    HDUNet, UnetGenerator3D, NLayerDiscriminator or a zoo model of
+    ``ZOO_MODELS``) from the JAX package's
     variables of the same configuration. Raises if an entry of the
     state dict has no source, a shape differs, or a JAX leaf is left over;
     the result loads with ``model.load_state_dict(sd, strict=True)``."""
-    key_map = _KEY_MAPS[type(model)]
-    transposed = _TRANSPOSED.get(type(model), is_transposed)
+    if isinstance(model, ZOO_MODELS):
+        key_map = lambda key: zoo_key_map(model, key)  # noqa: E731
+        transposed = lambda key: isinstance(model.get_submodule(key),  # noqa: E731
+                                            nn.ConvTranspose3d)
+    else:
+        key_map = _KEY_MAPS[type(model)]
+        transposed = _TRANSPOSED.get(type(model), is_transposed)
     source = _leaves({c: variables.get(c, {}) for c in ("params", "batch_stats")})
     used = set()
     state: Dict[str, torch.Tensor] = {}

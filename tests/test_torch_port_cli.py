@@ -3,8 +3,15 @@ on the CPU at ``--model-size small``.
 
 The parser covers the ported subcommands and refuses, before any device
 work and by name, what the port does not have (the message names the
-ROADMAP item; the re-pointed cases name the ViT-GAN and exp models, their
-imports and meshes, which the port does not have). train → eval → predict →
+ROADMAP item: meshes, bench and doctor). ViT-GAN and the exp model (on
+the 16³ cohort, two one-step epochs each; ViT-GAN's critic from a seeded
+MedicalNet-layout pickle, unfreezing at epoch 1): train (both optimizers
+restarted at the unfreeze epoch), eval (host and device metrics, by the
+bars below), predict, an explicit --lr as both ViT-GAN rates, the
+eval guard on --act, and import-torch --kind resnet10|vitgan-g|exp-gen
+of reference-layout files, each slot bit-equal to the JAX CLI's import of
+the same file (dose_prediction_tpu.cli, carried by weights.jax_to_torch)
+on every entry the file holds. train → eval → predict →
 score on a synthetic 16³ cohort:
 eval's device metrics against its host metrics (dose score rel 1e-4, DVH
 score rel 1e-3, IVS rtol 1e-4 atol 1e-5 where the host's is defined: the
@@ -92,21 +99,9 @@ def trained(cohort):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "vitgan", "--data", "x"], "the vitgan model"),
-    (["train", "exp", "--data", "x", "--model-size", "small"], "item 6"),
-    (["eval", "--model", "vitgan", "--data", "x", "--ckpt", "c"], "item 6"),
-    (["predict", "--model", "exp", "--data", "x", "--ckpt", "c", "--out-dir", "o"], "item 6"),
-    (["train", "exp", "--data", "x"], "the exp model"),
-    (["eval", "--model", "exp", "--data", "x", "--ckpt", "c"], "the exp model"),
-    (["predict", "--model", "vitgan", "--data", "x", "--ckpt", "c", "--out-dir", "o"],
-     "the vitgan model"),
-    (["import-torch", "--kind", "resnet10", "--src", "a", "--dest", "b"], "kind resnet10"),
-    (["import-torch", "--kind", "vitgan-g", "--model-size", "small", "--src", "a", "--dest",
-      "b"], "item 6"),
     (["train", "dosegan", "--data", "x", "--mesh", "data=4"], "item 7"),
-    (["import-torch", "--kind", "vitgan-g", "--src", "a", "--dest", "b"], "kind vitgan-g"),
     (["train", "pyfer", "--data", "x", "--mesh", "data=4"], "item 7"),
-    (["import-torch", "--kind", "exp-gen", "--src", "a", "--dest", "b"], "kind exp-gen"),
+    (["train", "vitgan", "--data", "x", "--mesh", "data=4"], "item 7"),
     (["tune", "--data", "x", "--mesh", "data=4"], "item 7"),
     (["kfold", "--data", "x", "--mesh", "data=2"], "item 7"),
     (["bench"], "bench_gpu.py"),
@@ -428,3 +423,138 @@ def test_sigterm_stops_gracefully_and_the_rerun_resumes(tmp_path, cohort):
     assert rerun.returncode == 0, rerun.stderr[-2000:]
     assert f"resumed from epoch {stopped['epoch']}" in rerun.stdout
     assert restore_checkpoint(last)["step"] == stopped["step"] + 1
+
+
+# -- ViT-GAN and the exp model ---------------------------------------------------
+
+def medicalnet_pickle(path, widths=(64, 128, 256, 512), seed=5):
+    """A MedicalNet-layout resnet_10 pickle: a seeded ResNet-10 without fc,
+    under DataParallel's 'module.' prefix. Returns its entries."""
+    from dose_prediction_tpu_torch.models.experiments import resnet10
+
+    torch.manual_seed(seed)
+    sd = {k: v for k, v in resnet10(widths=widths, device="cpu").state_dict().items()
+          if not k.startswith("fc.")}
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, path)
+    return sd
+
+
+@pytest.fixture(scope="module")
+def zoo_trained(cohort, tmp_path_factory):
+    """ViT-GAN (critic from a pickle, unfreezing at epoch 1) and the exp
+    model, each trained for two one-step epochs through the CLI."""
+    _, pattern = cohort
+    root = tmp_path_factory.mktemp("zoo")
+    medicalnet_pickle(root / "resnet_10.pth")
+    common = ("--data", pattern, "--val-data", pattern, "--epochs", "2", "--check-val", "1",
+              "--samples-per-epoch", "1")
+    assert CLI.main(small("train", "vitgan", *common, "--pretrained-critic",
+                          str(root / "resnet_10.pth"), "--unfreeze-epoch", "1",
+                          "--ckpt-dir", str(root / "vg"), "--log-dir", str(root / "vgl"))) == 0
+    assert CLI.main(small("train", "exp", *common, "--ckpt-dir", str(root / "ex"),
+                          "--log-dir", str(root / "exl"))) == 0
+    return root, pattern
+
+
+def jax_cli_import(kind, src, dest, port_model):
+    """The JAX CLI's import-torch of ``src`` at the small width, as the
+    port model's state dict."""
+    from dose_prediction_tpu.cli import main as JCLI
+    from dose_prediction_tpu.core.checkpoint import restore_checkpoint as jax_restore
+
+    from dose_prediction_tpu_torch import weights
+
+    assert JCLI.main(["--platform", "cpu", "import-torch", "--kind", kind, "--src", str(src),
+                      "--dest", str(dest), "--model-size", "small",
+                      "--volume-size", str(SIZE)]) == 0
+    variables = jax_restore(dest)
+    return weights.jax_to_torch({"params": variables["params"],
+                                 "batch_stats": variables.get("batch_stats") or {}},
+                                port_model)
+
+
+ZOO_CASES = ["train-vitgan", "train-exp", "eval-vitgan", "eval-exp", "predict-vitgan",
+             "predict-exp", "vitgan-lr", "exp-act-guard", "import-resnet10",
+             "import-vitgan-g", "import-exp-gen"]
+
+
+@pytest.mark.parametrize("case", ZOO_CASES)
+def test_vitgan_and_exp_commands_run(case, zoo_trained, tmp_path, capsys):
+    root, pattern = zoo_trained
+    slot = {"vitgan": root / "vg" / "last.pt", "exp": root / "ex" / "last.pt"}
+    kind = case.split("-", 1)[1]
+    if case == "train-vitgan":
+        last = restore_checkpoint(slot["vitgan"])
+        assert set(last) == {"g", "d", "epoch"} and last["epoch"] == 1
+        assert (last["g"]["step"], last["d"]["step"]) == (2, 2)
+        # both optimizers restarted at epoch 1: one update counted since
+        assert (last["g"]["optimizer"]["count"], last["d"]["optimizer"]["count"]) == (1, 1)
+        assert "critic unfrozen, optimizers restarted" in (root / "vgl" / "log.txt").read_text()
+    elif case == "train-exp":
+        last = restore_checkpoint(slot["exp"])
+        assert last["epoch"] == 1 and last["step"] == 2
+        assert sorted(p.name for p in (root / "ex").iterdir()) == \
+            ["last.pt", "monitored", "run_config.json"]
+    elif case.startswith("eval-"):
+        evaluate = small("eval", "--model", kind, "--data", pattern, "--ckpt", str(slot[kind]),
+                         "--ckpt-dir", str(tmp_path / "c"), "--log-dir", str(tmp_path / "l"))
+        rc, host = run_cli(evaluate, capsys)
+        rc2, device = run_cli(evaluate + ["--device-metrics"], capsys)
+        assert rc == rc2 == 0 and np.isfinite(host["mean_dose_score"])
+        assert abs(device["mean_dose_score"] - host["mean_dose_score"]) <= \
+            1e-4 * abs(host["mean_dose_score"])
+        assert abs(device["mean_dvh_score"] - host["mean_dvh_score"]) <= \
+            1e-3 * abs(host["mean_dvh_score"])
+    elif case.startswith("predict-"):
+        out = tmp_path / "pred"
+        assert CLI.main(small("predict", "--model", kind, "--data", pattern, "--ckpt",
+                              str(slot[kind]), "--out-dir", str(out), "--ckpt-dir",
+                              str(tmp_path / "c"), "--log-dir", str(tmp_path / "l"))) == 0
+        assert sorted(p.name for p in out.iterdir()) == ["pt_0", "pt_1"]
+        vol = read_nifti(out / "pt_0" / "dose.nii.gz").data
+        assert vol.shape == (SIZE,) * 3 and np.isfinite(vol).all() and vol.min() >= 0
+    elif case == "vitgan-lr":
+        assert CLI.main(small("train", "vitgan", "--data", pattern, "--epochs", "1",
+                              "--samples-per-epoch", "1", "--lr", "1e-3", "--ckpt-dir",
+                              str(tmp_path / "lr"), "--log-dir", str(tmp_path / "lrl"))) == 0
+        last = restore_checkpoint(tmp_path / "lr" / "last.pt")
+        assert last["g"]["optimizer"]["param_groups"][0]["lr"] == \
+            last["d"]["optimizer"]["param_groups"][0]["lr"] == 1e-3
+        # no pretrained critic: it waits for the unfreeze epoch whole
+        assert last["d"]["step"] == 0 and last["g"]["step"] == 1
+    elif case == "exp-act-guard":
+        argv = small("eval", "--model", "exp", "--data", pattern, "--ckpt", str(slot["exp"]),
+                     "--act", "relu")
+        with pytest.raises(SystemExit, match="act: trained 'mish' vs now 'relu'"):
+            CLI.main(argv)
+    else:
+        from dose_prediction_tpu_torch.models import experiments as E
+
+        kind = case[len("import-"):]
+        src = tmp_path / "ref.ckpt"
+        if kind == "resnet10":
+            want = medicalnet_pickle(src, widths=(4, 8, 16, 32))
+            model = E.resnet10(widths=(4, 8, 16, 32), device="cpu")
+        elif kind == "vitgan-g":
+            last = restore_checkpoint(slot["vitgan"])
+            want = last["g"]["model"]
+            torch.save({"state_dict": {**{f"generator.{k}": v for k, v in want.items()},
+                                       **{f"discriminator.{k}": v
+                                          for k, v in last["d"]["model"].items()}}}, src)
+            model = E.vitgan_generator(small=True, img_size=SIZE, device="cpu")
+        else:
+            want = restore_checkpoint(slot["exp"])["model"]
+            torch.save({"state_dict": {**{f"model_.{k}": v for k, v in want.items()},
+                                       "model_.out.0.weight": torch.zeros(1, 2, 1, 1, 1),
+                                       "model_.out.0.bias": torch.zeros(1)}}, src)
+            model = E.exp_generator(small=True, img_size=SIZE, device="cpu")
+        dest = tmp_path / "imported.pt"
+        assert CLI.main(small("import-torch", "--kind", kind, "--src", str(src), "--dest",
+                              str(dest), "--volume-size", str(SIZE))) == 0
+        got = restore_checkpoint(dest)
+        jax_sd = jax_cli_import(kind, src, tmp_path / "jax_imported", model)
+        entries = [k for k in want if not k.endswith("num_batches_tracked")]
+        assert entries and all(torch.equal(got[k], want[k]) for k in entries)
+        assert all(torch.equal(got[k], jax_sd[k]) for k in entries)
+        if kind != "resnet10":                    # strict: every entry from the file
+            assert set(got) == set(want)

@@ -612,3 +612,80 @@ def test_dosegan_step_on_card_matches_the_cpu(card, monkeypatch):
     assert not row["failed"] and max(row["loss_rel_diff"].values()) <= 1e-5
     assert row["worst_grad_ratio"] <= 1.0 and row["worst_buffer_ratio"] <= 1.0
     assert not any(chip_smoke.read_counts().values())
+
+
+def seeded_on(model, seed):
+    """``model``'s weights drawn on the CPU from ``seed``, norm affines and
+    BatchNorm statistics off 1/0."""
+    g = torch.Generator().manual_seed(seed)
+    init_params(model, g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.running_mean.uniform_(-0.2, 0.2, generator=g)
+                m.running_var.uniform_(0.8, 1.3, generator=g)
+            if isinstance(m, (torch.nn.InstanceNorm3d, torch.nn.BatchNorm3d,
+                              torch.nn.LayerNorm)) and m.weight is not None:
+                m.weight.uniform_(0.7, 1.3, generator=g)
+                m.bias.uniform_(-0.2, 0.2, generator=g)
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vitgan", "exp", "resnet10"])
+@pytest.mark.parametrize("train", [False, True])
+def test_experiments_models_on_card_match_the_cpu(card, monkeypatch, name, train):
+    """ViT-GAN's and the exp model's generators (hidden size 64, 2 heads: K1
+    takes head dims 32-128; feature size 2) and ResNet-10 (widths 4-32) at
+    32³, float32 with TF32 off, on the card (K1 and K2 where the model has
+    them) against the same weights on the CPU: every output within 1e-3 of
+    its largest |value| (the cascade parity bar of chip_smoke.py)."""
+    from dose_prediction_tpu_torch.models import experiments as E
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    vit = dict(img_size=32, hidden_size=64, mlp_dim=128, num_layers=2, num_heads=2,
+               feature_size=2, mode_multi_dec=True, act="mish")
+
+    def make(device):
+        if name == "resnet10":
+            return E.resnet10(widths=(4, 8, 16, 32), device=device)
+        return E.VitGenerator(multiS_conv=name == "exp", device=device, **vit)
+
+    cpu = seeded_on(make("cpu"), seed=3)
+    gpu = make(card)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 1 if name == "resnet10" else 9, 32, 32, 32),
+                    generator=torch.Generator().manual_seed(4))
+    k1.fused_attention.launches = k2.instance_norm_act.launches = 0
+    with torch.no_grad():
+        want, got = cpu.train(train)(x), gpu.train(train)(x.to(card))
+    want = want if isinstance(want, list) else [want]
+    got = got if isinstance(got, list) else [got]
+    for w, g in zip(want, got):
+        assert g.device.type == "cuda" and torch.isfinite(g).all()
+        assert float((g.cpu() - w).abs().max()) <= 1e-3 * float(w.abs().max())
+    if name != "resnet10":
+        assert k1.fused_attention.launches > 0 and k2.instance_norm_act.launches > 0
+    for key, value in cpu.state_dict().items():         # BatchNorm statistics alike
+        assert torch.allclose(gpu.state_dict()[key].cpu().float(), value.float(),
+                              rtol=1e-4, atol=1e-6), key
+
+
+@pytest.mark.cuda
+def test_vitgan_step_on_card_matches_the_cpu(card, monkeypatch):
+    """The ViT-GAN step in its three modes (train_d, no train_d, freeze_d
+    with a mask) on the card against the CPU, by chip_smoke.py's
+    vitgan_parity rule."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rows = chip_smoke.vitgan_parity(card)
+    assert set(rows) == {"train_d", "no_train_d", "freeze_d"}
+    assert all(r["loss_rel_diff"][0] <= 1e-5 and r["worst_grad_ratio"] <= 1.0
+               and r["loss_rel_diff"][1] <= max(1e-5, r["d_loss_limit"]) for r in rows.values())

@@ -5,9 +5,18 @@ Each flag is read from the JAX package's variable with its default; on the
 route chooses the kernel's wrapper, off the counterpart of the JAX package's
 own route: K1's plain version kernels/attention.py::plain_attention (the JAX
 einsum route) for attention and ops.instance_norm for InstanceNorm. The off
-routes are held against the JAX layers, which take those routes off the TPU: float32 to 1e-5 (one op order apart); bfloat16 to
-one bf16 ulp at the larger of |JAX output| and 2^-8 (the float32 sums may
-round across a bf16 boundary; the bar of tests/test_torch_port_layers.py).
+routes are held against the JAX layers, which take those routes off the TPU:
+float32 to 1e-5 (one op order apart). bfloat16 InstanceNorm to one bf16 ulp
+at the larger of |JAX output| and 2^-8 (the float32 sums may round across a
+bf16 boundary; the bar of tests/test_torch_port_layers.py). bfloat16
+attention by the rule of tests/test_torch_port_models.py: max|port − JAX
+bf16| ≤ 2 · max|JAX bf16 − JAX f32| + one bf16 ulp at the largest |JAX f32|
+output, the JAX float32 run taking the same bf16-rounded input. The two
+packages round the softmax's probabilities at different places, and the
+output projection's cancellation leaves outputs near 0 whose error is many
+of their own ulps, as the reference's own bf16 error there is. Each dtype
+runs on inputs from its own seeded generator, several seeds, so that the
+result does not follow the tests that ran before it in a worker.
 """
 
 import os
@@ -79,13 +88,19 @@ def test_attention_flag_chooses_k1_or_the_einsum_route(monkeypatch, on):
     assert (len(kernel), len(plain)) == (int(on), 1)
 
 
+# 24, 30, 33 and 36 gave outputs more than one bf16 ulp from JAX's
+ATTENTION_SEEDS = (0, 1, 24, 30, 33, 36)
+
+
+@pytest.mark.parametrize("seed", ATTENTION_SEEDS)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_einsum_attention_matches_jax_off_the_kernel(monkeypatch, rng, dtype):
+def test_einsum_attention_matches_jax_off_the_kernel(monkeypatch, dtype, seed):
     """SABlock with DPT_PALLAS_ATTENTION=0 against the JAX Attention module,
     which takes its einsum route off the TPU (nn/vit.py:67-76)."""
     monkeypatch.setattr(FLAGS, "use_k1_attention", False)
     tdt, jdt = DTYPES[dtype]
     hidden, heads = 48, 4
+    rng = np.random.default_rng(seed)
     x = rng.standard_normal((2, 27, hidden)).astype(np.float32)
     wqkv = (rng.standard_normal((3 * hidden, hidden)) / np.sqrt(hidden)).astype(np.float32)
     wo = (rng.standard_normal((hidden, hidden)) / np.sqrt(hidden)).astype(np.float32)
@@ -96,11 +111,23 @@ def test_einsum_attention_matches_jax_off_the_kernel(monkeypatch, rng, dtype):
         block.out_proj.weight.copy_(torch.from_numpy(wo))
         block.out_proj.bias.copy_(torch.from_numpy(bo))
         got = block(torch.from_numpy(x).to(tdt)).float().numpy()
-    want = JAttention(hidden, heads, dtype=jdt).apply(
-        {"params": {"qkv": {"kernel": jnp.asarray(wqkv.T)},
-                    "out_proj": {"kernel": jnp.asarray(wo.T), "bias": jnp.asarray(bo)}}},
-        jnp.asarray(x).astype(jdt))
-    close(got, np.asarray(want.astype(jnp.float32)), dtype)
+    variables = {"params": {"qkv": {"kernel": jnp.asarray(wqkv.T)},
+                            "out_proj": {"kernel": jnp.asarray(wo.T), "bias": jnp.asarray(bo)}}}
+    xin = jnp.asarray(x).astype(jdt)
+    want = np.asarray(JAttention(hidden, heads, dtype=jdt).apply(variables, xin)
+                      .astype(jnp.float32))
+    if dtype == "float32":
+        close(got, want, dtype)
+        return
+    want_f32 = np.asarray(JAttention(hidden, heads, dtype=jnp.float32).apply(
+        variables, xin.astype(jnp.float32)))
+    ref_err = float(np.abs(want - want_f32).max())
+    top = float(np.abs(want_f32).max())
+    tol = 2 * ref_err + 2.0 ** (np.floor(np.log2(top)) - 7)
+    err = float(np.abs(got - want).max())
+    print(f"seed {seed}: max|port - JAX bf16| {err:.5g}, tolerance {tol:.5g} "
+          f"(max|JAX bf16 - JAX f32| {ref_err:.5g})")
+    assert np.isfinite(got).all() and err <= tol, (err, tol, ref_err)
 
 
 @pytest.mark.parametrize("flag,routed", [("auto", True), ("1", True), ("0", False)])
