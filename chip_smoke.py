@@ -2921,13 +2921,17 @@ def vitgan_parity(dev) -> dict:
     (VITGAN_PARITY_VIT: head dim 32, the least K1 takes) and a ResNet-10 of
     VITGAN_PARITY_WIDTHS on a seeded VITGAN_PARITY_SIZE³ batch,
     on the card and on the CPU from the same weights, in each mode: train_d,
-    no train_d, freeze_d with the mask of every critic leaf but fc. g_loss
-    within rel 1e-5, d_loss (after the generator's update) within max(1e-5,
-    2 × its departure in the noise runs); each gradient leaf within max(1e-3, 2 × its largest
-    departure in VITGAN_NOISE_RUNS noise runs on the card) × its max |g| (a
-    floor of 2e-6 × the net's largest |g|); without train_d the critic
-    unchanged and d_loss 0; with freeze_d the masked leaves bit-unchanged
-    and their first moments nonzero."""
+    no train_d, freeze_d with the mask of every critic leaf but fc, and the
+    critic half (train_d with the generator's learning rate 0, so that the
+    critic's loss sees the same generator weights on both sides). g_loss
+    within rel 1e-5; d_loss within rel 1e-5 in the critic half and, where it
+    follows the generator's update, within max(1e-5, 2 × its departure in
+    the noise runs); each gradient leaf within max(1e-3, 2 × its largest
+    departure in VITGAN_NOISE_RUNS noise runs on the card, the critic
+    half's its own) × its max |g| (a floor of 2e-6 × the net's largest
+    |g|); without train_d the critic unchanged and d_loss 0; with freeze_d
+    the masked leaves bit-unchanged and their first moments nonzero; in the
+    critic half the generator bit-unchanged."""
     from dose_prediction_tpu_torch.models import experiments as E
     from dose_prediction_tpu_torch.train import gan
     from dose_prediction_tpu_torch.train import state as S
@@ -2948,14 +2952,14 @@ def vitgan_parity(dev) -> dict:
     batch = {"input": torch.randn((*shape, 9), generator=gen),
              "gt": torch.cat([torch.rand((*shape, 1), generator=gen) * dmask, dmask], dim=-1)}
     modes = {"train_d": dict(train_d=True), "no_train_d": dict(train_d=False),
-             "freeze_d": dict(train_d=True, freeze_d=True)}
+             "freeze_d": dict(train_d=True, freeze_d=True), "critic_half": dict(train_d=True)}
 
     def run(device, mode, noise=contextlib.nullcontext()):
         g = generator(device)
         d = E.resnet10(widths=VITGAN_PARITY_WIDTHS, device=device)
         g.load_state_dict(g0.state_dict())
         d.load_state_dict(d0.state_dict())
-        g_opt = S.make_optimizer(g, learning_rate=VITGAN_G_LR)
+        g_opt = S.make_optimizer(g, learning_rate=0.0 if mode == "critic_half" else VITGAN_G_LR)
         d_opt = S.make_optimizer(d, learning_rate=VITGAN_D_LR)
         step = gan.make_vitgan_train_step(g, d, g_opt, d_opt, delta3=VITGAN_DELTA3,
                                           delta1=EXP_DELTA1, delta2=EXP_DELTA2,
@@ -2969,22 +2973,26 @@ def vitgan_parity(dev) -> dict:
                 "grads": {f"{t}.{n}": p.grad.detach().cpu() for t, m in nets
                           for n, p in m.named_parameters() if p.grad is not None},
                 "d": {n: p.detach().cpu() for n, p in d.named_parameters()},
+                "g": {n: p.detach().cpu() for n, p in g.named_parameters()},
                 "mu": {n: d_opt.state[p]["mu"].cpu() for n, p in d.named_parameters()
                        if p in d_opt.state}}
 
-    noise_runs = [run(dev, "train_d", scaled_norm_noise(SEED + i, dev))
-                  for i in range(VITGAN_NOISE_RUNS)]
-    noisy = [r["grads"] for r in noise_runs]
+    noise_runs = {m: [run(dev, m, scaled_norm_noise(SEED + i, dev))
+                      for i in range(VITGAN_NOISE_RUNS)] for m in ("train_d", "critic_half")}
     rows, failed = {}, []
     for mode in modes:
         card, host = run(dev, mode), run(cpu, mode)
+        runs = noise_runs["critic_half" if mode == "critic_half" else "train_d"]
+        noisy = [r["grads"] for r in runs]
         rel = [abs(c - h) / abs(h) if h else abs(c) for c, h in zip(card["losses"],
                                                                      host["losses"])]
         # d_loss follows the generator's update of the same step: Adam's first
         # update turns rounding-sized gradients into ±lr, so it is held by
         # the noise runs' own departure
-        d_noise = max(abs(r["losses"][1] - card["losses"][1]) for r in noise_runs)
-        d_limit = max(1e-5, 2 * d_noise / abs(host["losses"][1])) if host["losses"][1] else 0.0
+        # (the critic half holds it at 1e-5 without that update)
+        d_noise = max(abs(r["losses"][1] - card["losses"][1]) for r in runs)
+        d_limit = 0.0 if not host["losses"][1] else 1e-5 if mode == "critic_half" else \
+            max(1e-5, 2 * d_noise / abs(host["losses"][1]))
         worst = {}
         for net in ("g", "d"):
             names = [n for n in host["grads"] if n.startswith(f"{net}.")]
@@ -3007,6 +3015,9 @@ def vitgan_parity(dev) -> dict:
                        for n, p in d0.named_parameters())
             moved = all(card["mu"][n].abs().max().item() > 0 for n in mask if mask[n])
             ok = ok and held and moved
+        if mode == "critic_half":
+            ok = ok and host["losses"][1] > 0 and \
+                all(torch.equal(card["g"][n], p.detach()) for n, p in g0.named_parameters())
         wl = max(worst, key=worst.get)
         rows[mode] = {"loss_rel_diff": rel, "d_loss_limit": d_limit,
                       "worst_grad_ratio": worst[wl],
@@ -3015,8 +3026,9 @@ def vitgan_parity(dev) -> dict:
             f"ResNet-10 "
             f"{VITGAN_PARITY_WIDTHS}, {size}³) card against CPU: g_loss {card['losses'][0]} / "
             f"{host['losses'][0]}, d_loss {card['losses'][1]} / {host['losses'][1]}, "
-            f"relative diffs {rel} (limits 1e-5, d_loss {d_limit:.3g}: twice its noise runs' "
-            f"departure, floor 1e-5); worst gradient leaf err / its per-leaf limit "
+            f"relative diffs {rel} (limits 1e-5, d_loss {d_limit:.3g}: 1e-5 in the critic "
+            f"half, else twice its noise runs' departure, floor 1e-5); worst gradient leaf "
+            f"err / its per-leaf limit "
             f"{worst[wl]:.3g} ({wl}) over {len(worst)} leaves; steps {card['steps']}")
         if not ok:
             failed.append(mode)

@@ -59,17 +59,14 @@ class ViTEncoder(nn.Module):
 class PyMSCDecoder(nn.Module):
     """Four decoder stages (JAX dose_pyfer.py:77-111): ModifiedUnetrUpBlock
     (``mode_multi``; Conv31 or, without ``multiS_conv``, DualDilatedBlock)
-    or the plain UnetrUpBlock of ``norm`` ('instance', the only one
-    ported). ``skip_ch`` gives the skips' channels (decoder1 first) where
+    or the plain UnetrUpBlock, InstanceNorm throughout (the JAX module's
+    ``norm='batch'`` option, which no model uses, is not ported). ``skip_ch`` gives the skips' channels (decoder1 first) where
     they differ from the stages' own; ``remat_blocks`` recomputes each
     stage's activations in the backward (JAX dose_pyfer.py:83-97)."""
 
     def __init__(self, feature_size: int, hidden: int, act: str, remat_blocks: bool = False,
-                 multiS_conv: bool = True, mode_multi: bool = True, norm: str = "instance",
-                 skip_ch=None):
+                 multiS_conv: bool = True, mode_multi: bool = True, skip_ch=None):
         super().__init__()
-        if norm != "instance":
-            raise ValueError(f"norm={norm!r} is not ported; the decoders use 'instance'")
         fs = feature_size
         self.remat_blocks = remat_blocks
         kw = dict(act=act, multiS_conv=multiS_conv)

@@ -26,9 +26,9 @@ reference DosePrediction/Models/Networks/models_experiments.py).
 Torch modules need their input channels, which flax infers: each
 constructor takes ``in_ch`` where the JAX module takes none. The
 multi-scale blocks of the zoo are the 'dose' family's (BatchNorm inside,
-a bare 1×1 fuse), as the JAX module builds them. Only ``norm='instance'``
-is ported where the JAX modules take a ``norm`` (its 'batch' option is
-used by no model of either package).
+a bare 1×1 fuse), as the JAX module builds them. Where the JAX modules
+take a ``norm``, the port builds its default, InstanceNorm (the 'batch'
+option, which no model of either package uses, is not ported).
 """
 
 from __future__ import annotations
@@ -55,11 +55,6 @@ from dose_prediction_tpu_torch.nn.unetr import (
     UnetrUpBlock,
 )
 from dose_prediction_tpu_torch.nn.vit import ViT, tokens_to_volume
-
-
-def _check_norm(norm: str) -> None:
-    if norm != "instance":
-        raise ValueError(f"norm={norm!r} is not ported; the zoo's models use 'instance'")
 
 
 def _head(cin: int, cout: int) -> Conv3d:
@@ -435,10 +430,8 @@ class SharedUNetRModelA(nn.Module):
     @records_config
     def __init__(self, in_ch: int = 9, out_ch: int = 1, img_size=128, feature_size: int = 16,
                  hidden_size: int = 768, mlp_dim: int = 3072, num_heads: int = 12,
-                 num_layers: int = 12, patch_size: int = 16, norm: str = "instance",
-                 device="cuda"):
+                 num_layers: int = 12, patch_size: int = 16, device="cuda"):
         super().__init__()
-        _check_norm(norm)
         fs = feature_size
         self.num_layers = num_layers
         with torch.device(resolve_device(device)):
@@ -478,9 +471,8 @@ class SharedUNetRModel(nn.Module):
     def __init__(self, in_ch_b: int = 25, in_ch: int = 9, out_ch: int = 1, img_size=128,
                  feature_size: int = 16, hidden_size: int = 768, mlp_dim: int = 3072,
                  num_heads: int = 12, num_layers: int = 12, patch_size: int = 16,
-                 norm: str = "instance", device="cuda"):
+                 device="cuda"):
         super().__init__()
-        _check_norm(norm)
         fs = feature_size
         self.in_ch_b = in_ch_b
         with torch.device(resolve_device(device)):
@@ -532,9 +524,8 @@ class MonaiUNet(nn.Module):
     a decoder level and a 1×1 head."""
 
     def __init__(self, in_ch: int, out_ch: int,
-                 channels: Sequence[int] = (16, 32, 64, 128, 256), norm: str = "instance"):
+                 channels: Sequence[int] = (16, 32, 64, 128, 256)):
         super().__init__()
-        _check_norm(norm)
         chans = list(channels)
         self.depth = len(chans) - 1
         prev = in_ch

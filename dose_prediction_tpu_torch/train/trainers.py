@@ -976,14 +976,14 @@ class ExpModelTrainer(_SlidingDose):
 
     def __init__(self, cfg: TrainConfig, model: Optional[torch.nn.Module] = None, *,
                  example_shape: Sequence[int] = (1, 128, 128, 128, 9), huber: bool = False,
-                 val_scale: float = 80.0, roi_size: Optional[Sequence[int]] = None):
+                 val_scale: float = 80.0):
         from dose_prediction_tpu_torch.models.experiments import exp_generator
 
         _refuse_mesh(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.val_scale = val_scale
-        self.roi_size = tuple(roi_size) if roi_size is not None else tuple(example_shape[1:4])
+        self.roi_size = tuple(example_shape[1:4])
         self.model = model if model is not None else seeded(cfg.seed, lambda: exp_generator(
             img_size=tuple(example_shape[1:4]), device=self.device))
         optimizer = S.make_optimizer(self.model, learning_rate=cfg.learning_rate,

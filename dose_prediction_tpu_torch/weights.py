@@ -3,22 +3,30 @@
 ``jax_to_torch(variables, model)`` maps the flax variable tree of
 ``DosePyfer`` (either decoder block, ``multiS_conv``), ``TranSeg`` (every
 block family, both k7 modes, both decoder blocks and patch embeds),
-``CascadeC3D``, ``UNETR``, ``HDUNet`` or DoseGAN's ``UnetGenerator3D`` and
-``NLayerDiscriminator``
+``CascadeC3D``, ``UNETR``, ``HDUNet``, DoseGAN's ``UnetGenerator3D`` and
+``NLayerDiscriminator`` or a model of the experiments zoo
 ({'params': ..., 'batch_stats': ...}, nested dicts of numpy arrays) onto
 ``model``'s state dict: every entry of the state dict must come from the
 tree and every leaf of the tree must be used, or it raises. The port's
-module names are the reference torch names, so the key maps are the
-inverse of dose_prediction_tpu/core/torch_import.py's ``pyfer_key_map`` /
-``transeg_key_map`` / ``c3d_key_map`` / ``unetr_key_map`` /
-``hdunet_key_map`` / ``dosegan_g_key_map`` / ``dosegan_d_key_map``; the
-port keeps its own copy of those maps (for the module names the port builds, the separable chains and the ablation
-DualDilatedBlock's BatchNorm fuse among them, which no reference
-checkpoint holds) and of the layout rules. The experiments zoo
-(models/experiments.py: ``VitGenerator``, ``ResNet3D`` and the rest) is
-mapped by walking the module tree (``zoo_key_map``): each block class
-names its children as the JAX block does, every other module keeps its
-own name.
+module names are the reference torch names. Two mechanisms name the flax
+path of a port module:
+
+- a walk down the module tree (``walk_key_map``) for DOSE-PYFER, the C3D
+  cascade and the zoo (``WALKED_MODELS``): each block class names its
+  children as the JAX block does, every other module keeps its own name;
+- regular expressions on the module key (``transeg_key_map`` /
+  ``unetr_key_map`` / ``hdunet_key_map`` / ``dosegan_g_key_map`` /
+  ``dosegan_d_key_map``, the inverse of
+  dose_prediction_tpu/core/torch_import.py's maps of those names) for the
+  models the walk does not cover: its rules would need TranSeg's separable
+  chains flattened (``conv0_d``), a head named by the model (``out/conv``
+  in TranSeg, ``out`` in UNETR) and HD-UNet's and DoseGAN's renamed levels.
+
+The port keeps its own copy of those maps (for the module names the port
+builds, the separable chains and the ablation DualDilatedBlock's BatchNorm
+fuse among them, which no reference checkpoint holds) and of the layout
+rules. A weight is transposed as a ConvTranspose3d's wherever the module
+holding it is one.
 
 - Conv3d (O, I, k..) ↔ flax (k.., I, O); ConvTranspose3d (I, O, k..) ↔
   (k.., I, O); Linear (O, I) ↔ (I, O);
@@ -46,6 +54,7 @@ from dose_prediction_tpu_torch.models import (
     UnetGenerator3D,
 )
 from dose_prediction_tpu_torch.models import c3d as _c3d
+from dose_prediction_tpu_torch.models import dose_pyfer as _pyfer
 from dose_prediction_tpu_torch.models import experiments as _exp
 from dose_prediction_tpu_torch.nn import blocks as _blocks
 from dose_prediction_tpu_torch.nn import mdunet as _md
@@ -66,27 +75,6 @@ def _res_block_path(prefix: Path, tail: str) -> Optional[Path]:
         return prefix + (f"InstanceNorm_{int(m[1]) - 1}",)
     return None
 
-
-def _c3d_path(key: str) -> Optional[Path]:
-    for pattern, build in _C3D_PATTERNS:
-        m = pattern.match(key)
-        if m:
-            return build(m)
-    return None
-
-
-# net_A of DOSE-PYFER, net_A and net_B of the C3D cascade
-_C3D_PATTERNS = [
-    (re.compile(r"^(net_[AB])\.encoder\.encoder_(\d)\.(\d)\.single_conv\.([01])$"),
-     lambda m: (m[1], "encoder", f"encoder_{m[2]}_conv{int(m[3]) + 1}",
-                "conv" if m[4] == "0" else "norm")),
-    (re.compile(r"^(net_[AB])\.decoder\.decoder_conv_(\d)\.(\d)\.single_conv\.([01])$"),
-     lambda m: (m[1], "decoder", f"decoder_{m[2]}_conv{int(m[3]) + 1}",
-                "conv" if m[4] == "0" else "norm")),
-    (re.compile(r"^(net_[AB])\.decoder\.upconv_(\d)\.conv\.([01])$"),
-     lambda m: (m[1], "decoder", f"upconv_{m[2]}", "conv", "conv" if m[3] == "0" else "norm")),
-    (re.compile(r"^(conv_out_[AB])$"), lambda m: (m[1],)),
-]
 
 # the ViT trunk and the UnetrBasicBlock / UnetrPrUpBlock skip encoders;
 # {enc1}/{enc} name them ('skip1'/'skip' in DOSE-PYFER, 'encoder1'/'encoder'
@@ -159,11 +147,6 @@ def _under(prefix: str, patterns):
     return [(rf"^{prefix}\." + p[1:], wrap(b)) for p, b in patterns]
 
 
-_PYFER_NETB = _compile(
-    _under("encoder", _VIT_PATTERNS + _SKIP_PATTERNS) + _under("decoder", _DECODER_PATTERNS)
-    + [(r"^dose_convertors\.(\d)\.0$", lambda m: (f"dose_convertor{m[1]}",))],
-    enc1="skip1", enc="skip", dec=r"decoder[1-4]")
-
 _TRANSEG = _compile(
     _VIT_PATTERNS + _SKIP_PATTERNS + _DECODER_PATTERNS
     + [(r"^out\.conv\.conv$", lambda m: ("out", "conv"))],
@@ -184,22 +167,9 @@ def _match(patterns, key: str) -> Optional[Path]:
     return None
 
 
-def pyfer_key_map(module_key: str) -> Optional[Path]:
-    """Port (= reference) module key of DosePyfer → flax path."""
-    if module_key.startswith("net_B."):
-        path = _match(_PYFER_NETB, module_key[len("net_B."):])
-        return None if path is None else ("net_B",) + path
-    return _c3d_path(module_key)
-
-
 def transeg_key_map(module_key: str) -> Optional[Path]:
     """Port (= reference) module key of TranSeg → flax path."""
     return _match(_TRANSEG, module_key)
-
-
-def c3d_key_map(module_key: str) -> Optional[Path]:
-    """Port (= reference) module key of CascadeC3D → flax path."""
-    return _c3d_path(module_key)
 
 
 def unetr_key_map(module_key: str) -> Optional[Path]:
@@ -261,14 +231,8 @@ def dosegan_d_key_map(module_key: str) -> Optional[Path]:
     return block + (_GAN_D_LEAF[m[2]],)
 
 
-def is_transposed(module_key: str) -> bool:
-    """Modules holding ConvTranspose3d weights: the UnetrPrUpBlock chains and
-    the decoder transposed convs."""
-    return bool(re.search(r"(transp_conv|transp_conv_init)\.conv$", module_key)
-                or re.search(r"\.blocks\.\d+\.0\.conv$", module_key))
-
-
-# -- the experiments zoo: a walk down the module tree -------------------------
+# -- DOSE-PYFER, the C3D cascade and the experiments zoo: a walk down the
+# module tree ------------------------------------------------------------------
 # Each rule takes a module and the remaining components of a key below it,
 # and returns (flax names, components consumed) or None; the walk goes on
 # in the child the consumed components name. A module without a rule keeps
@@ -340,7 +304,7 @@ def _c3d_decoder(_, parts):         # decoder_conv_L.S → decoder_L_conv{S+1}
     return ((f"decoder_{m[1]}_conv{int(parts[1]) + 1}",), 2) if m else None
 
 
-def _vit_generator(_, parts):       # dose_convertors.{i}.0 → dose_convertor{i}
+def _dose_convertors(_, parts):     # dose_convertors.{i}.0 → dose_convertor{i}
     if parts[:1] == ["dose_convertors"]:
         return (f"dose_convertor{parts[1]}",), 3
     return None
@@ -370,17 +334,18 @@ _WALK_RULES = {
     _unetr.UnetrPrUpBlock: _pr_up_block, _unetr.UnetrUpBlock: _up_block,
     _unetr.ModifiedUnetrUpBlock: _up_block, _vit.ViT: _vit_walk,
     _c3d.Encoder: _c3d_encoder, _c3d.Decoder: _c3d_decoder,
-    _exp.VitGenerator: _vit_generator, _exp.ResNet3D: _resnet,
+    _pyfer.MainSubsetModel: _dose_convertors, _exp.VitGenerator: _dose_convertors,
+    _exp.ResNet3D: _resnet,
     _exp.ResBlock3D: _res_block3d,
 }
-ZOO_MODELS = (_exp.VitGenerator, _exp.ResNet3D, _exp.SharedEncoderModel,
-              _exp.ExperimentalCascade, _exp.SharedUNetModel, _exp.SharedUNetRModelA,
-              _exp.SharedUNetRModel, _exp.ModelMonai)
+WALKED_MODELS = (DosePyfer, CascadeC3D, _exp.VitGenerator, _exp.ResNet3D,
+                 _exp.SharedEncoderModel, _exp.ExperimentalCascade, _exp.SharedUNetModel,
+                 _exp.SharedUNetRModelA, _exp.SharedUNetRModel, _exp.ModelMonai)
 
 
-def zoo_key_map(model: nn.Module, module_key: str) -> Optional[Path]:
-    """Port module key of a zoo model (or of any module built of the
-    zoo's blocks) → flax path."""
+def walk_key_map(model: nn.Module, module_key: str) -> Optional[Path]:
+    """Port module key of a model of ``WALKED_MODELS`` (or of any module
+    built of their blocks) → flax path."""
     parts, module, path = module_key.split("."), model, ()
     while parts:
         rule = _WALK_RULES.get(type(module))
@@ -393,18 +358,11 @@ def zoo_key_map(model: nn.Module, module_key: str) -> Optional[Path]:
 
 
 _KEY_MAPS: Dict[type, Callable[[str], Optional[Path]]] = {
-    DosePyfer: pyfer_key_map,
     TranSeg: transeg_key_map,
-    CascadeC3D: c3d_key_map,
     UNETR: unetr_key_map,
     HDUNet: hdunet_key_map,
     UnetGenerator3D: dosegan_g_key_map,
     NLayerDiscriminator: dosegan_d_key_map,
-}
-# which modules hold ConvTranspose3d weights, by model type
-_TRANSPOSED: Dict[type, Callable[[str], bool]] = {
-    UnetGenerator3D: lambda key: (dosegan_g_key_map(key) or ("",))[-1] == "upconv",
-    NLayerDiscriminator: lambda key: False,
 }
 # torch leaf → (flax collection, flax leaf); 'weight' depends on rank
 _LEAVES = {
@@ -434,19 +392,16 @@ def _leaves(tree: Mapping, prefix: Path = ()) -> Dict[Path, Any]:
 
 
 def jax_to_torch(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """State dict for ``model`` (a DosePyfer, TranSeg, CascadeC3D, UNETR,
-    HDUNet, UnetGenerator3D, NLayerDiscriminator or a zoo model of
-    ``ZOO_MODELS``) from the JAX package's
+    """State dict for ``model`` (a model of ``WALKED_MODELS`` or a TranSeg,
+    UNETR, HDUNet, UnetGenerator3D or NLayerDiscriminator) from the JAX
+    package's
     variables of the same configuration. Raises if an entry of the
     state dict has no source, a shape differs, or a JAX leaf is left over;
     the result loads with ``model.load_state_dict(sd, strict=True)``."""
-    if isinstance(model, ZOO_MODELS):
-        key_map = lambda key: zoo_key_map(model, key)  # noqa: E731
-        transposed = lambda key: isinstance(model.get_submodule(key),  # noqa: E731
-                                            nn.ConvTranspose3d)
+    if isinstance(model, WALKED_MODELS):
+        key_map = lambda key: walk_key_map(model, key)  # noqa: E731
     else:
         key_map = _KEY_MAPS[type(model)]
-        transposed = _TRANSPOSED.get(type(model), is_transposed)
     source = _leaves({c: variables.get(c, {}) for c in ("params", "batch_stats")})
     used = set()
     state: Dict[str, torch.Tensor] = {}
@@ -465,7 +420,8 @@ def jax_to_torch(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.
         src = (collection,) + path + (flax_leaf,)
         if src not in source:
             raise ValueError(f"{key}: JAX leaf {'/'.join(src)} not found")
-        value = _to_torch_layout(np.asarray(source[src]), ref.ndim, transposed(module_key))
+        transposed = isinstance(model.get_submodule(module_key), nn.ConvTranspose3d)
+        value = _to_torch_layout(np.asarray(source[src]), ref.ndim, transposed)
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: shape {tuple(value.shape)} from {'/'.join(src)}, "
                              f"want {tuple(ref.shape)}")

@@ -12,7 +12,7 @@ weights (test_torch_port_models.seeded: norms and BatchNorm statistics off
 package's own importers (core/torch_import.py::import_vitgen and
 import_resnet10 of the port's ``state_dict()``), whose merge must report no
 missing and no unused leaf; the other zoo models, which have no importer,
-through the port's key map (weights.zoo_key_map), whose leaves must be the
+through the port's key map (weights.walk_key_map), whose leaves must be the
 JAX init's, shape for shape. weights.jax_to_torch carries JAX variables
 back and loads strictly.
 
@@ -21,7 +21,8 @@ train mode where the model has BatchNorm.
 
 The deep-supervision step (train/steps.py::make_deep_supervision_train_step)
 of the small exp generator (Conv31 stages, whose k7 branches hold
-BatchNorm) on a seeded 32³ batch against the JAX package's: the loss within
+BatchNorm) on a seeded 32³ batch against the JAX package's, with the L1
+and with the Huber reconstruction term: the loss within
 rel 1e-5, the BatchNorm statistics it keeps within 1e-5 (the rule of
 tests/test_torch_port_dosegan.py), each gradient leaf within max(1e-3, 2 ×
 its largest departure in three noise runs) × its own max |g| (the rule of
@@ -74,7 +75,7 @@ DEV = "cpu"
 
 def to_jax(module, state_dict=None):
     """JAX variables of ``module``'s state dict (or of ``state_dict``, keyed
-    as ``module``'s) through weights.zoo_key_map."""
+    as ``module``'s) through weights.walk_key_map."""
     tree = {"params": {}, "batch_stats": {}}
     for key, value in (state_dict or module.state_dict()).items():
         module_key, leaf = key.rsplit(".", 1)
@@ -93,7 +94,7 @@ def to_jax(module, state_dict=None):
         elif leaf == "position_embeddings":
             leaf = "pos_embedding"
         node = tree[collection]
-        for name in weights.zoo_key_map(module, module_key):
+        for name in weights.walk_key_map(module, module_key):
             node = node.setdefault(name, {})
         node[leaf] = v
     return tree
@@ -309,10 +310,11 @@ def noise(seed):
         yield
 
 
-def port_ds_step(batch, noise_ctx=contextlib.nullcontext()):
+def port_ds_step(batch, noise_ctx=contextlib.nullcontext(), huber=False):
     model = exp_model()
     opt = S.make_optimizer(model, learning_rate=LR, weight_decay=WD)
-    step = steps.make_deep_supervision_train_step(model, opt, delta1=10.0, delta2=8.0)
+    step = steps.make_deep_supervision_train_step(model, opt, delta1=10.0, delta2=8.0,
+                                                  huber=huber)
     with noise_ctx:
         state, loss = step(S.TrainState(model, opt), {k: torch.from_numpy(v)
                                                       for k, v in batch.items()})
@@ -321,13 +323,15 @@ def port_ds_step(batch, noise_ctx=contextlib.nullcontext()):
     return float(loss), grads, {k: v.numpy() for k, v in model.state_dict().items()}
 
 
-@pytest.fixture(scope="module")
-def ds_step():
+def ds_step_pair(huber):
+    """The port's step, the JAX package's and the port's noise runs, from
+    the same weights and batch."""
     model, jm = exp_model(), JE.exp_generator(small=True)
     batch = seeded_batch()
     variables = imported(model, jm, TI.import_vitgen, batch["input"])
     tx = recording(JS.make_optimizer(learning_rate=LR, weight_decay=WD))
-    jstep = JSTEP.make_deep_supervision_train_step(jm, tx, delta1=10.0, delta2=8.0)
+    jstep = JSTEP.make_deep_supervision_train_step(jm, tx, delta1=10.0, delta2=8.0,
+                                                   huber=huber)
     jstate, jloss = jstep(JS.create_train_state(variables, tx),
                           {k: jnp.asarray(v) for k, v in batch.items()})
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
@@ -336,14 +340,34 @@ def ds_step():
     after = {k: v.numpy() for k, v in weights.jax_to_torch(
         {"params": np_tree(jstate.params), "batch_stats": np_tree(jstate.batch_stats)},
         model).items()}
-    port = port_ds_step(batch)
-    noisy = [port_ds_step(batch, noise(seed))[1] for seed in range(NOISE_RUNS)]
+    port = port_ds_step(batch, huber=huber)
+    noisy = [port_ds_step(batch, noise(seed), huber=huber)[1] for seed in range(NOISE_RUNS)]
     return port, (float(jloss), grads, after), noisy
 
 
+@pytest.fixture(scope="module")
+def ds_step():
+    return ds_step_pair(huber=False)
+
+
+@pytest.fixture(scope="module")
+def huber_ds_step():
+    return ds_step_pair(huber=True)
+
+
 def test_deep_supervision_step_matches_jax(ds_step):
-    (loss, grads, after), (jloss, jgrads, jafter), noisy = ds_step
-    print(f"deep-supervision step: loss port {loss!r} jax {jloss!r}")
+    check_ds_step(ds_step, "L1")
+
+
+def test_huber_deep_supervision_step_matches_jax(huber_ds_step):
+    """``huber``: GenLoss's Huber reconstruction term (the option
+    ExpModelTrainer(huber=True) sets), by the same bars."""
+    check_ds_step(huber_ds_step, "Huber")
+
+
+def check_ds_step(pair, tag):
+    (loss, grads, after), (jloss, jgrads, jafter), noisy = pair
+    print(f"deep-supervision step ({tag}): loss port {loss!r} jax {jloss!r}")
     assert abs(loss - jloss) <= 1e-5 * abs(jloss)
     assert buffers_close(after, jafter) <= 1.0
     names = list(grads)

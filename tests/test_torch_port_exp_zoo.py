@@ -2,7 +2,7 @@
 SharedEncoderModel, ExperimentalCascade, SharedUNetModel, SharedUNetRModelA,
 SharedUNetRModel, ModelMonai) against the JAX package's on the CPU, float32,
 at the sizes of tests/test_torch_port_exp_models.py, whose helpers carry
-the weights (the port's key map, weights.zoo_key_map; no JAX importer
+the weights (the port's key map, weights.walk_key_map; no JAX importer
 exists for these models) and hold the forwards within 1e-3, in eval and in
 train mode where the model has BatchNorm.
 
@@ -121,9 +121,20 @@ def test_shared_unetr_checks_its_stage_b_channels():
         port(torch.zeros(1, 9, SIZE, SIZE, SIZE))
 
 
-def test_only_instance_norm_is_ported():
-    with pytest.raises(ValueError, match="norm"):
-        E.SharedUNetRModelA(norm="batch", device="meta")
+def test_pyramid_decoder_takes_skip_channels_only_in_its_plain_stages():
+    """PyMSCDecoder's ``skip_ch`` (skips narrower than the stages, as
+    SharedEncoderModel's) builds plain UnetrUpBlock stages of those widths
+    and is refused with the ModifiedUnetrUpBlock stages."""
+    from dose_prediction_tpu_torch.models.dose_pyfer import PyMSCDecoder
+
+    dec = PyMSCDecoder(2, 24, "mish", mode_multi=False, skip_ch=(3, 5, 7, 9))
+    assert [type(getattr(dec, f"decoder{i}")).__name__ for i in range(1, 5)] == \
+        ["UnetrUpBlock"] * 4
+    # stage i joins its own width (2·2^(i-1)) and the skip's
+    assert [getattr(dec, f"decoder{i}").conv_block.conv1.conv.weight.shape[1]
+            for i in range(1, 5)] == [2 + 3, 4 + 5, 8 + 7, 16 + 9]
+    with pytest.raises(ValueError, match="skip_ch needs the plain decoder"):
+        PyMSCDecoder(2, 24, "mish", mode_multi=True, skip_ch=(3, 5, 7, 9))
 
 
 def test_zoo_full_widths_have_the_jax_leaves():

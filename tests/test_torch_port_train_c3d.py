@@ -127,7 +127,7 @@ def test_default_widths_are_the_reference_cascade():
     got = {}
     for key, ref in model.state_dict().items():
         module_key, leaf = key.rsplit(".", 1)
-        path = weights.c3d_key_map(module_key)
+        path = weights.walk_key_map(model, module_key)
         flax_leaf = ("kernel" if ref.ndim > 1 else "scale") if leaf == "weight" else leaf
         shape = tuple(ref.shape)
         got["/".join(path + (flax_leaf,))] = shape[2:] + shape[1::-1] if ref.ndim == 5 else shape

@@ -16,7 +16,11 @@ Bars:
 - one step in each of three modes (``train_d`` on; ``train_d`` off;
   ``freeze_d`` with the pretrained mask): ``g_loss`` within rel 1e-5;
   ``d_loss``, which follows the generator's update of the same step,
-  within max(1e-5 of itself, 2 × its departure in the noise runs); each
+  within max(1e-5 of itself, 2 × its departure in the noise runs); the
+  critic's half on its own (``train_d`` with the generator's learning rate
+  0, so that the critic's loss sees the same generator weights in both
+  packages): both losses within rel 1e-5, the generator bit-unchanged, the
+  critic's gradient leaves by the rule below with noise runs of their own; each
   gradient leaf of both nets within max(1e-3, 2 × that
   leaf's largest departure in three noise runs) × its own max |g| (a floor
   of 2e-6 × the net's largest |g|), the rule of
@@ -82,6 +86,9 @@ NOISE_RUNS = 3
 ZERO_GRAD = re.compile(r"^g\..*(conv_[357]\.conv\.[03]|cov_\.conv\.0)\.bias$")
 MODES = {"train_d": dict(train_d=True), "no_train_d": dict(train_d=False),
          "freeze_d": dict(train_d=True, freeze_d=True)}
+# train_d with the generator's learning rate 0: the critic's half of the step
+# on the generator's own weights
+CRITIC_HALF = "critic_half"
 
 
 def port_nets():
@@ -158,11 +165,11 @@ def first_moments(optimizer, model):
             if p in optimizer.state}
 
 
-def port_step(medicalnet, batch, mode, noise_ctx=contextlib.nullcontext()):
+def port_step(medicalnet, batch, mode, noise_ctx=contextlib.nullcontext(), g_lr=G_LR):
     _, d0, mask, _, _ = medicalnet
     g, d = port_nets()
     d.load_state_dict(d0.state_dict())
-    g_opt = S.make_optimizer(g, learning_rate=G_LR)
+    g_opt = S.make_optimizer(g, learning_rate=g_lr)
     d_opt = S.make_optimizer(d, learning_rate=D_LR)
     step = gan.make_vitgan_train_step(g, d, g_opt, d_opt, delta3=DELTA3, delta1=DELTA1,
                                       delta2=DELTA2, d_freeze_mask=mask)
@@ -201,14 +208,16 @@ def gan_steps(medicalnet):
     gv = to_jax(g, jg, TI.import_vitgen, 9)
     batch = seeded_batch()
     out = {}
-    for mode in MODES:
-        g_tx = recording(JS.make_optimizer(learning_rate=G_LR))
+    for mode in [*MODES, CRITIC_HALF]:
+        g_lr = 0.0 if mode == CRITIC_HALF else G_LR
+        g_tx = recording(JS.make_optimizer(learning_rate=g_lr))
         d_tx = recording(JS.make_optimizer(learning_rate=D_LR))
         jstep = JG.make_vitgan_train_step(jg, jd, g_tx, d_tx, delta3=DELTA3, delta1=DELTA1,
                                           delta2=DELTA2, d_freeze_mask=jmask)
         jgs, jds, info = jstep(JS.create_train_state(gv, g_tx),
                                JS.create_train_state(jd_vars, d_tx),
-                               {k: jnp.asarray(v) for k, v in batch.items()}, **MODES[mode])
+                               {k: jnp.asarray(v) for k, v in batch.items()},
+                               **MODES.get(mode, MODES["train_d"]))
         np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
         want = {"g_loss": float(info["g_loss"]), "d_loss": float(info["d_loss"]),
                 "steps": (int(jgs.step), int(jds.step)), "grads": {}, "after": {}}
@@ -222,11 +231,16 @@ def gan_steps(medicalnet):
         mu = weights.jax_to_torch({"params": np_tree(adam_field(jds.opt_state[1])),
                                    "batch_stats": np_tree(jds.batch_stats)}, d0)
         want["mu"] = {n: mu[n] for n, _ in d0.named_parameters()}
-        out[mode] = (port_step(medicalnet, batch, mode), want)
-    # the modes differ in the updates only: one set of noise runs serves all
+        out[mode] = (port_step(medicalnet, batch, "train_d" if mode == CRITIC_HALF else mode,
+                               g_lr=g_lr), want)
+    # the modes differ in the updates only: one set of noise runs serves all;
+    # the critic half, whose critic sees the generator's own weights, has its own
     runs = [port_step(medicalnet, batch, "train_d", noise(seed)) for seed in range(NOISE_RUNS)]
-    noisy = [r["grads"] for r in runs]
-    steps_by_mode = {mode: (port, want, noisy) for mode, (port, want) in out.items()}
+    half_runs = [port_step(medicalnet, batch, "train_d", noise(seed), g_lr=0.0)
+                 for seed in range(NOISE_RUNS)]
+    steps_by_mode = {mode: (port, want, [r["grads"] for r in
+                                         (half_runs if mode == CRITIC_HALF else runs)])
+                     for mode, (port, want) in out.items()}
     steps_by_mode["d_loss_noise"] = max(abs(r["d_loss"] - out["train_d"][0]["d_loss"])
                                         for r in runs)
     return steps_by_mode
@@ -242,10 +256,29 @@ def test_vitgan_step_losses_match_jax(gan_steps, mode):
         assert port["d_loss"] == want["d_loss"] == 0.0
         assert port["steps"] == want["steps"] == (1, 0)
     else:
-        # d_loss follows the generator's update of the same step
+        # d_loss follows the generator's update of the same step (the critic
+        # half below holds it without that update)
         limit = max(1e-5 * abs(want["d_loss"]), 2 * gan_steps["d_loss_noise"])
         assert abs(port["d_loss"] - want["d_loss"]) <= limit
         assert port["steps"] == want["steps"] == (1, 1)
+
+
+def test_vitgan_critic_half_losses_match_jax(gan_steps):
+    """The generator at learning rate 0: its update leaves it as loaded in
+    both packages, so the critic's loss is computed on the same generator
+    weights and holds at rel 1e-5, as g_loss does."""
+    port, want, _ = gan_steps[CRITIC_HALF]
+    print(f"critic half: g_loss port {port['g_loss']!r} jax {want['g_loss']!r}; d_loss port "
+          f"{port['d_loss']!r} jax {want['d_loss']!r}")
+    assert abs(port["g_loss"] - want["g_loss"]) <= 1e-5 * abs(want["g_loss"])
+    assert want["d_loss"] > 0
+    assert abs(port["d_loss"] - want["d_loss"]) <= 1e-5 * abs(want["d_loss"])
+    assert port["steps"] == want["steps"] == (1, 1)
+    g, _ = port_nets()
+    for k, v in numpy_state(g).items():
+        if not re.search(r"running_|num_batches_tracked", k):
+            assert np.array_equal(port["after"][f"g.{k}"], v), k
+            assert np.array_equal(want["after"][f"g.{k}"], v), k
 
 
 def gradient_ratios(port, want, noisy, names):
@@ -266,7 +299,7 @@ def gradient_ratios(port, want, noisy, names):
 
 
 @pytest.mark.parametrize("net", ["g", "d"])
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", [*MODES, CRITIC_HALF])
 def test_vitgan_step_gradients_match_jax_leaf_by_leaf(gan_steps, mode, net):
     port, want, noisy = gan_steps[mode]
     if net == "d" and mode == "no_train_d":

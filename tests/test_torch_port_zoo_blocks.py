@@ -48,11 +48,12 @@ import test_torch_port_models as M  # noqa: E402  (seeded, ncdhw, max_err)
 SIZE, TOL, STATS_TOL = 8, 1e-3, 1e-5
 
 
-def to_jax_variables(state_dict, key_map):
-    """{'params', 'batch_stats'} of numpy arrays from a port state dict:
-    ``key_map`` maps a port module key to its flax path."""
+def to_jax_variables(module, key_map, state_dict=None):
+    """{'params', 'batch_stats'} of numpy arrays from ``module``'s state dict
+    (or from ``state_dict``, keyed as ``module``'s): ``key_map`` maps a port
+    module key to its flax path."""
     tree = {"params": {}, "batch_stats": {}}
-    for key, value in state_dict.items():
+    for key, value in (module.state_dict() if state_dict is None else state_dict).items():
         module_key, leaf = key.rsplit(".", 1) if "." in key else ("", key)
         if leaf == "num_batches_tracked":
             continue
@@ -60,8 +61,8 @@ def to_jax_variables(state_dict, key_map):
         assert path is not None, key
         collection = "params"
         if leaf == "weight" and v.ndim == 5:
-            v, leaf = v.transpose((2, 3, 4, 0, 1) if weights.is_transposed(module_key)
-                                  else (2, 3, 4, 1, 0)), "kernel"
+            transposed = isinstance(module.get_submodule(module_key), torch.nn.ConvTranspose3d)
+            v, leaf = v.transpose((2, 3, 4, 0, 1) if transposed else (2, 3, 4, 1, 0)), "kernel"
         elif leaf == "weight" and v.ndim == 2:
             v, leaf = v.T, "kernel"
         elif leaf == "weight":
@@ -91,7 +92,7 @@ def leaf_shapes(tree):
 def check_block(port, jax_module, key_map, inputs, *, train_modes=(False, True)):
     """The port block against the JAX module on ``inputs`` (NDHWC arrays),
     in each of ``train_modes`` (None: the module takes no train argument)."""
-    variables = to_jax_variables(port.state_dict(), key_map)
+    variables = to_jax_variables(port, key_map)
     init = (jax_module.init if train_modes == (None,)
             else functools.partial(jax_module.init, train=False))
     target = jax.eval_shape(init, jax.random.PRNGKey(0), *inputs)
@@ -110,7 +111,7 @@ def check_block(port, jax_module, key_map, inputs, *, train_modes=(False, True))
                else float(np.abs(np.asarray(want) - got.numpy()).max()))
         assert err <= TOL, (train, err)
         if train and "batch_stats" in variables:
-            moved = to_jax_variables(port.state_dict(), key_map)["batch_stats"]
+            moved = to_jax_variables(port, key_map)["batch_stats"]
             for name in leaf_shapes(moved):
                 assert np.abs(_at(moved, name) - np.asarray(_at(new["batch_stats"], name))
                               ).max() <= STATS_TOL, name
@@ -255,12 +256,11 @@ def test_separable_shim_matches_jax():
     sep.load_state_dict(sd, strict=True)
     key_map = under("decoder2.", weights.transeg_key_map, 1)
     jvars, jerrors = jsep.separabilize_variables(
-        to_jax_variables(dense.state_dict(), key_map), to_jax_variables(sep.state_dict(),
-                                                                        key_map))
+        to_jax_variables(dense, key_map), to_jax_variables(sep, key_map))
     assert len(errors) == len(jerrors) == 2
     for base, err in errors.items():
         assert abs(err - jerrors["params/" + "/".join(key_map(base))]) <= 1e-6
-    got, want = to_jax_variables(sep.state_dict(), key_map), jvars
+    got, want = to_jax_variables(sep, key_map), jvars
     for name in leaf_shapes(want["params"]):
         assert np.abs(_at(got["params"], name) - np.asarray(_at(want["params"], name))).max() \
             <= 1e-6, name

@@ -78,7 +78,7 @@ def imported(port, jax_model, importer, channels):
 def through_key_map(port, jax_model, key_map, channels):
     """The port's weights as JAX variables through the port's key map; the
     leaves must be the JAX init's, shape for shape."""
-    variables = B.to_jax_variables(port.state_dict(), key_map)
+    variables = B.to_jax_variables(port, key_map)
     want = target(jax_model, channels)
     assert {c: B.leaf_shapes(v) for c, v in variables.items()} == \
         {c: B.leaf_shapes(v) for c, v in want.items()}
@@ -139,8 +139,8 @@ def test_hdunet_default_widths_are_the_reference():
     JAX model's leaves, shape for shape (no weights drawn)."""
     port = HDUNet(device="meta")
     assert B.leaf_shapes(B.to_jax_variables(
-        {k: torch.empty(v.shape) for k, v in port.state_dict().items()},
-        weights.hdunet_key_map)["params"]) == B.leaf_shapes(target(jmodels.HDUNet(), 9)["params"])
+        port, weights.hdunet_key_map,
+        {k: torch.empty(v.shape) for k, v in port.state_dict().items()})["params"]) == B.leaf_shapes(target(jmodels.HDUNet(), 9)["params"])
 
 
 @pytest.mark.parametrize("make", [
@@ -152,7 +152,7 @@ def test_hdunet_default_widths_are_the_reference():
 def test_jax_to_torch_round_trips_strictly(make):
     model = make()
     key_map = weights._KEY_MAPS[type(model)]
-    variables = B.to_jax_variables(model.state_dict(), key_map)
+    variables = B.to_jax_variables(model, key_map)
     fresh = type(model)(**{k: v for k, v in model.config.items()}, device="cpu")
     result = fresh.load_state_dict(weights.jax_to_torch(variables, fresh), strict=True)
     assert not result.missing_keys and not result.unexpected_keys
