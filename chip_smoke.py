@@ -187,6 +187,26 @@ Phases, each printing its seconds on a line of its own:
             launch of the phase (but the narrow step's) at a shape the
             kernels phase did not hold, and any K1 launch at a shape not in
             K1_SHAPES, fails it;
+24. captured the captured serve path (infer/aot.py) at full width in
+            bfloat16, on the serve phases' seeded weights and volumes:
+            make_cascade_fn(aot=True), sliding (96³ windows, sw batch 8):
+            the first call's seconds (the capture included), then ten
+            requests interleaved with ten eager ones (p50, p90 of each),
+            every captured output equal to the eager one bit for bit, the
+            peak memory of the first call; one eager and one replayed
+            request under the profiler (the K1, K2 and K3 kernels the
+            profiler sees in each must equal the launches an eager request
+            counts); two requests with different inputs, both outputs
+            intact; three requests with the K3 routing on (each stage
+            captures again; under the profiler the replay runs K3 as often
+            as a serve_k3 request); dense (five requests, the same checks
+            and profile); ten requests through
+            StreamingCascade.run_stream on the one card, each equal to
+            make_cascade_fn's (volumes per second); infer --serve-dtype
+            bfloat16 from the trainer phase's slots (it must capture stage1
+            and stage2, its NIfTI equal to the captured and the eager
+            cascade's); doctor --probe --json --strict in a subprocess (exit
+            0, the card named, capability 9.0, the probe's K1 launched);
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -199,6 +219,8 @@ import contextlib
 import gc
 import json
 import math
+import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -322,8 +344,10 @@ GAN_PARITY_WIDTH, GAN_PARITY_SIZE, GAN_NOISE_RUNS = 4, 32, 3
 GAN_LR, GAN_L1_WEIGHT = 2e-4, 10.0
 GAN_ZERO_GRAD_BIAS = (r"^(g\.initial_block\.0|d\.model\.[06]|.*\.(downsample|pooling)\.0"
                       r"|.*\.intermediate\.1)\.bias$")
-# the searches: trials and epochs (tune's ASHA sees one round an epoch)
-TUNE_SAMPLES, TUNE_EPOCHS = 3, 2
+# the searches: trials and epochs (tune's ASHA sees one round an epoch);
+# one epoch keeps the run's slot writes under the card machine's disk-write
+# limit (each validated DOSE-PYFER epoch writes two 1 GB slots)
+TUNE_SAMPLES, TUNE_EPOCHS = 3, 1
 # exp_gan: timed full-width steps; ViT-GAN's rates and δ3 and the exp
 # step's GenLoss weights (train/gan.py, train/trainers.py defaults); the
 # card-against-CPU step at the small width on 32³
@@ -806,27 +830,59 @@ KERNEL_GROUPS = (("K3 conv3d_k3", ("conv3d_k3",)),
                  ("matmul", ("gemm", "nvjet", "cublas", "cutlass")))
 
 
-def profiled(fn, label: str):
+def profiled(fn, label: str, settle: bool = False):
     """Run ``fn`` once under torch.profiler: device time by kernel group and
-    the device's idle share of its wall time."""
+    the device's idle share of its wall time. ``settle`` runs ``fn`` once
+    more first, inside the window, then a marker kernel, and reads only the
+    kernels that start after the marker: late in a long process the
+    profiler has dropped a few dozen kernels at the start of a window, the
+    same ones in an eager and a replayed request (PERF.md §6), and a
+    count that is held exactly needs every one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def device_kernel(evt):
+        # user annotations (Optimizer.step#...) span kernels already counted
+        return (getattr(evt, "device_type", None) == DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False))
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if settle:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000)       # the marker: ATen's spin_kernel
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        if settle:
+            time.sleep(0.05)
     kernels = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        # user annotations (Optimizer.step#...) span kernels already counted
-        if (getattr(evt, "device_type", None) == DeviceType.CUDA and us > 0
-                and not getattr(evt, "is_user_annotation", False)):
-            kernels.append((us, evt.count, evt.key))
+    if settle:
+        events = [e for e in prof.events() if device_kernel(e)]
+        marks = [e.time_range.start for e in events if "spin_kernel" in e.name]
+        if not marks:
+            log(f"profile {label}: the marker kernel is not in the profile; not measured")
+            return None
+        before = sum(e.time_range.start < marks[-1] for e in events)
+        log(f"profile {label}: {before} kernels before the marker (the first run of the "
+            f"window), counted from the marker on")
+        counts = {}
+        for e in events:
+            if e.time_range.start > marks[-1]:
+                tot = counts.setdefault(e.name, [0.0, 0])
+                tot[0] += e.time_range.elapsed_us()
+                tot[1] += 1
+        kernels = [(us, count, name) for name, (us, count) in counts.items() if us > 0]
+    else:
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0.0)
+            if device_kernel(evt) and us > 0:
+                kernels.append((us, evt.count, evt.key))
     busy_us = sum(us for us, _, _ in kernels)
     if busy_us <= 0:
         log(f"profile {label}: the profiler reported no device time; not measured")
@@ -1877,9 +1933,9 @@ def graceful_stop(dev, train_glob, work: Path) -> dict:
 
 
 def same_nifti_as_cascade(dev, out: Path, patient: Path, seg_ck: Path, dose_ck: Path,
-                          seg_mode: str, bf16: bool) -> bool:
-    """The NIfTI infer wrote against make_cascade_fn's output from the same
-    restored weights, bit for bit."""
+                          seg_mode: str, bf16: bool, **options) -> bool:
+    """The NIfTI infer wrote against make_cascade_fn's output (with
+    ``options``, aot or fuse) from the same restored weights, bit for bit."""
     from dose_prediction_tpu_torch.cli.main import default_flagship_model, default_seg_model
     from dose_prediction_tpu_torch.core.checkpoint import restore_checkpoint
     from dose_prediction_tpu_torch.data.nifti import read_nifti
@@ -1895,7 +1951,7 @@ def same_nifti_as_cascade(dev, out: Path, patient: Path, seg_ck: Path, dose_ck: 
     dose.load_state_dict(restore_checkpoint(dose_ck)["model"])
     run = make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(), roi_size=SEG_CROP,
                           seg_mode=seg_mode, sw_batch_size=8 if bf16 else 4,
-                          input_dtype=torch.bfloat16 if bf16 else None)
+                          input_dtype=torch.bfloat16 if bf16 else None, **options)
 
     def vol(a):
         return torch.from_numpy(a[None, ..., None]).to(dev)
@@ -3228,6 +3284,273 @@ def phase_exp_gan(dev, data, root, kernels):
     return row
 
 
+def written_gib() -> float:
+    """GiB this process has written so far (``wchar`` of /proc/self/io:
+    files, pipes and terminals alike), or NaN where that is not readable."""
+    try:
+        for line in Path("/proc/self/io").read_text().splitlines():
+            if line.startswith("wchar:"):
+                return int(line.split()[1]) / 2 ** 30
+    except OSError:
+        pass
+    return float("nan")
+
+
+def remove_work(root, *names) -> None:
+    """Delete phase work directories no later phase reads: the disk holds
+    at most one write-heavy phase's slots at once."""
+    for name in names:
+        shutil.rmtree(Path(root) / name, ignore_errors=True)
+
+
+def pct(values, q):
+    """The nearest-rank ``q`` quantile of ``values``."""
+    return sorted(values)[max(math.ceil(q * len(values)) - 1, 0)]
+
+
+def timed_request(run, vols):
+    """One request awaited by a synchronisation: (output, seconds, the
+    kernels' launches it counted, from counts set to 0 just before it)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run(*vols)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def captured_vs_eager(label, captured, eager, vols, n):
+    """The first captured call (the capture included) against the eager
+    output, then ``n`` captured requests interleaved with ``n`` eager ones
+    on the same inputs: seconds, p50 and p90 of each, peak memory of the
+    first call above what was allocated before it, what stays allocated and
+    reserved after it, and whether every captured output equals the eager
+    one bit for bit. The launches the replays credit to the wrappers'
+    counters (infer/aot.py) are kept as ``credited``: they repeat what the
+    capture counted, so only the profiler (profiled_pair) shows what a
+    replay runs."""
+    want, _, eager_launches = timed_request(eager, vols)
+    free_memory()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    first, first_s, _ = timed_request(captured, vols)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    held_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    free_memory()       # what stays reserved then is the graphs' private pool
+    pool_gib = (torch.cuda.memory_reserved() - base_reserved) / 2 ** 30
+    equal = [same_bits(first, want)]
+    cap_s, eager_s, launches = [], [], []
+    for _ in range(n):
+        out, s, counts = timed_request(captured, vols)
+        cap_s.append(s)
+        launches.append(counts)
+        equal.append(same_bits(out, want))
+        _, s, _ = timed_request(eager, vols)
+        eager_s.append(s)
+    row = {"first_s": first_s, "p50_s": pct(cap_s, 0.5), "p90_s": pct(cap_s, 0.9),
+           "times_s": cap_s, "eager_p50_s": pct(eager_s, 0.5), "eager_p90_s": pct(eager_s, 0.9),
+           "eager_times_s": eager_s, "equal": all(equal), "eager_launches": eager_launches,
+           "credited_per_request": launches[-1],
+           "peak_gib": peak_gib, "held_gib": held_gib, "pool_gib": pool_gib,
+           "captures": [s.captures for s in captured.stages]}
+    log(f"captured {label}: first call {first_s} s (capture included), {n} requests p50 "
+        f"{row['p50_s']} s, p90 {row['p90_s']} s; eager p50 {row['eager_p50_s']} s, p90 "
+        f"{row['eager_p90_s']} s (interleaved); equal to eager bit for bit: {row['equal']}; "
+        f"eager launches per request {eager_launches}, credited to each replay "
+        f"{row['credited_per_request']}; "
+        f"peak memory of the first call {peak_gib:.2f} GiB, held after it {held_gib:.2f} GiB, "
+        f"reserved by the graphs {pool_gib:.2f} GiB; "
+        f"captures {row['captures']}")
+    if not row["equal"]:
+        raise AssertionError(f"captured {label}: not equal to eager: {row}")
+    return row, want
+
+
+PROFILE_GROUPS = {"attention": "K1 attention", "instance_norm": "K2 instance norm",
+                  "conv3d_k3": "K3 conv3d_k3"}
+
+
+def profiled_pair(label, captured, eager, vols, counted):
+    """One eager and one replayed request under the profiler: the K1, K2
+    and K3 kernels the profiler sees in each, which must equal ``counted``
+    (the launches an eager request counts where the wrappers launch), and
+    the device's idle share."""
+    prof = {"eager": profiled(lambda: eager(*vols), f"eager {label}", settle=True),
+            "captured": profiled(lambda: captured(*vols), f"replayed {label}", settle=True)}
+    if any(p is None for p in prof.values()):
+        raise AssertionError(f"captured {label}: the profiler reported no device time")
+    groups = {k: {name: p["groups_launches"].get(g, 0) for name, g in PROFILE_GROUPS.items()}
+              for k, p in prof.items()}
+    log(f"captured {label}: kernels in the profile, eager {groups['eager']}, replayed "
+        f"{groups['captured']}, launches an eager request counts {counted}; idle share eager "
+        f"{prof['eager']['idle_share']:.3f}, replayed {prof['captured']['idle_share']:.3f}; "
+        f"device busy eager {prof['eager']['busy_ms']:.2f} ms, replayed "
+        f"{prof['captured']['busy_ms']:.2f} ms")
+    if not (groups["captured"] == groups["eager"] == counted
+            and counted["attention"] > 0 and counted["instance_norm"] > 0):
+        raise AssertionError(f"captured {label}: kernels in the replay {groups}, counted "
+                             f"{counted}")
+    return {"groups_launches": groups, "idle_share": {k: p["idle_share"] for k, p in prof.items()},
+            "busy_ms": {k: p["busy_ms"] for k, p in prof.items()},
+            "wall_ms": {k: p["wall_ms"] for k, p in prof.items()}}
+
+
+def captured_cli(dev, root) -> dict:
+    """infer --serve-dtype bfloat16 from the trainer phase's slots (no slot
+    of its own): it must capture stage1 and stage2, and its NIfTI equal the
+    captured cascade's and the eager cascade's from the same weights."""
+    from dose_prediction_tpu_torch.infer import aot
+
+    cohort, work = Path(root), Path(root) / "trainer"
+    seg_ck, dose_ck = work / "transeg" / "last.pt", work / "pyfer" / "last.pt"
+    if not (seg_ck.is_file() and dose_ck.is_file()):
+        raise AssertionError(f"captured: the trainer phase's slots are gone: {seg_ck}, {dose_ck}")
+    out = work / "infer_captured.nii.gz"
+    captured, capture = [], aot.LazyAOTStage._capture
+
+    def record(stage, *args):
+        captured.append(stage.name)
+        return capture(stage, *args)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(aot.LazyAOTStage, "_capture", record):
+        rc, _, text = cli("infer", "--patient", cohort / "pt_3", "--seg-ckpt", seg_ck,
+                          "--dose-ckpt", dose_ck, "--out", out, "--serve-dtype", "bfloat16")
+    seconds = time.perf_counter() - t0
+    free_memory()
+    if rc != 0:
+        raise AssertionError(f"captured: infer returned {rc}:\n{text[-2000:]}")
+    row = {"s": seconds, "captured_stages": captured,
+           "equal_captured": same_nifti_as_cascade(dev, out, cohort / "pt_3", seg_ck, dose_ck,
+                                                   "sliding", True, aot=True),
+           "equal_eager": same_nifti_as_cascade(dev, out, cohort / "pt_3", seg_ck, dose_ck,
+                                                "sliding", True)}
+    out.unlink()
+    log(f"captured: infer --serve-dtype bfloat16 in {seconds:.1f} s, stages captured "
+        f"{captured}; NIfTI equal to the captured cascade's {row['equal_captured']}, to the "
+        f"eager cascade's {row['equal_eager']}")
+    if not (captured == ["stage1", "stage2"] and row["equal_captured"] and row["equal_eager"]):
+        raise AssertionError(f"captured: infer check failed: {row}")
+    return row
+
+
+def captured_doctor(dev) -> dict:
+    """doctor --probe --json --strict in a subprocess: exit 0, the card named,
+    capability 9.0, the probe's K1 launched and equal to its plain version."""
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dose_prediction_tpu_torch", "doctor",
+                           "--probe", "--json", "--strict"], cwd=repo, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    report = json.loads(proc.stdout) if proc.stdout.strip().startswith("{") else {}
+    backend = report.get("backend", {})
+    row = {"rc": proc.returncode, "s": seconds, "backend": backend,
+           "versions": report.get("versions")}
+    log(f"captured: doctor --probe --json --strict exited {proc.returncode} in {seconds:.1f} s: "
+        f"backend {backend}; versions {row['versions']}")
+    if not (proc.returncode == 0 and backend.get("device_name") == torch.cuda.get_device_name(0)
+            and backend.get("capability") == [9, 0] and backend.get("k1_s") is not None
+            and backend.get("k1_max_abs_err", 1.0) <= 2.0 ** -6 * 4):
+        lines = subprocess.run([sys.executable, "-m", "dose_prediction_tpu_torch", "doctor"],
+                               cwd=repo, capture_output=True, text=True, timeout=600).stdout
+        raise AssertionError(f"captured: doctor check failed: {row}\n{lines}\n"
+                             f"{proc.stderr[-2000:]}")
+    return row
+
+
+def phase_captured(dev, root, serve_k3) -> dict:
+    """Phase 24: the captured serve path (infer/aot.py) at full width in
+    bfloat16 against the eager path, on the same seeded weights and volumes
+    as the serve phases: sliding through make_cascade_fn(aot=True), the
+    kernels in a replayed request's profile, two requests' outputs not
+    aliased, the K3 routing (a recapture, K3 in the replay's profile),
+    dense, ten requests through StreamingCascade, the CLI's infer and
+    doctor."""
+    from dose_prediction_tpu_torch.infer.cascade import make_cascade_fn
+    from dose_prediction_tpu_torch.infer.pipeline import StreamingCascade
+
+    smi = nvidia_smi()
+    seg, dose = seeded_models(dev)
+    sv, dv = seg.state_dict(), dose.state_dict()
+    geometry = dict(roi_size=SEG_CROP, sw_batch_size=8, overlap=0.25, dose_scale=70.0)
+    vols = seeded_volumes(dev, torch.bfloat16)
+    eager = make_cascade_fn(seg, sv, dose, dv, **geometry)
+    row = {}
+    aot_run = make_cascade_fn(seg, sv, dose, dv, aot=True, **geometry)
+    row["sliding_aot"], want = captured_vs_eager("sliding aot", aot_run, eager, vols, 10)
+    row["sliding_profile"] = profiled_pair("sliding request", aot_run, eager, vols,
+                                           row["sliding_aot"]["eager_launches"])
+
+    # outputs not aliased: a second request with other inputs after the first
+    other = tuple(torch.roll(v, shifts=17, dims=1) for v in vols)
+    a = aot_run(*vols)
+    b = aot_run(*other)
+    torch.cuda.synchronize()
+    row["not_aliased"] = same_bits(a, want) and same_bits(b, eager(*other)) \
+        and not same_bits(a, b)
+    log(f"captured: two requests with different inputs, both outputs intact and each equal to "
+        f"eager: {row['not_aliased']}")
+    del a, b
+
+    # the K3 routing patched between requests: a recapture, K3 in the replay
+    with k3_routing(True):
+        row["routed"], _ = captured_vs_eager("sliding aot, K3 routing on", aot_run, eager, vols, 3)
+        row["routed_profile"] = profiled_pair("sliding request, K3 routing on", aot_run, eager,
+                                              vols, row["routed"]["eager_launches"])
+    k3_per_request = serve_k3["launches"]["conv3d_k3"] // 3
+    replayed_k3 = row["routed_profile"]["groups_launches"]["captured"]["conv3d_k3"]
+    if not (row["routed"]["captures"] == [2, 2] and replayed_k3 == k3_per_request):
+        raise AssertionError(f"captured: routing did not recapture, or the replay ran K3 "
+                             f"{replayed_k3} times against serve_k3's {k3_per_request}: "
+                             f"{row['routed']}")
+    del aot_run
+    free_memory()
+
+    dense_eager = make_cascade_fn(dense_seg(dev), sv, dose, dv, seg_mode="dense",
+                                  dose_scale=70.0)
+    dense_aot = make_cascade_fn(dense_seg(dev), sv, dose, dv, seg_mode="dense",
+                                dose_scale=70.0, aot=True)
+    row["dense_aot"], _ = captured_vs_eager("dense aot", dense_aot, dense_eager, vols, 5)
+    row["dense_profile"] = profiled_pair("dense request", dense_aot, dense_eager, vols,
+                                         row["dense_aot"]["eager_launches"])
+    del dense_aot, dense_eager
+    free_memory()
+
+    # StreamingCascade on the one card: ten requests over two input sets
+    pipe = StreamingCascade(seg, sv, dose, dv, **geometry)
+    inputs = [vols, other]
+    wants = [want, eager(*other)]
+    requests = [inputs[i % 2] for i in range(10)]
+    pipe.run_one(*vols)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for out in pipe.run_stream(requests):
+        torch.cuda.synchronize()
+        outs.append(out)
+    seconds = time.perf_counter() - t0
+    row["streaming"] = {"requests": 10, "s": seconds, "volumes_per_sec": 10 / seconds,
+                        "equal": all(same_bits(o, wants[i % 2]) for i, o in enumerate(outs))}
+    log(f"captured: StreamingCascade.run_stream, 10 requests on the one card in {seconds} s, "
+        f"{10 / seconds} volumes/s; each equal to make_cascade_fn's: "
+        f"{row['streaming']['equal']}")
+    del pipe, outs, wants, want
+    free_memory()
+    if not (row["not_aliased"] and row["streaming"]["equal"]):
+        raise AssertionError(f"captured: aliasing or streaming check failed: {row}")
+
+    row["cli"] = captured_cli(dev, root)
+    row["doctor"] = captured_doctor(dev)
+    log(f"captured: sliding p50 aot {row['sliding_aot']['p50_s']} s, eager "
+        f"{row['sliding_aot']['eager_p50_s']} s; dense p50 aot {row['dense_aot']['p50_s']} s, "
+        f"eager {row['dense_aot']['eager_p50_s']} s; peak memory of the first aot call sliding "
+        f"{row['sliding_aot']['peak_gib']:.2f} GiB, dense {row['dense_aot']['peak_gib']:.2f} "
+        f"GiB; reserved by the graphs, sliding {row['sliding_aot']['pool_gib']:.2f} GiB, dense "
+        f"{row['dense_aot']['pool_gib']:.2f} GiB; on {smi}")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3255,10 +3578,12 @@ def main() -> int:
             results[name] = fn()
         except Exception:
             traceback.print_exc()
-            log(f"phase {name}: FAILED after {time.perf_counter() - t0:.1f} s")
+            log(f"phase {name}: FAILED after {time.perf_counter() - t0:.1f} s "
+                f"({written_gib():.2f} GiB written by this process so far)")
             raise
         log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s "
-            f"(total {time.perf_counter() - t_start:.1f} s)")
+            f"(total {time.perf_counter() - t_start:.1f} s; {written_gib():.2f} GiB written by "
+            f"this process so far)")
 
     try:
         run("device", lambda: {"smi": nvidia_smi(), "kind": torch.cuda.get_device_name(0),
@@ -3303,12 +3628,17 @@ def main() -> int:
             free_memory()
             torch.cuda.reset_peak_memory_stats(dev)
             run("zoo", lambda: phase_zoo(dev, results["data"], root, (k1, k2, k3)))
+            remove_work(root, "zoo")
             free_memory()
             run("hpo_gan", lambda: phase_hpo_gan(dev, results["data"], root))
+            remove_work(root, "gan", "hpo")
             free_memory()
             torch.cuda.reset_peak_memory_stats(dev)
             run("exp_gan", lambda: phase_exp_gan(dev, results["data"], root, (k1, k2, k3)))
+            remove_work(root, "exp_gan")
             del results["data"]["dataset"]
+            free_memory()
+            run("captured", lambda: phase_captured(dev, root, results["serve_k3"]))
     except Exception:
         return 1
 
@@ -3338,6 +3668,11 @@ def main() -> int:
         + "; exp_gan step p50 "
         + ", ".join(f"{k} {v['p50_s']} s (peak {v['peak_gib']:.2f} GiB)"
                     for k, v in results["exp_gan"]["steps"].items())
+        + f"; captured sliding p50 {results['captured']['sliding_aot']['p50_s']} s (eager "
+        f"{results['captured']['sliding_aot']['eager_p50_s']} s), dense "
+        f"{results['captured']['dense_aot']['p50_s']} s (eager "
+        f"{results['captured']['dense_aot']['eager_p50_s']} s), streaming "
+        f"{results['captured']['streaming']['volumes_per_sec']} volumes/s"
         + f"; total {time.perf_counter() - t_start:.1f} s; on {smi}")
     sources = {   # each kernel's source and the TPU kernel it replaces
         "attention": ("dose_prediction_tpu_torch/csrc/attention.cu",
@@ -3386,6 +3721,23 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": list(shape), "dtype": "float32", "launches_in": where})
+    captured = results["captured"]
+    for name, shape, profile, where in (
+            ("attention", K1_SHAPES[0], captured["sliding_profile"], "captured: kernels the "
+             "profiler saw in one replayed sliding request, every shape"),
+            ("instance_norm", K2_SHAPES[0], captured["sliding_profile"], "captured: kernels "
+             "the profiler saw in one replayed sliding request, every shape"),
+            ("conv3d_k3", K3_SHAPES[3], captured["routed_profile"], "captured: kernels the "
+             "profiler saw in one replayed sliding request with the K3 routing on, every "
+             "shape")):
+        source, replaces = sources[name]
+        row = results["kernels"][(name, shape, torch.bfloat16)]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": profile["groups_launches"]["captured"][name],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "shape": list(shape), "dtype": "bfloat16", "launches_in": where})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

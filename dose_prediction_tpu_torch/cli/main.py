@@ -7,6 +7,7 @@
     python -m dose_prediction_tpu_torch linked-eval --data ... --seg-ckpt ... --dose-ckpt ...
     python -m dose_prediction_tpu_torch tune --data ... --num-samples 10 [--resume]
     python -m dose_prediction_tpu_torch kfold --data ... --folds 6
+    python -m dose_prediction_tpu_torch doctor [--probe] [--json] [--strict]
 
 Everything runs on the card (``--device cuda``, the default) unless the
 caller passes ``--device cpu``; a missing card is an error, never a silent
@@ -18,9 +19,13 @@ validation rounds, its concurrent trials spread over the visible cards;
 ``kfold`` cross-validates DOSE-PYFER. ``train vitgan`` trains ViT-GAN (its
 critic optionally from a MedicalNet pickle, ``--pretrained-critic``) and
 ``train exp`` the exp model; both validate, evaluate and predict through
-the sliding window at ×80. Choices the port does not have yet (meshes and
-the subcommands bench and doctor) are refused with the ROADMAP item that
-brings them; nothing falls back to another model.
+the sliding window at ×80. ``infer`` and ``linked-eval`` with
+``--serve-dtype bfloat16`` serve on the card through the captured stages
+(infer/aot.py). ``doctor`` reports what a run on the card needs. Every
+subcommand on the card but ``score``, ``doctor`` and ``openkbp-prepare``
+first builds or finds the kernel library (core/bootstrap.py). Choices the
+port does not have yet (meshes and the bench subcommand) are refused with
+the ROADMAP item that brings them; nothing falls back to another model.
 """
 
 from __future__ import annotations
@@ -38,7 +43,6 @@ _DEFAULT_LR = 0.0006130697604327541
 _INFRA = "ROADMAP queue 1 item 7 (parallel and serve infrastructure)"
 _UNPORTED_COMMANDS = {
     "bench": "ROADMAP queue 1 item 1 (bench_gpu.py)",
-    "doctor": _INFRA,
 }
 _DOSE_MODELS = ["pyfer", "c3d", "hdunet", "dosegan", "vitgan", "exp"]
 SMALL_LIST_CH = (-1, 2, 4, 8, 16, 32)
@@ -402,7 +406,20 @@ def build_parser() -> argparse.ArgumentParser:
     kf.add_argument("--folds", type=int, default=6)
     kf.add_argument("--start-fold", type=int, default=0)
     _add_unported(sub, "bench", "the 128³ cascade latency benchmark")
-    _add_unported(sub, "doctor", "deployment health report")
+
+    dr = sub.add_parser("doctor", help="preflight report: versions, the card, native IO, the "
+                                       "kernel build, serve capture, and optional --data sanity")
+    dr.add_argument("--data", default=None,
+                    help="also check a patient-dir glob (e.g. '/data/train-pats/pt_*')")
+    dr.add_argument("--probe", action="store_true",
+                    help="launch K1 once on the card in a killable subprocess and report the "
+                         "round trip (with --probe doctor never touches the card itself)")
+    dr.add_argument("--probe-timeout", type=float, default=600.0,
+                    help="seconds before the probe's card is declared unresponsive")
+    dr.add_argument("--json", action="store_true",
+                    help="print the whole report as JSON instead of the [ok]/[warn] lines")
+    dr.add_argument("--strict", action="store_true",
+                    help="exit 1 when any warning is present (CI gate)")
     return ap
 
 
@@ -464,6 +481,11 @@ def main(argv=None) -> int:
         print(json.dumps({"patients_converted": n, "out_dir": args.out_dir}))
         return 0
 
+    if args.cmd == "doctor":
+        from dose_prediction_tpu_torch.cli import doctor
+
+        return doctor.run(args)
+
     if args.cmd == "score":
         from dose_prediction_tpu_torch.evaluation.metrics import score_prediction_dirs
 
@@ -483,6 +505,10 @@ def main(argv=None) -> int:
     from dose_prediction_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
+    if device.type == "cuda":    # score, doctor and openkbp-prepare returned above
+        from dose_prediction_tpu_torch.core.bootstrap import configure_compile_cache
+
+        configure_compile_cache()
     if getattr(args, "plots_dir", None):
         from dose_prediction_tpu_torch.evaluation.plots import PlotsUnavailable, pyplot
 
@@ -787,9 +813,12 @@ def main(argv=None) -> int:
         _check_ckpt_config(args.dose_ckpt, dose)
         _load_into(seg, _read_slot(args.seg_ckpt), "seg model")
         _load_into(dose, _read_slot(args.dose_ckpt), "dose model")
+        # bf16 on the card serves through the captured stages, as the JAX
+        # CLI serves through its shipped executables
         run = make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(),
                               roi_size=(args.roi,) * 3, seg_mode=args.seg_mode,
                               sw_batch_size=8 if serve_bf16 else 4,
+                              aot=serve_bf16 and device.type == "cuda",
                               input_dtype=torch.bfloat16 if serve_bf16 else None)
 
         def volume(a):

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from dose_prediction_tpu_torch.evaluation.metrics import postprocess_prediction
+from dose_prediction_tpu_torch.infer.aot import GraphPool, LazyAOTStage
 from dose_prediction_tpu_torch.infer.sliding_window import sliding_window_inference
 
 
@@ -78,7 +79,8 @@ def make_cascade_fn(seg_model: torch.nn.Module, seg_variables: Mapping[str, torc
                     dose_model: torch.nn.Module, dose_variables: Mapping[str, torch.Tensor], *,
                     num_oar_classes: int = 8, roi_size: Sequence[int] = (96, 96, 96),
                     sw_batch_size: int = 4, overlap: float = 0.25, dose_scale: float = 70.0,
-                    seg_mode: str = "sliding", input_dtype: torch.dtype | None = None
+                    seg_mode: str = "sliding", aot: bool = False,
+                    input_dtype: torch.dtype | None = None
                     ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
     """The linked serve program (counterpart of the JAX make_cascade_fn,
     infer/cascade.py:95-167): ``run(ct, ptv, dose_mask) -> dose_gy``, with
@@ -89,10 +91,16 @@ def make_cascade_fn(seg_model: torch.nn.Module, seg_variables: Mapping[str, torc
     ``input_dtype`` casts ct, ptv and dose_mask before dispatch; the models
     compute in that dtype with float32 parameters. ``run`` launches stage 1
     and then stage 2 asynchronously, with no host synchronisation between
-    them. The JAX function's ``fuse`` (one XLA program for both stages, or
-    two) has no counterpart in eager PyTorch, and its ``aot`` (shipped
-    precompiled executables) none yet: a captured serve path is ROADMAP
-    queue 1 item 7."""
+    them.
+
+    ``aot=True`` serves each stage as a CUDA graph captured at its first
+    call (infer/aot.py::LazyAOTStage, named 'stage1', or 'stage1_dense' in
+    dense mode, and 'stage2', sharing one graph memory pool). It needs CUDA
+    tensors and raises on others; under ``DPT_NO_AOT=1`` it runs the eager
+    stages. ``run.stages`` holds the stages it calls. The JAX function's
+    ``fuse`` (one XLA program for both stages, optimised across them) has
+    no counterpart: one CUDA graph of both stages would replay the same
+    kernels as the two graphs and optimise nothing across them."""
     stage1, stage2 = make_cascade_stages(
         seg_model, dose_model, num_oar_classes=num_oar_classes, roi_size=roi_size,
         sw_batch_size=sw_batch_size, overlap=overlap, dose_scale=dose_scale, seg_mode=seg_mode)
@@ -100,7 +108,14 @@ def make_cascade_fn(seg_model: torch.nn.Module, seg_variables: Mapping[str, torc
     def cast(x: torch.Tensor) -> torch.Tensor:
         return x if input_dtype is None else x.to(input_dtype)
 
+    if aot:
+        pool = GraphPool()
+        stage1 = LazyAOTStage("stage1_dense" if seg_mode == "dense" else "stage1", stage1,
+                              pool=pool)
+        stage2 = LazyAOTStage("stage2", stage2, pool=pool)
+
     def run(ct: torch.Tensor, ptv: torch.Tensor, dose_mask: torch.Tensor) -> torch.Tensor:
         return stage2(dose_variables, stage1(seg_variables, cast(ct), cast(ptv)), cast(dose_mask))
 
+    run.stages = (stage1, stage2)
     return run

@@ -5,7 +5,9 @@ together, and the objects are linked into one shared library with a plain C
 interface, loaded with ctypes. No PyTorch headers are included, so the build
 takes seconds. The library's name carries a hash of
 the sources and flags: a second run in the same checkout finds it and skips
-the build. Nothing is built when this module is imported.
+the build. It is built into core/bootstrap.py::cache_dir() (``DPT_CACHE_DIR``,
+by default ``dose_prediction_tpu_torch/_build``). Nothing is built when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ from pathlib import Path
 
 import torch
 
+from dose_prediction_tpu_torch.core.bootstrap import cache_dir
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,17 +57,22 @@ def cuda_tool(name: str = "nvcc") -> str:
     return found
 
 
-def _sources() -> list[Path]:
+def sources() -> list[Path]:
     return sorted(SOURCE_DIR.glob("*.cu")) + sorted(SOURCE_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    """Hash of the kernel sources and the nvcc flags: the library's tag."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def library_path() -> Path:
     """Path of the library built from the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libdpt_kernels_{h.hexdigest()[:16]}.so"
+    return cache_dir() / f"libdpt_kernels_{source_hash()}.so"
 
 
 def build() -> Path:
@@ -75,14 +83,14 @@ def build() -> Path:
     out = library_path()
     if out.is_file():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    sources = sorted(SOURCE_DIR.glob("*.cu"))
-    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    units = sorted(SOURCE_DIR.glob("*.cu"))
+    objects = [out.parent / f"{tag}.{src.stem}.o" for src in units]
     tmp = out.with_name(f"{tag}.tmp.so")
     try:
         compiles = [[cuda_tool(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                    for src, obj in zip(sources, objects)]
+                    for src, obj in zip(units, objects)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for cmd in compiles]
         steps = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(compiles, procs)]

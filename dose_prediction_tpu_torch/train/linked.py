@@ -32,9 +32,10 @@ class LinkedModel:
     and k7 mode, and in ``seg_mode='dense'`` its ``trained_grid`` (roi / 16
     for a ROI-trained checkpoint); the CLI builds both from a checkpoint's
     slot. ``serve_dtype='bfloat16'`` casts the volumes, so that the cascade
-    computes in bf16 with float32 parameters. The JAX class's ``aot``
-    (shipped precompiled executables) waits for the port's captured serve
-    path (ROADMAP queue 1 item 7)."""
+    computes in bf16 with float32 parameters, and on a CUDA device serves
+    through the captured stages (make_cascade_fn(aot=True)), as the JAX class
+    serves through its shipped executables. On the CPU, and in float32, it
+    runs the eager stages."""
 
     def __init__(self, seg_model: torch.nn.Module, dose_model: DosePyfer, *,
                  roi_size: Sequence[int] = (96, 96, 96), sw_batch_size: int = 4,
@@ -46,6 +47,7 @@ class LinkedModel:
         self.run = make_cascade_fn(
             seg_model, seg_model.state_dict(), dose_model, dose_model.state_dict(),
             roi_size=roi_size, sw_batch_size=sw_batch_size, seg_mode=seg_mode,
+            aot=serve_dtype == "bfloat16" and self.device.type == "cuda",
             input_dtype=torch.bfloat16 if serve_dtype == "bfloat16" else None)
 
     def _request(self, patient) -> torch.Tensor:

@@ -3,7 +3,7 @@ on the CPU at ``--model-size small``.
 
 The parser covers the ported subcommands and refuses, before any device
 work and by name, what the port does not have (the message names the
-ROADMAP item: meshes, bench and doctor). ViT-GAN and the exp model (on
+ROADMAP item: meshes and bench). ViT-GAN and the exp model (on
 the 16³ cohort, two one-step epochs each; ViT-GAN's critic from a seeded
 MedicalNet-layout pickle, unfreezing at epoch 1): train (both optimizers
 restarted at the unfreeze epoch), eval (host and device metrics, by the
@@ -105,7 +105,7 @@ def trained(cohort):
     (["tune", "--data", "x", "--mesh", "data=4"], "item 7"),
     (["kfold", "--data", "x", "--mesh", "data=2"], "item 7"),
     (["bench"], "bench_gpu.py"),
-    (["doctor"], "item 7"),
+    (["train", "c3d", "--data", "x", "--mesh", "data=2"], "item 7"),
 ])
 def test_unported_choices_are_refused_by_name(argv, item):
     # the default device (cuda) is never reached: refusals come first

@@ -23,7 +23,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from dose_prediction_tpu_torch.core.config import FLAGS  # noqa: E402
-from dose_prediction_tpu_torch.infer.cascade import make_cascade_stages  # noqa: E402
+from dose_prediction_tpu_torch.infer.aot import LazyAOTStage  # noqa: E402
+from dose_prediction_tpu_torch.infer.cascade import (  # noqa: E402
+    make_cascade_fn,
+    make_cascade_stages,
+)
 from dose_prediction_tpu_torch.kernels import attention as k1  # noqa: E402
 from dose_prediction_tpu_torch.kernels import conv3d as k3  # noqa: E402
 from dose_prediction_tpu_torch.kernels import cuda_lib  # noqa: E402
@@ -689,3 +693,92 @@ def test_vitgan_step_on_card_matches_the_cpu(card, monkeypatch):
     assert set(rows) == {"train_d", "no_train_d", "freeze_d"}
     assert all(r["loss_rel_diff"][0] <= 1e-5 and r["worst_grad_ratio"] <= 1.0
                and r["loss_rel_diff"][1] <= max(1e-5, r["d_loss_limit"]) for r in rows.values())
+
+
+def small_cascade(card, **kwargs):
+    """A bf16 48³ cascade of small models (head dim 32) over 32³ windows,
+    sw batch 4, through make_cascade_fn with ``kwargs`` (aot)."""
+    cfg = dict(feature_size=4, hidden_size=64, mlp_dim=128, num_layers=2, num_heads=2,
+               device=card)
+    g = torch.Generator(card).manual_seed(0)
+    seg = init_params(TranSeg(img_size=32, **cfg), g)
+    dose = init_params(DosePyfer(list_ch_A=(-1, 4, 8, 16, 32, 64), img_size=48, **cfg), g)
+    return make_cascade_fn(seg, seg.state_dict(), dose, dose.state_dict(), roi_size=(32, 32, 32),
+                           sw_batch_size=4, input_dtype=torch.bfloat16, **kwargs)
+
+
+def small_volumes(card, seed):
+    g = torch.Generator(card).manual_seed(seed)
+    shape = (1, 48, 48, 48, 1)
+    return (torch.randn(shape, generator=g, device=card),
+            (torch.rand(shape, generator=g, device=card) < 0.1).float(),
+            (torch.rand(shape, generator=g, device=card) < 0.6).float())
+
+
+def kernel_counts():
+    return (k1.fused_attention.launches, k2.instance_norm_act.launches, k3.conv3d_k3.launches)
+
+
+def request_launches(run, vols):
+    """The output of one request and the kernels' launches it counted."""
+    before = kernel_counts()
+    out = run(*vols)
+    torch.cuda.synchronize()
+    return out, tuple(b - a for a, b in zip(before, kernel_counts()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k3_route", ["0", "1"])
+def test_captured_cascade_equals_eager_on_card(card, monkeypatch, k3_route):
+    """A captured request (the first call captures, the others replay) is
+    the eager request bit for bit, and each replay credits the kernels'
+    launches the eager request counts, K3 included when routed."""
+    monkeypatch.setattr(FLAGS, "use_k3_conv3d", k3_route)
+    vols = small_volumes(card, 0)
+    want, eager = request_launches(small_cascade(card), vols)
+    run = small_cascade(card, aot=True)
+    run(*vols)
+    for _ in range(2):
+        got, launches = request_launches(run, vols)
+        assert torch.equal(got, want) and launches == eager
+    assert eager[0] > 0 and eager[1] > 0 and (eager[2] > 0) == (k3_route == "1")
+    assert all(s.used_aot and s.captures == 1 for s in run.stages)
+
+
+@pytest.mark.cuda
+def test_captured_outputs_are_not_aliased_on_card(card):
+    """Two requests in a row: the first output survives the second replay."""
+    run, eager = small_cascade(card, aot=True), small_cascade(card)
+    a_in, b_in = small_volumes(card, 0), small_volumes(card, 1)
+    a = run(*a_in)
+    b = run(*b_in)
+    torch.cuda.synchronize()
+    assert torch.equal(a, eager(*a_in)) and torch.equal(b, eager(*b_in))
+    assert not torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_captured_stage_keys_on_card(card, monkeypatch):
+    """A routing flag or a new input shape captures again; DPT_NO_AOT=1 runs
+    the eager stage."""
+    w = {"w": torch.full((4,), 2.0, device=card)}
+    stage = LazyAOTStage("scale", lambda v, x: x * v["w"])
+    x = torch.ones(3, 4, device=card)
+    assert torch.equal(stage(w, x), 2 * x) and stage.captures == 1
+    assert torch.equal(stage(w, 3 * x), 6 * x) and stage.captures == 1
+    monkeypatch.setattr(FLAGS, "use_k3_conv3d", "0" if FLAGS.use_k3_conv3d == "1" else "1")
+    stage(w, x)
+    assert stage.captures == 2
+    stage(w, torch.ones(5, 4, device=card))
+    assert stage.captures == 3
+    monkeypatch.setenv("DPT_NO_AOT", "1")
+    assert torch.equal(stage(w, x), 2 * x) and stage.used_aot is False and stage.captures == 3
+
+
+@pytest.mark.cuda
+def test_failed_capture_names_the_stage_on_card(card):
+    """A host read inside a stage cannot be captured: the call raises with
+    the stage's name instead of running eager."""
+    stage = LazyAOTStage("host_read", lambda v, x: x * float(x.sum()))
+    with pytest.raises(RuntimeError, match="'host_read'.*capture failed"):
+        stage({"w": torch.ones(1, device=card)}, torch.ones(4, device=card))

@@ -124,7 +124,7 @@ def test_library_path_follows_the_sources(tmp_path, monkeypatch):
     and an unchanged tree reuses the library."""
     first = cuda_lib.library_path()
     assert first == cuda_lib.library_path()
-    assert first.parent == cuda_lib.BUILD_DIR and first.suffix == ".so"
+    assert first.parent == cuda_lib.cache_dir() and first.suffix == ".so"
     src = tmp_path / "csrc"
     src.mkdir()
     for f in cuda_lib.SOURCE_DIR.iterdir():

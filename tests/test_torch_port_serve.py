@@ -4,8 +4,9 @@ infer/cascade.py::make_cascade_fn and infer/pipeline.py::pipeline_map.
 make_cascade_fn runs the reduced cascade of tests/test_torch_port_cascade.py
 (48³ volumes, 32³ windows, sw batch 4, the same seeded weights in both
 packages). float32, against the JAX make_cascade_fn with ``fuse`` False
-and True (two XLA programs or one; the port's eager run has no such
-option): the dose to 1e-3 of the 70 Gy scale.
+and True (two XLA programs or one; the port has no ``fuse``: a CUDA graph
+of both stages would optimise nothing across them): the dose to 1e-3 of
+the 70 Gy scale.
 ``input_dtype=bfloat16``: the port casts the volumes and computes in bf16;
 the JAX models are built with ``dtype=bfloat16``. A bf16 seg flips labels
 near ties, and a flipped label moves the dose around it, so the voxels of
@@ -94,10 +95,13 @@ def test_make_cascade_fn_bf16_input_dtype_matches_jax(models):
 
 
 def test_make_cascade_fn_aot_is_not_ported(models):
-    """The port takes neither of the JAX function's compile options."""
-    for option in ("aot", "fuse"):
-        with pytest.raises(TypeError, match=option):
-            _port_run(models, **{option: True})
+    """``aot`` does not run on the CPU: it captures CUDA graphs
+    (infer/aot.py), and on CPU tensors it raises, naming the stage and the
+    device, instead of running eager. The port takes no ``fuse``."""
+    with pytest.raises(ValueError, match="'stage1'.*cpu"):
+        _port_run(models, aot=True)
+    with pytest.raises(TypeError, match="fuse"):
+        _port_run(models, fuse=True)
 
 
 @pytest.mark.parametrize("items", [[], [0], [0, 1, 2, 3]])

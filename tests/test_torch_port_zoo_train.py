@@ -104,20 +104,34 @@ PORT32_OF_EXACT = 1e-3
 NOISE_RUNS = 3      # HD-UNet trainer: the port's fit is ~2 s, its spread worth sampling
 
 
+# torch threads of the HD-UNet step (``hdunet_step``) and of the test that
+# holds its float32 gradient against the exact one: a reduction's order
+# follows the thread count, so the step's rounding is fixed by this number,
+# not by the thread count a test worker meets
+STEP_THREADS = 8
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def one_torch_thread():
     """The port's CPU work in one thread, test by test (tests/torch_threads.py
     says why). Function-scoped, unlike that module's: ``hdunet_step``, a
-    module fixture, computes the port's float32 gradient at torch's default
-    thread count, the order under which
-    ``test_simple_dose_step_is_exact_in_float64`` holds it within 1e-3 of
-    the exact gradient (4.54e-4); in one thread its sums take another order
-    and flip a ReLU input, as the JAX package's float32 step does, and the
-    port's departure is 2.34e-3."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    module fixture, computes the port's float32 gradient in STEP_THREADS
+    threads, the order under which ``test_simple_dose_step_is_exact_in_float64``
+    holds it within 1e-3 of the exact gradient (4.54e-4); in one thread its
+    sums take another order and flip a ReLU input, as the JAX package's
+    float32 step does, and the port's departure is 2.34e-3."""
+    with torch_threads(1):
+        yield
 
 
 def port_hdunet(seed=0):
@@ -159,7 +173,13 @@ def hdunet_noise_run(variables, x, gt):
 def hdunet_step(cohort):  # noqa: F811
     """One packed HD-UNet step in both packages from the same weights, and the
     port's noise run: (variables, unpacked batch, port grads, port loss,
-    JAX grads, JAX loss, noise-run grads)."""
+    JAX grads, JAX loss, noise-run grads), the port's in STEP_THREADS
+    threads."""
+    with torch_threads(STEP_THREADS):
+        return _hdunet_step(cohort)
+
+
+def _hdunet_step(cohort):  # noqa: F811
     pb, jb = batches(cohort)
     model = port_hdunet(seed=1)
     sd = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
@@ -246,7 +266,13 @@ def test_simple_dose_step_is_exact_in_float64(hdunet_step):
     islands, the InstanceNorm statistics, the conv bias, the resize and the
     loss, taken to float64 the same way) agree leaf by leaf, and the port's float32 step
     sits close to them: the float32 packages differ by rounding that flips
-    a ReLU input near 0 (module docstring), not by a fault of either."""
+    a ReLU input near 0 (module docstring), not by a fault of either. In
+    STEP_THREADS threads, as ``hdunet_step`` computed the step."""
+    with torch_threads(STEP_THREADS):
+        _exact_in_float64(hdunet_step)
+
+
+def _exact_in_float64(hdunet_step):
     from dose_prediction_tpu import ops as jops
     from dose_prediction_tpu.core.config import FLAGS
     from dose_prediction_tpu.ops import conv as jconv
