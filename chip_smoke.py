@@ -92,7 +92,8 @@ Phases, each printing its seconds on a line of its own:
 19. train_feed  the DOSE-PYFER step of phase 12 fed from that cohort
             through device_prefetch(size=2) (pinned memory, a copy stream),
             once per feed: one warm-up and five steps, the step p50, the
-            waits for the batch and at the step's float(loss), launches per
+            waits for the batch and at a float(loss) after the step (the
+            step itself reads nothing on the host), launches per
             step (the packed feed's equal to the bfloat16 feed's), the idle
             share of one profiled step, the first losses; then two TranSeg
             steps on bf16 96³ crops from seg_batches; then one float32 step
@@ -104,8 +105,9 @@ Phases, each printing its seconds on a line of its own:
 20. trainer the CLI (python -m dose_prediction_tpu_torch) in this process at
             full width on that cohort, float32 compute at PyTorch's TF32
             defaults, as the CLI trains: train pyfer (adam8bit, the packed
-            feed, three patients, validating on the fourth, two epochs):
-            step p50 from its EpochTimer, the loader waits, validation
+            feed, three patients, validating on the fourth, two epochs; its
+            step captured as a CUDA graph at the first step, once):
+            step p50 (a synchronisation after each step), the loader waits, validation
             seconds, each checkpoint write's seconds and bytes, K1 and K2
             launches per step (equal to a float32 make_pyfer_train_step's),
             the slots on disk; the same with --epochs 3 (it must resume at
@@ -207,6 +209,21 @@ Phases, each printing its seconds on a line of its own:
             and stage2, its NIfTI equal to the captured and the eager
             cascade's); doctor --probe --json --strict in a subprocess (exit
             0, the card named, capability 9.0, the probe's K1 launched);
+25. train_captured  whole train steps captured as CUDA graphs
+            (infer/aot.py::LazyTrainStage) at full width, weights from the
+            seeds of phases 12 and 14: train pyfer's step (float32 at TF32
+            defaults, adam8bit, net_A frozen) on a fixed float32 batch and
+            on a packed one, the bf16 AdamW step of phase 12 with the K3
+            routing on and off, the TranSeg step of phase 14 and
+            grad_accum=2. Each runs six calls in two eager runs and through
+            the stage, in turns, from the same weights on the same batch:
+            the replayed calls' p50 beside eager's, the first call's seconds
+            (warm-up and capture), its peak memory and what the graphs keep
+            reserved, the losses and parameters after each call (bit for bit
+            where the two eager runs agree bit for bit, else within their
+            spread by phase 13's rule), one eager and one replayed call under
+            the profiler (K1, K2 and K3 there equal to an eager call's
+            launches; the idle share); no slot is written;
 
 then a ``kernels`` JSON line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Weights and volumes are made
@@ -1635,47 +1652,28 @@ def phase_data(dev, root):
     return row
 
 
-@contextlib.contextmanager
-def timed_syncs():
-    """Record (start, end) of every float() of a CUDA tensor: the train
-    steps read their loss with one (train/steps.py, _apply_update), which
-    waits for the device."""
-    syncs, original = [], torch.Tensor.__float__
-
-    def timed(self):
-        if not self.is_cuda:
-            return original(self)
-        t0 = time.perf_counter()
-        value = original(self)
-        syncs.append((t0, time.perf_counter()))
-        return value
-
-    with mock.patch.object(torch.Tensor, "__float__", timed):
-        yield syncs
-
-
 def fed_steps(label, step, state, feed, n):
     """One warm-up and ``n`` timed steps, each on the next batch of
     ``feed``: per step its seconds, the wait for the batch, the host's time
-    from the batch to the loss read, the wait at that read and the launches;
-    then one more step, its batch's wait included, under the profiler."""
+    to launch the step (it reads nothing on the host), the wait at the
+    float(loss) after it and the launches; then one more step, its batch's
+    wait included, under the profiler."""
     state, loss0 = step(state, next(feed))
     torch.cuda.synchronize()
     rows = []
-    with timed_syncs() as syncs:
-        for _ in range(n):
-            zero_counts()
-            t0 = time.perf_counter()
-            batch = next(feed)
-            t1 = time.perf_counter()
-            state, loss = step(state, batch)
-            s0, s1 = syncs[-1]               # the step's last host read: its loss
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            rows.append({"s": t2 - t0, "batch_wait_s": t1 - t0, "enqueue_s": s0 - t1,
-                         "loss_sync_s": s1 - s0, "loss": loss, "launches": read_counts()})
-    for r in rows:
-        r["loss"] = float(r["loss"])
+    for _ in range(n):
+        zero_counts()
+        t0 = time.perf_counter()
+        batch = next(feed)
+        t1 = time.perf_counter()
+        state, loss = step(state, batch)
+        t2 = time.perf_counter()
+        value = float(loss)                  # waits for the step
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        rows.append({"s": time.perf_counter() - t0, "batch_wait_s": t1 - t0,
+                     "enqueue_s": t2 - t1, "loss_sync_s": t3 - t2, "loss": value,
+                     "launches": read_counts()})
     prof = profiled(lambda: step(state, next(feed)), f"bf16 train step on the {label} feed")
     p50 = sorted(r["s"] for r in rows)[len(rows) // 2]
     return {"p50_s": p50, "first_loss": float(loss0), "steps": rows,
@@ -1776,14 +1774,18 @@ def phase_train_feed(dev, data):
 def trainer_probes():
     """Readings taken while the CLI runs in this process: each EpochTimer
     tick-tock by bucket, each checkpoint write (slot, seconds, bytes), each
-    train step's kernel launches, and each evaluate_dose_model sweep's
-    seconds."""
+    train step's kernel launches and seconds (a synchronisation after it:
+    the step reads nothing on the host), the train stages the DOSE-PYFER and
+    TranSeg trainers wrap their steps in (infer/aot.py), and each
+    evaluate_dose_model sweep's seconds."""
     from dose_prediction_tpu_torch.core import checkpoint as C
+    from dose_prediction_tpu_torch.infer import aot
     from dose_prediction_tpu_torch.train import steps as STEP
     from dose_prediction_tpu_torch.train import trainers as T
     from dose_prediction_tpu_torch.utils.logging import EpochTimer
 
-    rec = {"ticks": [], "writes": [], "steps": [], "step_times": [], "sweeps": []}
+    rec = {"ticks": [], "writes": [], "steps": [], "step_times": [], "sweeps": [],
+           "stages": []}
 
     class Timer(EpochTimer):
         def tock(self, bucket):
@@ -1799,18 +1801,26 @@ def trainer_probes():
         rec["writes"].append((Path(path).name, time.perf_counter() - t0, nbytes))
         return nbytes
 
-    def counted(make):
-        def factory(*args, **kwargs):
-            step = make(*args, **kwargs)
+    def counted_step(step):
+        def run(*args):
+            before, t0 = read_counts(), time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            rec["step_times"].append(time.perf_counter() - t0)
+            rec["steps"].append({k: v - before[k] for k, v in read_counts().items()})
+            return out
+        return run
 
-            def run(*args):
-                before, t0 = read_counts(), time.perf_counter()
-                out = step(*args)             # ends in float(loss): the card is done
-                rec["step_times"].append(time.perf_counter() - t0)
-                rec["steps"].append({k: v - before[k] for k, v in read_counts().items()})
-                return out
-            return run
-        return factory
+    def counted(make):
+        return lambda *args, **kwargs: counted_step(make(*args, **kwargs))
+
+    wrap = aot.maybe_wrap_train_step
+
+    def counted_wrap(kind, model, step):      # outside the stage: a replay calls no Python
+        stage = wrap(kind, model, step)
+        if isinstance(stage, aot.LazyTrainStage):
+            rec["stages"].append(stage)
+        return counted_step(stage)
 
     sweep = T.evaluate_dose_model
 
@@ -1825,11 +1835,16 @@ def trainer_probes():
         stack.enter_context(mock.patch.object(T, "EpochTimer", Timer))
         stack.enter_context(mock.patch.object(C, "save_checkpoint", timed_save))
         stack.enter_context(mock.patch.object(T, "evaluate_dose_model", timed_sweep))
-        for name in ("make_pyfer_train_step", "make_cascade_c3d_train_step",
-                     "make_transeg_train_step", "make_simple_dose_train_step",
+        stack.enter_context(mock.patch.object(aot, "maybe_wrap_train_step", counted_wrap))
+        for name in ("make_cascade_c3d_train_step", "make_simple_dose_train_step",
                      "make_dosegan_train_steps"):
             stack.enter_context(mock.patch.object(STEP, name, counted(getattr(STEP, name))))
         yield rec
+
+
+def stage_readings(rec) -> list:
+    """(name, used_aot, captures) of each train stage a CLI run made."""
+    return [(st.name, st.used_aot, st.captures) for st in rec["stages"]]
 
 
 def cli(*argv):
@@ -1988,7 +2003,8 @@ def phase_trainer(dev, data, root):
             "s": rec["s"], "steps": len(rec["steps"]), "step_s": rec["step_s"],
             "step_p50_s": p50(rec["step_s"]), "loader_s": rec["loader_s"],
             "val_s": rec["val_s"], "writes": rec["writes"], "launches": rec["steps"],
-            "slots": slots, "last_step": last["step"], "last_epoch": last["epoch"]}
+            "slots": slots, "last_step": last["step"], "last_epoch": last["epoch"],
+            "stages": stage_readings(rec)}
         del last
         reference = reference_step_launches(dev, data["dataset"])
         row["pyfer"]["reference_launches"] = reference
@@ -1998,8 +2014,10 @@ def phase_trainer(dev, data, root):
             f"checkpoint writes (slot, s, bytes) {rec['writes']}; launches per step "
             f"{rec['steps']} (a float32 make_pyfer_train_step: {reference}); slots {slots}; "
             f"last slot at step {row['pyfer']['last_step']}, epoch "
-            f"{row['pyfer']['last_epoch']}; on {smi}")
+            f"{row['pyfer']['last_epoch']}; train stages (name, used_aot, captures) "
+            f"{row['pyfer']['stages']}; on {smi}")
         ok = (len(rec["steps"]) == 6 and row["pyfer"]["last_step"] == 6
+              and row["pyfer"]["stages"] == [("train:pyfer", True, 1)]
               and {"last.pt", "run_config.json"} <= set(slots)
               and any(s.startswith("monitored/") for s in slots)
               and all(st[k] == reference[k] for st in rec["steps"]
@@ -2012,10 +2030,12 @@ def phase_trainer(dev, data, root):
         last = restore_checkpoint(ck / "last.pt")
         row["resume"] = {"s": rec["s"], "resumed": "resumed from epoch 1" in rec["text"],
                          "steps": len(rec["steps"]), "last_step": last["step"],
-                         "last_epoch": last["epoch"], "writes": rec["writes"]}
+                         "last_epoch": last["epoch"], "writes": rec["writes"],
+                         "stages": stage_readings(rec)}
         del last
         log(f"trainer: the same with --epochs 3: {row['resume']}")
         if not (row["resume"]["resumed"] and row["resume"]["last_step"] == 9
+                and row["resume"]["stages"] == [("train:pyfer", True, 1)]
                 and row["resume"]["last_epoch"] == 2 and row["resume"]["steps"] == 3):
             raise AssertionError(f"trainer: resume check failed: {row['resume']}")
 
@@ -2023,10 +2043,12 @@ def phase_trainer(dev, data, root):
             rec = train_cli("K3 epoch", "pyfer", "--data", train_glob, "--epochs", "1",
                             "--feed-dtype", "packed", "--ckpt-dir", work / "pyfer_k3",
                             "--log-dir", work / "pyfer_k3_log")
-        row["k3"] = {"s": rec["s"], "launches": rec["steps"], "step_p50_s": p50(rec["step_s"])}
+        row["k3"] = {"s": rec["s"], "launches": rec["steps"], "step_p50_s": p50(rec["step_s"]),
+                     "stages": stage_readings(rec)}
         log(f"trainer: one epoch with DPT_PALLAS_CONV=1: launches per step {rec['steps']}, "
-            f"step p50 {row['k3']['step_p50_s']} s; on {smi}")
-        if not (rec["steps"] and all(st["conv3d_k3"] > 0 for st in rec["steps"])):
+            f"step p50 {row['k3']['step_p50_s']} s; train stages {row['k3']['stages']}; on {smi}")
+        if not (rec["steps"] and all(st["conv3d_k3"] > 0 for st in rec["steps"])
+                and row["k3"]["stages"] == [("train:pyfer", True, 1)]):
             raise AssertionError(f"trainer: K3 was not launched in the routed epoch: {row['k3']}")
 
         best = CheckpointManager(ck, monitor="mean_dose_score", mode="max")
@@ -2087,8 +2109,11 @@ def phase_trainer(dev, data, root):
                         "--max-steps", "2", "--ckpt-dir", seg_ck, "--log-dir",
                         work / "transeg_log")
         row["transeg"] = {"s": rec["s"], "step_s": rec["step_times"], "launches": rec["steps"],
-                          "writes": rec["writes"]}
-        if not (len(rec["steps"]) == 2 and all(st["attention"] > 0 for st in rec["steps"])):
+                          "writes": rec["writes"], "stages": stage_readings(rec)}
+        log(f"trainer: train transeg (two steps on 96³ crops): steps {rec['step_times']} s, "
+            f"launches {rec['steps']}, train stages {row['transeg']['stages']}")
+        if not (len(rec["steps"]) == 2 and all(st["attention"] > 0 for st in rec["steps"])
+                and row["transeg"]["stages"] == [("train:transeg", True, 1)]):
             raise AssertionError(f"trainer: train transeg check failed: {row['transeg']}")
         infer = {}
         for mode, dtype in (("sliding", "bfloat16"), ("dense", "bfloat16")):
@@ -3551,6 +3576,185 @@ def phase_captured(dev, root, serve_k3) -> dict:
     return row
 
 
+# train_captured: the calls of each step compared (eager twice, captured once)
+CAPTURED_TRAIN_CALLS = 6
+
+
+def seeded_packed_batch(dev):
+    """A fixed 128³ batch in the packed feed's wire format: bf16 CT and dose,
+    the PTV × 70 as uint8, seven OAR bits and the possible-dose bit, and one
+    augmentation (shift, flips, rot90) of AUGMENT_DECISIONS."""
+    g = torch.Generator(dev).manual_seed(SEED + 8)
+    shape = (1, 128, 128, 128)
+    mask = (torch.rand(shape, generator=g, device=dev) < 0.6).to(torch.uint8)
+    oars = torch.randint(0, 128, shape, generator=g, device=dev).to(torch.uint8)
+    shift, flip, rot_k = AUGMENT_DECISIONS[1]
+    return {"ct": torch.randn(shape, generator=g, device=dev).to(torch.bfloat16),
+            "dose": (torch.rand(shape, generator=g, device=dev) * mask).to(torch.bfloat16),
+            "ptv": (torch.rand(shape, generator=g, device=dev) < 0.05).to(torch.uint8) * 70,
+            "mask_bits": oars | (mask << 7),
+            "shift": torch.tensor([shift], dtype=torch.float32, device=dev),
+            "flip": torch.tensor([flip], dtype=torch.int32, device=dev),
+            "rot_k": torch.tensor([rot_k], dtype=torch.int32, device=dev)}
+
+
+def captured_train_steps():
+    """(label, make(dev) -> (model, step, state), batch(dev), K3 routing):
+    train pyfer's step (float32, adam8bit, net_A frozen) on a float32 and on
+    a packed batch, phase 12's bf16 AdamW step routed and not, phase 14's
+    TranSeg step and phase 16's grad_accum=2 step."""
+    pyfer_cli = lambda dev: make_trainer(dev, kind="adam8bit", packed=True)  # noqa: E731
+    bf16 = lambda dev: seeded_batch(dev, torch.bfloat16)  # noqa: E731
+    return [("pyfer float32 adam8bit", pyfer_cli, lambda dev: seeded_batch(dev, torch.float32),
+             False),
+            ("pyfer packed adam8bit", pyfer_cli, seeded_packed_batch, False),
+            ("pyfer bf16 adamw, K3 routing on", make_trainer, bf16, True),
+            ("pyfer bf16 adamw", make_trainer, bf16, False),
+            ("transeg bf16, K3 routing on", make_seg_trainer,
+             lambda dev: seeded_seg_batch(dev, torch.bfloat16), True),
+            ("pyfer bf16 grad_accum=2, K3 routing on",
+             lambda dev: make_trainer(dev, grad_accum=2), bf16, True)]
+
+
+def leaf_max_abs(a, b) -> list:
+    """max |x − y| of each pair of tensors, read in one synchronisation."""
+    return torch.stack([(x - y).abs().max() for x, y in zip(a, b)]).tolist()
+
+
+def captured_step_parity(losses, params, first) -> dict:
+    """One call's captured run (c) against the first eager run (a), the
+    second (b) giving eager's own spread. Where a and b are equal bit for
+    bit, c must be too. Otherwise (cuDNN's weight gradients and the
+    trilinear backward may add with atomics) check_step_parity's rule,
+    applied to each parameter's displacement from the initial weights
+    ``first``: within max(1e-3, 2 × the eager runs' worst relative
+    departure) × that displacement's largest |value|, floor 2e-6 × the
+    largest; the loss within max(1e-5, 2 × the eager runs' relative
+    difference) of the nearer eager run's (one scalar's spread is one
+    sample, where a leaf's limit is the worst of every leaf's)."""
+    (la, lb, lc), (pa, pb, pc) = losses, params
+    if la == lb and all(torch.equal(x, y) for x, y in zip(pa, pb)):
+        equal = lc == la and all(torch.equal(x, z) for x, z in zip(pa, pc))
+        return {"rule": "bit for bit", "ok": equal}
+    scale = [max(d, 1e-30) for d in leaf_max_abs(pa, first)]
+    spread, err = leaf_max_abs(pb, pa), leaf_max_abs(pc, pa)
+    noise = max(d / s for d, s in zip(spread, scale))
+    floor = 2e-6 * max(scale)
+    worst = max(e / max(max(1e-3, 2 * noise) * s, floor) for e, s in zip(err, scale))
+    loss_rel, loss_spread = min(abs(lc - la), abs(lc - lb)) / abs(la), abs(lb - la) / abs(la)
+    return {"rule": "eager spread", "ok": worst <= 1 and loss_rel <= max(1e-5, 2 * loss_spread),
+            "worst_leaf_ratio": worst, "eager_departure": noise, "loss_rel": loss_rel,
+            "eager_loss_rel": loss_spread}
+
+
+def captured_train_run(dev, label, make, batch, route_k3) -> dict:
+    """CAPTURED_TRAIN_CALLS calls of one step in two eager runs and through a
+    LazyTrainStage, in turns, from the same seeded weights on the same batch:
+    each call's seconds, loss, credited launches and captured_step_parity;
+    the first captured call's seconds and peak memory above what was
+    allocated before it, the memory the graphs keep reserved; then one
+    eager and one replayed call under the profiler, whose K1, K2 and K3
+    kernels must equal the launches an eager call counts (K2's two-kernel
+    calls twice)."""
+    from dose_prediction_tpu_torch.infer.aot import LazyTrainStage
+
+    runs = {name: make(dev) for name in ("eager_a", "eager_b", "captured")}
+    stage = LazyTrainStage(f"train:{label}", runs["captured"][1])
+    steps = {"eager_a": runs["eager_a"][1], "eager_b": runs["eager_b"][1], "captured": stage}
+    states = {name: run[2] for name, run in runs.items()}
+    params = [list(run[0].parameters()) for run in runs.values()]
+    first = [p.detach().clone() for p in params[0]]
+    calls = {name: [] for name in runs}
+    checks = []
+    with torch_default_tf32(), k3_routing(route_k3):
+        for i in range(CAPTURED_TRAIN_CALLS):
+            for name, step in steps.items():
+                if name == "captured" and i == 0:
+                    free_memory()
+                    base, base_reserved = torch.cuda.memory_allocated(), \
+                        torch.cuda.memory_reserved()
+                    torch.cuda.reset_peak_memory_stats()
+                captures = stage.captures
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                states[name], loss = step(states[name], batch)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                if name == "captured" and i == 0:
+                    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                calls[name].append({
+                    "s": seconds, "loss": float(loss), "launches": read_counts(),
+                    "two_kernel": kernel_wrappers()["instance_norm"].two_kernel_launches,
+                    "captured": stage.captures > captures})
+            checks.append(captured_step_parity([calls[n][-1]["loss"] for n in runs], params,
+                                               first))
+        free_memory()
+        pool_gib = (torch.cuda.memory_reserved() - base_reserved) / 2 ** 30
+
+        def call(name):
+            def run():
+                states[name], _ = steps[name](states[name], batch)
+            return run
+
+        prof = {"eager": profiled(call("eager_a"), f"eager {label}", settle=True),
+                "captured": profiled(call("captured"), f"replayed {label}", settle=True)}
+    eager = calls["eager_a"][-1]
+    counted = {"attention": eager["launches"]["attention"],
+               "instance_norm": eager["launches"]["instance_norm"] + eager["two_kernel"],
+               "conv3d_k3": eager["launches"]["conv3d_k3"]}
+    if any(p is None for p in prof.values()):
+        raise AssertionError(f"train_captured {label}: the profiler reported no device time")
+    groups = {k: {name: p["groups_launches"].get(g, 0) for name, g in PROFILE_GROUPS.items()}
+              for k, p in prof.items()}
+    replayed = [c["s"] for c in calls["captured"] if not c["captured"]]
+    eager_s = [c["s"] for n in ("eager_a", "eager_b") for c in calls[n][1:]]
+    row = {"first_s": calls["captured"][0]["s"], "captures": stage.captures,
+           "p50_s": pct(replayed, 0.5), "times_s": [c["s"] for c in calls["captured"]],
+           "eager_p50_s": pct(eager_s, 0.5), "eager_times_s": eager_s,
+           "losses": {n: [c["loss"] for c in calls[n]] for n in runs},
+           "checks": checks, "peak_gib": peak_gib, "pool_gib": pool_gib,
+           "credited": calls["captured"][-1]["launches"], "eager_launches": eager["launches"],
+           "groups_launches": groups,
+           "idle_share": {k: p["idle_share"] for k, p in prof.items()},
+           "busy_ms": {k: p["busy_ms"] for k, p in prof.items()}}
+    rules = [c["rule"] + (" ok" if c["ok"] else " FAILED") for c in checks]
+    log(f"train_captured {label}: first call {row['first_s']} s (warm-up and capture), "
+        f"{row['captures']} capture(s); replayed p50 {row['p50_s']} s over {len(replayed)} "
+        f"calls {replayed}; eager p50 {row['eager_p50_s']} s over {eager_s}; losses "
+        f"{row['losses']}; per call {rules}, worst "
+        f"{[round(c.get('worst_leaf_ratio', 0.0), 4) for c in checks]} of the limit; "
+        f"kernels in the profile eager {groups['eager']}, replayed {groups['captured']}, "
+        f"counted in an eager call {counted}; idle share eager {row['idle_share']['eager']:.3f}, "
+        f"replayed {row['idle_share']['captured']:.3f}; device busy eager "
+        f"{row['busy_ms']['eager']:.2f} ms, replayed {row['busy_ms']['captured']:.2f} ms; peak "
+        f"memory of the first captured call {peak_gib:.2f} GiB, reserved by the graphs "
+        f"{pool_gib:.2f} GiB")
+    finite = all(math.isfinite(x) for v in row["losses"].values() for x in v)
+    routed = (counted["conv3d_k3"] > 0) == route_k3
+    if not (finite and routed and all(c["ok"] for c in checks) and row["credited"]
+            == eager["launches"] and groups["captured"] == groups["eager"] == counted
+            and counted["attention"] > 0 and counted["instance_norm"] > 0):
+        raise AssertionError(f"train_captured {label} check failed: {row}")
+    return row
+
+
+def phase_train_captured(dev) -> dict:
+    """Phase 25: whole train steps captured as CUDA graphs
+    (infer/aot.py::LazyTrainStage) at full width against their eager runs,
+    captured_train_run for each of captured_train_steps(); no slot is
+    written."""
+    smi = nvidia_smi()
+    rows = {}
+    for label, make, batch, route_k3 in captured_train_steps():
+        rows[label] = captured_train_run(dev, label, make, batch(dev), route_k3)
+        free_memory()
+    log("train_captured: replayed p50 against eager, " + "; ".join(
+        f"{k} {v['p50_s']} s ({v['eager_p50_s']} s eager)" for k, v in rows.items())
+        + f"; on {smi}")
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3639,6 +3843,8 @@ def main() -> int:
             del results["data"]["dataset"]
             free_memory()
             run("captured", lambda: phase_captured(dev, root, results["serve_k3"]))
+        free_memory()
+        run("train_captured", lambda: phase_train_captured(dev))
     except Exception:
         return 1
 
@@ -3673,6 +3879,9 @@ def main() -> int:
         f"{results['captured']['dense_aot']['p50_s']} s (eager "
         f"{results['captured']['dense_aot']['eager_p50_s']} s), streaming "
         f"{results['captured']['streaming']['volumes_per_sec']} volumes/s"
+        + "; captured train steps p50 "
+        + ", ".join(f"{k} {v['p50_s']} s (eager {v['eager_p50_s']} s)"
+                    for k, v in results["train_captured"].items())
         + f"; total {time.perf_counter() - t_start:.1f} s; on {smi}")
     sources = {   # each kernel's source and the TPU kernel it replaces
         "attention": ("dose_prediction_tpu_torch/csrc/attention.cu",
@@ -3738,6 +3947,24 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": list(shape), "dtype": "bfloat16", "launches_in": where})
+    steps = results["train_captured"]
+    for name, shape, label in (
+            ("attention", K1_SHAPES[1], "pyfer bf16 adamw, K3 routing on"),
+            ("instance_norm", K2_SHAPES[5], "pyfer bf16 adamw, K3 routing on"),
+            ("conv3d_k3", K3_SHAPES[0], "pyfer bf16 adamw, K3 routing on"),
+            ("attention", K1_SHAPES[3], "transeg bf16, K3 routing on"),
+            ("instance_norm", K2_SHAPES[11], "transeg bf16, K3 routing on"),
+            ("conv3d_k3", K3_SHAPES[10], "transeg bf16, K3 routing on")):
+        source, replaces = sources[name]
+        row = results["kernels"][(name, shape, torch.bfloat16)]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": steps[label]["groups_launches"]["captured"][name],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "shape": list(shape), "dtype": "bfloat16",
+                        "launches_in": f"train_captured: kernels the profiler saw in one "
+                                       f"replayed step ({label}), every shape"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ a run on the card needs (counterpart of dose_prediction_tpu/cli/doctor.py).
   kernel build   the kernel library for the current sources, and libraries of
                  other sources in the build directory
   serve capture  whether DPT_NO_AOT turns the captured serve stages off
-  train capture  not ported
+  train capture  the CLI quick-starts whose train steps are captured as CUDA
+                 graphs, and whether DPT_NO_AOT turns that off
   data           with ``--data``, the patient directories a glob matches
 
 The design is the JAX command's: ``collect_report()`` returns a dict that
@@ -35,7 +36,10 @@ from typing import List, Optional, Tuple
 
 _REPO = Path(__file__).resolve().parents[2]
 HOPPER = (9, 0)
-TRAIN_CAPTURE = "ROADMAP queue 1 item 7 (the captured train step)"
+# the quick-starts the JAX doctor enumerates (its cli/doctor.py:86-111);
+# the port captures their trainers' steps at the first step, whatever feed
+TRAIN_QUICKSTARTS = ("train pyfer --feed-dtype float32", "train pyfer --feed-dtype packed",
+                     "train transeg")
 _SMI = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
 
 # The probe: the card's facts, then one K1 launch held against K1's plain
@@ -209,7 +213,8 @@ def collect_report(*, data: Optional[str] = None, probe: bool = False,
         "kernel_build": _kernel_build(),
         "runtime": A.build_info(backend.get("device_name", "none"), backend.get("capability")),
         "serve_capture": {"disabled": A.disabled()},
-        "train_capture": {"ported": False, "roadmap": TRAIN_CAPTURE},
+        "train_capture": {"ported": True, "disabled": A.disabled(),
+                          "quickstarts": list(TRAIN_QUICKSTARTS)},
     }
     if data:
         report["data"] = check_data_pattern(data)
@@ -282,8 +287,13 @@ def render(report: dict) -> Tuple[List[str], int]:
     else:
         ok("serve capture: on; each serve stage is captured as a CUDA graph at its first "
            "request (nothing is shipped)")
-    lines.append(f"[note] train capture: not ported ({report['train_capture']['roadmap']}); "
-                 "train steps launch from the host")
+    train = report["train_capture"]
+    if train["disabled"]:
+        warn("train capture: DPT_NO_AOT=1, the DOSE-PYFER and TranSeg trainers launch every "
+             "kernel of a step from the host")
+    else:
+        ok(f"train capture: on; the step of {', '.join(train['quickstarts'])} is captured as "
+           "a CUDA graph at the first step (nothing is shipped)")
 
     if "data" in report:
         d = report["data"]

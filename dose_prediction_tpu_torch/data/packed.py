@@ -156,6 +156,9 @@ def unpack_dose_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
     a packed batch and apply each sample's augmentation on the batch's device
     (shift → flips → rot90, the transforms.apply_dose_augment order). rot90
     needs D == H (the JAX package's ``lax.switch`` refuses other shapes too).
+    The decisions (``shift``, ``flip``, ``rot_k``) must lie on the volumes'
+    device, as device_prefetch puts the whole batch: the unpack copies
+    nothing from the host, so that a CUDA graph of the step can hold it.
 
     An already-unpacked {'input','gt'} batch returns unchanged, so steps made
     with ``packed=True`` also take the float32 feed."""
@@ -166,15 +169,19 @@ def unpack_dose_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
     if d != h:
         raise ValueError(f"the packed feed's rot90 needs D == H, got {(d, h, w)}")
     dev = ct.device
+    away = {k: str(batch[k].device) for k in ("shift", "flip", "rot_k") if batch[k].device != dev}
+    if away:
+        raise ValueError(f"packed batch: decisions {away} off the volumes' device {dev}; move "
+                         "the whole batch (device_prefetch does)")
     ptv = batch["ptv"].float() * (1.0 / 70.0)
     bits = batch["mask_bits"]
     oars = [((bits >> i) & 1).float() for i in range(7)]
     dose_mask = ((bits >> 7) & 1).float()
-    ct = ct + batch["shift"].to(dev).float()[:, None, None, None]
+    ct = ct + batch["shift"].float()[:, None, None, None]
     inp = torch.stack([ptv, *oars, ct], dim=-1)
     gt = torch.stack([batch["dose"].float(), dose_mask], dim=-1)
 
-    rows, cols = _augment_index(batch["flip"].to(dev), batch["rot_k"].to(dev), d, h, w)
+    rows, cols = _augment_index(batch["flip"], batch["rot_k"], d, h, w)
     sample = torch.arange(b, device=dev)[:, None, None]
 
     def aug(vol: torch.Tensor) -> torch.Tensor:

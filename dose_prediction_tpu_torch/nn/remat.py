@@ -9,7 +9,10 @@ A recompute must not update BatchNorm running statistics a second time
 is the forward, every later call a recompute, and ``updates_batch_stats()``
 is False inside a recompute, which ``nn/layers.py::BatchNorm3d`` reads.
 The flag is a context variable set inside the call itself, so it holds in
-whichever thread autograd runs the recompute.
+whichever thread autograd runs the recompute. No model of the port draws
+random numbers in its forward, so the recompute restores no generator
+state; reading a CUDA generator's state is refused while a CUDA graph is
+captured (infer/aot.py::LazyTrainStage).
 """
 
 from __future__ import annotations
@@ -43,4 +46,5 @@ def checkpoint(fn: Callable, *args: torch.Tensor, enabled: bool = True):
         finally:
             _RECOMPUTING.reset(token)
 
-    return torch_checkpoint.checkpoint(run, *args, use_reentrant=False)
+    return torch_checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                       preserve_rng_state=False)

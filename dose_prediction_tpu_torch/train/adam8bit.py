@@ -64,7 +64,7 @@ def quantize_log(blocks: torch.Tensor, valid: torch.Tensor) -> LogQuantized:
     highest log over its ``valid`` lanes (the tail-block fix: a pad lane's
     log(1e-30) would stretch the grid over ~60 unused log units)."""
     z = torch.log(blocks.clamp_min(0.0) + LOG_TINY)
-    inf = torch.tensor(float("inf"), device=z.device)
+    inf = z.new_full((), float("inf"))        # made on the device: no copy from the host
     lo = torch.where(valid, z, inf).amin(dim=1, keepdim=True)
     hi = torch.where(valid, z, -inf).amax(dim=1, keepdim=True)
     scale = torch.clamp_min((hi - lo) / 255.0, 1e-12)
@@ -75,6 +75,12 @@ def quantize_log(blocks: torch.Tensor, valid: torch.Tensor) -> LogQuantized:
 def dequantize_log(q: LogQuantized) -> torch.Tensor:
     z = q.values.float() * q.scale[:, None] + q.lo[:, None]
     return torch.clamp_min(torch.exp(z) - LOG_TINY, 0.0)
+
+
+def _assign(dst, src) -> None:
+    """Copy each tensor of ``src`` into the one of ``dst`` at its place."""
+    for d, t in zip(dst, src):
+        d.copy_(t)
 
 
 class _Flat:
@@ -150,16 +156,22 @@ class Adam8bit(_Optimizer):
             lay.update(sflat=flat, mu_s=zeros, nu_s=zeros.clone())
         self._layout = lay
 
-    def _update(self, group, params, grads):
+    def _scalars(self, group):
+        t = torch.tensor(float(self.count), dtype=torch.float32)
+        b1t, b2t = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** t)
+                    for b in (group["b1"], group["b2"]))
+        return self.lr_at(group, self.count), b1t, b2t
+
+    def _init_state(self, group, params):
         if self._layout is None:
             self._init_layout(params)
+
+    def _update(self, group, params, grads, scalars):
         lay = self._layout
         if [id(p) for p in params] != [id(p) for p in lay["params"]]:
             raise ValueError("Adam8bit: the trainable parameters changed after the first step")
         b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
-        t = torch.tensor(float(self.count), dtype=torch.float32)
-        b1t, b2t = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** t) for b in (b1, b2))
-        lr = group["last_lr"] = self.lr_at(group, self.count)
+        neg_lr, b1t, b2t = scalars
 
         def adam(m, v, g, flat, idx):
             m = b1 * m + (1 - b1) * g
@@ -167,20 +179,32 @@ class Adam8bit(_Optimizer):
             step = (m / b1t) / (torch.sqrt(v / b2t) + eps)
             if wd:
                 step = step + wd * flat.gather("p", [params[i] for i in idx]).view(step.shape)
-            torch._foreach_add_([params[i] for i in idx], flat.views((-lr * step).view(-1)))
+            torch._foreach_add_([params[i] for i in idx], flat.views((neg_lr * step).view(-1)))
             return m, v
 
+        # the moments are written in place: a CUDA graph of the step reads
+        # and writes them where they were when it was captured
         if lay["quant"]:
             idx, flat = lay["quant"], lay["qflat"]
             g = flat.gather("g", [grads[i] for i in idx]).view(lay["valid"].shape)
             m, v = adam(dequantize(lay["mu"]), dequantize_log(lay["nu"]), g, flat, idx)
-            lay["mu"] = quantize(m)
-            lay["nu"] = quantize_log(torch.where(lay["valid"], v, torch.zeros_like(v)),
-                                     lay["valid"])
+            _assign(lay["mu"], quantize(m))
+            _assign(lay["nu"], quantize_log(torch.where(lay["valid"], v, torch.zeros_like(v)),
+                                            lay["valid"]))
         if lay["small"]:
             idx, flat = lay["small"], lay["sflat"]
             g = flat.gather("g", [grads[i] for i in idx])
-            lay["mu_s"], lay["nu_s"] = adam(lay["mu_s"], lay["nu_s"], g, flat, idx)
+            m, v = adam(lay["mu_s"], lay["nu_s"], g, flat, idx)
+            _assign((lay["mu_s"], lay["nu_s"]), (m, v))
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The base class's and the layout's moments (its scratch buffers are
+        made with it and replaced with it)."""
+        lay = self._layout
+        if lay is None:
+            return super().state_tensors()
+        moments = [t for k in ("mu", "nu") if k in lay for t in lay[k]]
+        return super().state_tensors() + moments + [lay[k] for k in ("mu_s", "nu_s") if k in lay]
 
     def state_dict(self) -> dict:
         """The base state dict with the 8-bit moments: the int8 and uint8

@@ -16,7 +16,12 @@ one fused program XLA makes of an optax update:
   rewrites between steps, driven by a host-side ``ReduceLROnPlateau``.
 
 A learning rate is a float or a schedule of optax's update count
-(``multistep_schedule``, ``cosine_schedule``). Freezing sets
+(``multistep_schedule``, ``cosine_schedule``). A step reads nothing on the
+host: each update's scalars (the learning rate, the two bias corrections
+and MultiSteps' divisor) are computed on the host in float32 and written
+to the card, and the moving loss is a tensor there, so that a CUDA graph
+of a whole step (infer/aot.py::LazyTrainStage) replays with each update's
+own scalars. Freezing sets
 ``requires_grad=False``, so a frozen parameter gets no gradient, no update
 and no weight decay (``optax.set_to_zero``). A trainable parameter without
 a gradient is updated with a zero gradient, as optax updates every leaf it
@@ -26,7 +31,9 @@ is given: its moments decay and weight decay still shrinks it.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import struct
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
@@ -40,19 +47,31 @@ LearningRate = Union[float, Schedule]
 
 @dataclasses.dataclass
 class TrainState:
-    """What a step updates: the step count and the moving loss; the model and
-    optimizer are updated in place."""
+    """What a step updates: the step count (on the host) and the moving loss
+    (on the card); the model and optimizer are updated in place."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
-    # EMA of the train loss (eps 0.01, network_trainer.py:162-168)
-    moving_loss: float = math.nan
+    # EMA of the train loss (eps 0.01, network_trainer.py:162-168): a 0-d
+    # float32 tensor on the model's device; a number given here is put there
+    moving_loss: Union[float, torch.Tensor] = math.nan
+
+    def __post_init__(self):
+        if not torch.is_tensor(self.moving_loss):
+            first = next(itertools.chain(self.model.parameters(), self.model.buffers()), None)
+            self.moving_loss = torch.tensor(float(self.moving_loss), dtype=torch.float32,
+                                            device=None if first is None else first.device)
 
 
-def update_moving_loss(moving: float, loss: float, eps: float = 0.01) -> float:
-    """EMA train loss (state.py:277-279): the first loss seeds it."""
-    return loss if math.isnan(moving) else (1 - eps) * moving + eps * loss
+def update_moving_loss(moving: Union[float, torch.Tensor], loss: Union[float, torch.Tensor],
+                       eps: float = 0.01) -> torch.Tensor:
+    """EMA train loss in float32 on ``moving``'s device (state.py:277-279):
+    the first loss seeds it, chosen by ``torch.where`` so that nothing is
+    read on the host."""
+    moving = torch.as_tensor(moving, dtype=torch.float32)
+    loss = torch.as_tensor(loss, dtype=torch.float32, device=moving.device)
+    return torch.where(torch.isnan(moving), loss, (1 - eps) * moving + eps * loss)
 
 
 def label_params_by_name(model: nn.Module, frozen_if: Callable[[Sequence[str]], bool]
@@ -78,17 +97,34 @@ def encoder_labels(model: nn.Module, encoder_key: str = "encoder") -> Dict[str, 
 
 
 def _f32(x: float) -> float:
-    """``x`` rounded to float32 (a scalar that a float32 kernel takes as is)."""
-    return float(torch.tensor(x, dtype=torch.float32))
+    """``x`` rounded to float32 (a scalar that a float32 kernel takes as is),
+    in host arithmetic."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether work on ``t``'s device is being captured into a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 class _Optimizer(torch.optim.Optimizer):
     """What every optimizer here shares: one update count for the whole
     optimizer (optax's ``count``), global-norm clipping in optax's order,
     gradient accumulation as ``optax.MultiSteps`` and the plateau's
-    adjustable learning rate. Subclasses write ``_update(params, grads)``
-    for one group's trainable leaves (a gradient of None is zeros) and
-    leave the rate they applied in the group's ``last_lr``."""
+    adjustable learning rate.
+
+    A call has a host half, ``advance``, and a device half. The host half
+    moves MultiSteps' phase and the count, computes the update's scalars in
+    float32 (per group the negated learning rate and the bias corrections
+    ``1 − b1^t``, ``1 − b2^t``; MultiSteps' divisor ``n + 1``) and writes
+    them into ``scalars``, a float32 tensor on the parameters' device; the
+    device half reads them from there. While a CUDA graph is captured the
+    write is left out: a replay's scalars are written before it
+    (infer/aot.py::LazyTrainStage). Subclasses write ``_scalars(group)``
+    (the group's rate and bias corrections at the count), ``_init_state``
+    (the state the first update would create) and ``_update(group, params,
+    grads, scalars)`` for one group's trainable leaves (a gradient of None
+    is zeros)."""
 
     def __init__(self, params, defaults: dict, *, grad_clip_norm: Optional[float] = None,
                  grad_accum: int = 1, injectable: bool = False):
@@ -100,9 +136,68 @@ class _Optimizer(torch.optim.Optimizer):
         self.injectable = injectable
         self.count = 0           # inner updates (optax's count): emits only
         self.mini_step = 0       # MultiSteps' mini_step
+        self.scalars: Optional[torch.Tensor] = None
 
     def _groups(self):
         return [(g, [p for p in g["params"] if p.requires_grad]) for g in self.param_groups]
+
+    def materialize(self) -> None:
+        """Create now what the first update would create: ``scalars``,
+        MultiSteps' buffers and the subclass's state (zeros, as the first
+        update makes them). A capture is keyed by these tensors' addresses,
+        so they must exist before the first one."""
+        if self.scalars is None:
+            self.scalars = torch.zeros(3 * len(self.param_groups) + 1, dtype=torch.float32,
+                                       device=self.param_groups[0]["params"][0].device)
+        for group, ps in self._groups():
+            if self.grad_accum > 1:
+                for p in ps:
+                    if "acc" not in self.state[p]:
+                        self.state[p]["acc"] = torch.zeros_like(
+                            p, memory_format=torch.preserve_format)
+            if ps:
+                self._init_state(group, ps)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the optimizer's that an update reads or writes in
+        place: ``scalars`` and each leaf's state."""
+        head = [] if self.scalars is None else [self.scalars]
+        return head + [t for st in self.state.values() for t in st.values()
+                       if torch.is_tensor(t)]
+
+    def host_state(self) -> tuple:
+        """What ``advance`` moves on the host: the count, MultiSteps' phase
+        and each group's ``last_lr``."""
+        return self.count, self.mini_step, [g.get("last_lr") for g in self.param_groups]
+
+    def set_host_state(self, host: tuple) -> None:
+        self.count, self.mini_step, rates = host
+        for g, lr in zip(self.param_groups, rates):
+            g["last_lr"] = lr
+
+    def advance(self) -> bool:
+        """The host half of a call (class docstring); True when the call
+        updates the parameters, which then get the group's ``last_lr``."""
+        self.materialize()
+        n = self.mini_step
+        self.mini_step = (n + 1) % self.grad_accum
+        emits = self.mini_step == 0
+        values = []
+        if emits:
+            self.count += 1
+        for group in self.param_groups:
+            lr, bc1, bc2 = self._scalars(group) if emits else (0.0, 1.0, 1.0)
+            if emits:
+                group["last_lr"] = lr
+            values += [-lr, bc1, bc2]
+        values.append(float(n + 1))
+        if not _capturing(self.scalars):
+            host = torch.tensor(values, dtype=torch.float32)
+            # pinned, so that the copy runs in stream order and the host
+            # buffer lives until it has (the caching host allocator)
+            self.scalars.copy_(host.pin_memory() if self.scalars.is_cuda else host,
+                               non_blocking=True)
+        return emits
 
     # -- checkpoints: the optimizer's whole state, as optax's opt_state ------
     def state_dict(self) -> dict:
@@ -157,44 +252,38 @@ class _Optimizer(torch.optim.Optimizer):
             raise ValueError(f"{type(self).__name__}.step takes no closure")
         groups = self._groups()
         grads = [[p.grad for p in ps] for _, ps in groups]
+        emits = self.advance()
         if self.grad_accum > 1:
-            grads = self._accumulate(groups, grads)
-            if grads is None:
+            grads = self._accumulate(groups, grads, self.scalars[-1])
+            if not emits:
                 return
-        self.count += 1
         if self.grad_clip_norm is not None:
             grads = self._clip(grads)
-        for (group, ps), gs in zip(groups, grads):
+        for i, ((group, ps), gs) in enumerate(zip(groups, grads)):
             if ps:
-                self._update(group, ps, gs)
+                self._update(group, ps, gs, self.scalars[3 * i:3 * i + 3])
         if self.grad_accum > 1:
             torch._foreach_zero_([self.state[p]["acc"] for _, ps in groups for p in ps])
 
-    def _accumulate(self, groups, grads):
+    def _accumulate(self, groups, grads, n1: torch.Tensor):
         """MultiSteps' running mean ``acc + (g − acc) / (n + 1)`` into a
-        buffer per leaf (a missing gradient is zeros); the accumulated
-        gradients on the k-th call, else None (no update, no weight decay)."""
-        n = self.mini_step
+        buffer per leaf (a missing gradient is zeros), ``n1`` = n + 1 on the
+        device; the accumulated gradients, which only an emitting call
+        uses (no update, no weight decay on the others)."""
         with_g, g_list, without = [], [], []
         for (_, ps), gs in zip(groups, grads):
             for p, g in zip(ps, gs):
-                st = self.state[p]
-                if "acc" not in st:
-                    st["acc"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                (with_g if g is not None else without).append(st["acc"])
+                (with_g if g is not None else without).append(self.state[p]["acc"])
                 if g is not None:
                     g_list.append(g)
         if with_g:
             d = torch._foreach_sub(g_list, with_g)
-            torch._foreach_div_(d, float(n + 1))
+            torch._foreach_div_(d, n1)
             torch._foreach_add_(with_g, d)
         if without:
             d = torch._foreach_neg(without)
-            torch._foreach_div_(d, float(n + 1))
+            torch._foreach_div_(d, n1)
             torch._foreach_add_(without, d)
-        self.mini_step = (n + 1) % self.grad_accum
-        if self.mini_step != 0:
-            return None
         return [[self.state[p]["acc"] for p in ps] for _, ps in groups]
 
     def _clip(self, grads):
@@ -211,7 +300,14 @@ class _Optimizer(torch.optim.Optimizer):
         clipped = iter(torch._foreach_mul(torch._foreach_div(present, div), mul))
         return [[None if g is None else next(clipped) for g in gs] for gs in grads]
 
-    def _update(self, group: dict, params: List[torch.Tensor], grads: List) -> None:
+    def _scalars(self, group: dict) -> tuple:
+        raise NotImplementedError
+
+    def _init_state(self, group: dict, params: List[torch.Tensor]) -> None:
+        raise NotImplementedError
+
+    def _update(self, group: dict, params: List[torch.Tensor], grads: List,
+                scalars: torch.Tensor) -> None:
         raise NotImplementedError
 
 
@@ -232,13 +328,22 @@ class Adam(_Optimizer):
                          grad_clip_norm=grad_clip_norm, grad_accum=grad_accum,
                          injectable=injectable)
 
-    def _update(self, group, params, grads):
-        b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
+    def _scalars(self, group):
+        t = self.count
+        bc1, bc2 = (float(1 - torch.tensor(b, dtype=torch.float32) ** t)
+                    for b in (group["b1"], group["b2"]))
+        return self.lr_at(group, t - 1), bc1, bc2
+
+    def _init_state(self, group, params):
         for p in params:
             st = self.state[p]
             if "mu" not in st:
                 st["mu"] = torch.zeros_like(p, memory_format=torch.preserve_format)
                 st["nu"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    def _update(self, group, params, grads, scalars):
+        b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
+        neg_lr, bc1, bc2 = scalars
         mus = [self.state[p]["mu"] for p in params]
         nus = [self.state[p]["nu"] for p in params]
         torch._foreach_mul_(mus, b1)
@@ -253,8 +358,6 @@ class Adam(_Optimizer):
             sq = torch._foreach_mul(g, g)
             torch._foreach_mul_(sq, c2)
             torch._foreach_add_([nus[i] for i in present], sq)
-        t = self.count
-        bc1, bc2 = (float(1 - torch.tensor(b, dtype=torch.float32) ** t) for b in (b1, b2))
         u = torch._foreach_div(mus, bc1)
         den = torch._foreach_div(nus, bc2)
         torch._foreach_sqrt_(den)
@@ -262,8 +365,7 @@ class Adam(_Optimizer):
         torch._foreach_div_(u, den)
         if wd:
             torch._foreach_add_(u, torch._foreach_mul(params, wd))
-        group["last_lr"] = self.lr_at(group, t - 1)
-        torch._foreach_mul_(u, -group["last_lr"])
+        torch._foreach_mul_(u, neg_lr)
         torch._foreach_add_(params, u)
 
 
@@ -327,7 +429,8 @@ def make_plateau_optimizer(model: nn.Module, *, base_lr: float, weight_decay: fl
 
 def set_learning_rate(optimizer: _Optimizer, lr: float) -> _Optimizer:
     """Set every group's learning rate of a plateau optimizer to ``lr``
-    (float32, as the injected hyperparameter). Raises where the rate is not
+    (float32, as the injected hyperparameter); the next update writes it
+    into the optimizer's ``scalars`` with the rest. Raises where the rate is not
     adjustable (state.py:186-224): silently leaving it would freeze the
     rate forever."""
     if not getattr(optimizer, "injectable", False):

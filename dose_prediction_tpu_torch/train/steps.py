@@ -79,11 +79,11 @@ def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
 def _apply_update(state: TrainState, optimizer: torch.optim.Optimizer, loss: torch.Tensor
                   ) -> Tuple[TrainState, torch.Tensor]:
     """Back-propagate ``loss``, update, and advance the state's count and
-    moving loss (the tail of every JAX step)."""
+    moving loss (the tail of every JAX step); nothing is read on the host."""
     loss.backward()
     optimizer.step()
     loss = loss.detach()
-    moving = update_moving_loss(state.moving_loss, float(loss))
+    moving = update_moving_loss(state.moving_loss, loss)
     return dataclasses.replace(state, step=state.step + 1, moving_loss=moving), loss
 
 

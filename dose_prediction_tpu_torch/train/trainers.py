@@ -25,8 +25,11 @@ ViT-GAN's trainer is train/gan.py::VitGANTrainer.
 The models compute in float32, their default dtype, as the JAX trainers'
 do (the JAX CLI passes no dtype), under PyTorch's TF32 defaults on the
 card. Hyperparameter defaults are the reference's tuned values
-(train_light_pyfer.py:293-300). Not ported yet: the mesh and AOT
-branches (ROADMAP queue 1 item 7): a set ``mesh_shape`` raises.
+(train_light_pyfer.py:293-300). On the card PyferTrainer and
+TranSegTrainer, and so UNETRSegTrainer, run their steps as CUDA graphs
+(infer/aot.py::maybe_wrap_train_step, as the JAX trainers wrap theirs at
+:547 and :1047). Not ported yet: the mesh branches (ROADMAP queue 1 item
+7): a set ``mesh_shape`` raises.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
 from dose_prediction_tpu_torch.data.pipeline import device_prefetch, dose_batches, seg_batches
 from dose_prediction_tpu_torch.device import resolve_device
 from dose_prediction_tpu_torch.evaluation import metrics as M
+from dose_prediction_tpu_torch.infer import aot as AOT
 from dose_prediction_tpu_torch.infer.pipeline import pipeline_map
 from dose_prediction_tpu_torch.infer.sliding_window import sliding_window_inference
 from dose_prediction_tpu_torch.models import (
@@ -414,9 +418,10 @@ class PyferTrainer:
                                      weight_decay=cfg.weight_decay, freeze_labels=freeze,
                                      kind=cfg.optimizer, grad_accum=cfg.grad_accum)
         self.state = S.TrainState(self.model, optimizer)
-        self.train_step = STEP.make_pyfer_train_step(
+        step = STEP.make_pyfer_train_step(
             self.model, optimizer, delta1=cfg.delta1, delta2=cfg.delta2,
             freeze=cfg.freeze_net_a, packed=cfg.feed_dtype == "packed")
+        self.train_step = AOT.maybe_wrap_train_step("pyfer", self.model, step)
         self.eval_step = STEP.make_pyfer_eval_step(self.model)
         self.logger = MetricLogger(cfg.log_dir, run_name="pyfer")
         self.ckpt = C.CheckpointManager(cfg.ckpt_dir, monitor="mean_dose_score", mode="max")
@@ -787,7 +792,8 @@ class TranSegTrainer:
         optimizer = S.make_optimizer(self.model, learning_rate=cfg.learning_rate,
                                      weight_decay=cfg.weight_decay)
         self.state = S.TrainState(self.model, optimizer)
-        self.train_step = STEP.make_transeg_train_step(self.model, optimizer)
+        self.train_step = AOT.maybe_wrap_train_step(
+            "transeg", self.model, STEP.make_transeg_train_step(self.model, optimizer))
         self.logger = MetricLogger(cfg.log_dir, run_name="transeg")
         self.ckpt = C.CheckpointManager(cfg.ckpt_dir, monitor="val_loss", mode="min")
 

@@ -782,3 +782,154 @@ def test_failed_capture_names_the_stage_on_card(card):
     stage = LazyAOTStage("host_read", lambda v, x: x * float(x.sum()))
     with pytest.raises(RuntimeError, match="'host_read'.*capture failed"):
         stage({"w": torch.ones(1, device=card)}, torch.ones(4, device=card))
+
+
+def small_train_step(card, kind, option):
+    """A small DOSE-PYFER at 32³ or a small TranSeg on 32³ crops (head dim
+    32), weights from one seed, with its optimizer (``option``: adamw,
+    adam8bit, grad_accum=2 or remat_blocks) and its step."""
+    from dose_prediction_tpu_torch.train.state import TrainState
+
+    cfg = dict(img_size=32, feature_size=16, hidden_size=64, mlp_dim=128, num_heads=2,
+               remat_blocks=option == "remat_blocks", device=card)
+    if kind == "pyfer":
+        model = DosePyfer(list_ch_A=(-1, 16, 32, 64, 128, 256), num_layers=4, **cfg)
+    else:
+        model = TranSeg(out_ch=8, num_layers=2, **cfg)
+    model = init_params(model, torch.Generator(card).manual_seed(1))
+    opt = S.make_optimizer(model, learning_rate=1e-3, weight_decay=1e-4,
+                           kind="adam8bit" if option == "adam8bit" else "adamw",
+                           grad_accum=2 if option == "grad_accum=2" else 1,
+                           freeze_labels=S.cascade_freeze_labels(model) if kind == "pyfer"
+                           else None)
+    step = (steps.make_pyfer_train_step(model, opt) if kind == "pyfer"
+            else steps.make_transeg_train_step(model, opt))
+    return model, step, TrainState(model, opt)
+
+
+def small_train_batches(card, kind, n=2):
+    g = torch.Generator(card).manual_seed(2)
+    shape = (1, 32, 32, 32)
+    if kind == "transeg":
+        return [{"ct": torch.randn((*shape, 1), generator=g, device=card),
+                 "labels": torch.randint(0, 8, shape, generator=g, device=card).to(torch.uint8)}
+                for _ in range(n)]
+    return [{"input": torch.randn((*shape, 9), generator=g, device=card),
+             "gt": torch.stack([torch.rand(shape, generator=g, device=card),
+                                (torch.rand(shape, generator=g, device=card) < 0.6).float()],
+                               dim=-1)} for _ in range(n)]
+
+
+def train_runs(card, kind, option, calls=4, restore_at=None, tmp_path=None):
+    """Two eager runs and a captured one of ``calls`` steps from the same
+    weights and batches: per run the initial parameters, each call's loss
+    and parameters after it, the stage and each captured call's credited
+    launches. ``restore_at``: the slot written after the first call is
+    restored after call ``restore_at``."""
+    from dose_prediction_tpu_torch.core import checkpoint as C
+    from dose_prediction_tpu_torch.infer.aot import LazyTrainStage
+
+    batches = small_train_batches(card, kind)
+    runs = {}
+    for name in ("eager_a", "eager_b", "captured"):
+        model, step, state = small_train_step(card, kind, option)
+        stage = None
+        if name == "captured":
+            step = stage = LazyTrainStage(f"train:{kind}", step)
+        first = [p.detach().clone() for p in model.parameters()]
+        rows, launches = [], []
+        for i in range(calls):
+            before = kernel_counts()
+            state, loss = step(state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            launches.append(tuple(b - a for a, b in zip(before, kernel_counts())))
+            rows.append((float(loss), [p.detach().clone() for p in model.parameters()]))
+            if restore_at is not None and i == 0:
+                C.save_checkpoint(tmp_path / f"{name}.pt", {"state": state, "epoch": 0})
+            if restore_at is not None and i + 1 == restore_at:
+                state = C.restore_checkpoint(tmp_path / f"{name}.pt",
+                                             {"state": state, "epoch": 0})["state"]
+        runs[name] = (first, rows, stage, launches)
+    return runs
+
+
+def assert_captured_within_eager_spread(runs):
+    """After each call the captured run equals the first eager run bit for
+    bit where the two eager runs are equal bit for bit; otherwise (a cuDNN
+    weight gradient or the trilinear backward may add with atomics) its
+    loss lies within max(1e-5, 2 × the eager runs' relative difference) of
+    the nearer eager run's, and each parameter's displacement from the
+    initial weights within max(1e-3, 2 × the eager runs' worst relative
+    departure) × that displacement's largest |value|, chip_smoke.py's rule
+    for a step's gradients."""
+    first, a, _, _ = runs["eager_a"]
+    _, b, _, _ = runs["eager_b"]
+    _, c, _, _ = runs["captured"]
+    for i, ((la, pa), (lb, pb), (lc, pc)) in enumerate(zip(a, b, c)):
+        if la == lb and all(torch.equal(x, y) for x, y in zip(pa, pb)):
+            assert lc == la and all(torch.equal(x, y) for x, y in zip(pa, pc)), i
+            continue
+        assert min(abs(lc - la), abs(lc - lb)) <= max(1e-5, 2 * abs(lb - la) / abs(la)) * abs(
+            la), (i, la, lb, lc)
+        scale = [max((x - p0).abs().max().item(), 1e-30) for x, p0 in zip(pa, first)]
+        noise = max((y - x).abs().max().item() / s for x, y, s in zip(pa, pb, scale))
+        for j, (x, z, s) in enumerate(zip(pa, pc, scale)):
+            assert (z - x).abs().max().item() <= max(1e-3, 2 * noise) * s, (i, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["adamw", "adam8bit", "grad_accum=2", "remat_blocks"])
+@pytest.mark.parametrize("kind", ["pyfer", "transeg"])
+def test_captured_train_step_matches_eager_on_card(card, monkeypatch, kind, option):
+    """Four float32 steps (TF32 off, cuDNN's deterministic algorithms: with
+    net_A frozen neither step runs a trilinear backward, so two eager runs
+    agree bit for bit) captured against eager on the same weights and
+    batches (assert_captured_within_eager_spread); one capture per
+    MultiSteps phase; each replay credits the launches an eager step
+    counts, K1 and K2 among them."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.delenv("DPT_NO_AOT", raising=False)
+    runs = train_runs(card, kind, option)
+    assert_captured_within_eager_spread(runs)
+    stage, credited, eager = runs["captured"][2], runs["captured"][3], runs["eager_a"][3]
+    assert stage.used_aot and stage.captures == (2 if option == "grad_accum=2" else 1)
+    assert credited == eager and eager[0][0] > 0 and eager[0][1] > 0
+
+
+@pytest.mark.cuda
+def test_captured_train_step_recaptures_after_restore_on_card(card, monkeypatch, tmp_path):
+    """Three steps, the first step's slot restored, two more: the restore
+    replaces the optimizer's state tensors, so the stage captures again,
+    and every step stays within the eager runs' spread (TF32 off, cuDNN's
+    deterministic algorithms)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.delenv("DPT_NO_AOT", raising=False)
+    runs = train_runs(card, "pyfer", "adamw", calls=5, restore_at=3, tmp_path=tmp_path)
+    assert_captured_within_eager_spread(runs)
+    assert runs["captured"][2].captures == 2
+
+
+@pytest.mark.cuda
+def test_captured_train_step_refusals_on_card(card, monkeypatch):
+    """A step that reads its loss on the host cannot be captured: the call
+    raises, naming the stage. DPT_NO_AOT=1 runs the eager step."""
+    from dose_prediction_tpu_torch.infer.aot import LazyTrainStage
+
+    model, step, state = small_train_step(card, "transeg", "adamw")
+    batch = small_train_batches(card, "transeg", 1)[0]
+
+    def reads_its_loss(state, batch):
+        state, loss = step(state, batch)
+        return state, loss * float(loss)
+
+    monkeypatch.delenv("DPT_NO_AOT", raising=False)
+    with pytest.raises(RuntimeError, match="'train:host_read'.*capture failed"):
+        LazyTrainStage("train:host_read", reads_its_loss)(state, batch)
+    monkeypatch.setenv("DPT_NO_AOT", "1")
+    stage = LazyTrainStage("train:transeg", step)
+    state, loss = stage(state, batch)
+    assert stage.used_aot is False and stage.captures == 0 and bool(torch.isfinite(loss))

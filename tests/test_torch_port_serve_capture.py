@@ -144,7 +144,8 @@ def _report(backend, **overrides):
               "kernel_build": {"dir": "d", "lib": "libdpt_kernels_0.so", "built": True,
                                "sources": 4, "other_sources": [], "fresh_dir_per_run": False},
               "serve_capture": {"disabled": False},
-              "train_capture": {"ported": False, "roadmap": D.TRAIN_CAPTURE}}
+              "train_capture": {"ported": True, "disabled": False,
+                                "quickstarts": list(D.TRAIN_QUICKSTARTS)}}
     report.update(overrides)
     return report
 
@@ -153,7 +154,7 @@ def test_render_warns_for_each_missing_precondition():
     lines, warns = D.render(_report({**CARD, "k1_s": 0.01, "k1_max_abs_err": 0.0}))
     assert warns == 0 and lines[-1] == "doctor: 0 warning(s)"
     assert any(ln.startswith("[ok]   backend: 1 x NVIDIA H100") and "9.0" in ln for ln in lines)
-    assert any(ln.startswith("[note] train capture: not ported") for ln in lines)
+    assert any(ln.startswith("[ok]   train capture: on; the step of train pyfer") for ln in lines)
     cases = [
         _report({"cuda": False, "device_count": 0}),
         _report({**CARD, "capability": [8, 0]}),
@@ -163,6 +164,8 @@ def test_render_warns_for_each_missing_precondition():
         _report(CARD, kernel_build={"dir": "d", "lib": "l", "built": False, "sources": 4,
                                     "other_sources": ["old.so"], "fresh_dir_per_run": True}),
         _report(CARD, serve_capture={"disabled": True}),
+        _report(CARD, train_capture={"ported": True, "disabled": True,
+                                     "quickstarts": list(D.TRAIN_QUICKSTARTS)}),
         _report(CARD, data={"pattern": "p*", "patients": 0, "issues": []}),
         _report({"probe_error": "card unresponsive", "cuda": False, "device_count": 0}),
     ]
@@ -211,7 +214,7 @@ def test_cli_doctor_json_end_to_end(tmp_path):
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout)
-    assert report["backend"]["cuda"] is False and report["train_capture"]["ported"] is False
+    assert report["backend"]["cuda"] is False and report["train_capture"]["ported"] is True
     assert set(report) >= {"versions", "native_io", "kernel_build", "serve_capture", "runtime"}
     assert not (tmp_path / "cache").exists()
 

@@ -47,6 +47,17 @@ names that block at that seed. Its leaves are held to the same bar on the
 same step with the sign of each flipped voxel of the 8³ head taken from the
 JAX float32 prediction, and the test checks that at most one voxel flips
 there (CHANGES.md gives the analysis).
+
+Each decoder block's bfloat16 VJP on its own, free of the loss's signs: the
+four ModifiedUnetrUpBlocks of net_B take an input, a skip and one shared
+float32 cotangent of their output, all drawn from one seeded numpy
+generator (``block_inputs``), in train mode (the k7 branch's BatchNorms
+normalise with the batch's statistics). Both packages round the cotangent
+to bfloat16 where the block's output is bfloat16. Each gradient leaf of the
+block and the gradients of its input and skip are held to the bar above;
+the classes left out of it are the step test's (the conv biases that feed
+a norm, the norms' affines), for the same reasons, and their ratios are
+printed.
 """
 
 import os
@@ -116,6 +127,93 @@ _JAX_BF16 = textwrap.dedent("""
             out[f"{seed}|" + "/".join(k.key for k in path)] = np.asarray(leaf, np.float32)
     np.savez(sys.argv[1], **out)
 """)
+
+
+BLOCKS = ("decoder4", "decoder3", "decoder2", "decoder1")
+VJP_SEED = 7
+
+# the JAX bf16 VJP of each decoder block, in a fresh interpreter with the flag set
+_JAX_BLOCKS_BF16 = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import jax.numpy as jnp
+    import test_torch_port_models as M
+    import test_torch_port_train_bf16 as B
+    from dose_prediction_tpu.core import torch_import as TI
+    variables, _ = M.to_jax(M.port_dose(), M.jax_dose(), TI.import_pyfer,
+                            (1, M.SIZE, M.SIZE, M.SIZE, 9))
+    np.savez(sys.argv[1], **B.jax_block_vjps(variables, jnp.bfloat16))
+""")
+
+
+def block_inputs() -> dict:
+    """Per decoder block: its input, skip and output cotangent, NDHWC float32,
+    from one seeded generator. Block ``decoderL`` takes the level above's
+    output (the ViT's tokens at 1/16 for decoder4) and the encoder's skip
+    at 1/2^(L−1), and returns feature_size·2^(L−1) channels there."""
+    fs, hidden = M.CFG["feature_size"], M.CFG["hidden_size"]
+    rng = np.random.default_rng(VJP_SEED)
+
+    def draw(res, ch):
+        return rng.standard_normal((1, res, res, res, ch)).astype(np.float32)
+
+    out = {}
+    for name in BLOCKS:
+        level = int(name[-1])
+        x = draw(M.SIZE // 16, hidden) if level == 4 else draw(M.SIZE // 2 ** level,
+                                                                fs * 2 ** level)
+        res, ch = M.SIZE // 2 ** (level - 1), fs * 2 ** (level - 1)
+        out[name] = (x, draw(res, ch), draw(res, ch))
+    return out
+
+
+def jax_block_vjps(variables, dtype) -> dict:
+    """Each decoder block's VJP in JAX, the block built at ``dtype``, on
+    block_inputs(): {'<block>|<flax path>': grad, '<block>|x', '<block>|skip'}."""
+    import jax.numpy as jnp
+
+    from dose_prediction_tpu.nn.unetr import ModifiedUnetrUpBlock
+
+    out = {}
+    for name, (x, skip, ct) in block_inputs().items():
+        block = ModifiedUnetrUpBlock(M.CFG["feature_size"] * 2 ** (int(name[-1]) - 1),
+                                     act="mish", multiS_conv=True, dtype=dtype)
+        stats = variables["batch_stats"]["net_B"]["decoder"][name]
+
+        def vjp(params, x, skip, ct, block=block, stats=stats):
+            def apply(p, x, skip):
+                y, _ = block.apply({"params": p, "batch_stats": stats}, x, skip, True,
+                                   mutable=["batch_stats"])
+                return y
+
+            y, back = jax.vjp(apply, params, x, skip)
+            return back(ct.astype(y.dtype))
+
+        gp, gx, gs = jax.jit(vjp)(variables["params"]["net_B"]["decoder"][name],
+                                  jnp.asarray(x, dtype), jnp.asarray(skip, dtype),
+                                  jnp.asarray(ct))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(gp):
+            out[f"{name}|" + "/".join(k.key for k in path)] = np.asarray(leaf, np.float32)
+        out[f"{name}|x"], out[f"{name}|skip"] = (np.asarray(g, np.float32) for g in (gx, gs))
+    return out
+
+
+def port_block_vjps(model) -> dict:
+    """Each decoder block's bf16 VJP in the port (a bf16 input and skip,
+    float32 parameters), keyed by the port's parameter names, 'x' and
+    'skip' (NDHWC) under each block."""
+    model.train()
+    out = {}
+    for name, (x, skip, ct) in block_inputs().items():
+        block = getattr(model.net_B.decoder, name)
+        inputs = [T.ncdhw(a).bfloat16().requires_grad_() for a in (x, skip)]
+        y = block(*inputs)
+        y.backward(T.ncdhw(ct).to(y.dtype))
+        out[name] = {f"net_B.decoder.{name}.{n}": p.grad.float().numpy()
+                     for n, p in block.named_parameters()}
+        for key, a in zip(("x", "skip"), inputs):
+            out[name][key] = a.grad.float().numpy().transpose(0, 2, 3, 4, 1)
+    return out
 
 
 def _tree(flat: dict) -> dict:
@@ -214,6 +312,49 @@ def bf16_steps(tmp_path_factory):
     return runs, norms
 
 
+@pytest.fixture(scope="module")
+def block_vjps(tmp_path_factory):
+    """{block: {leaf: (JAX f32, JAX bf16, port bf16)}} over the port's leaf
+    names, 'x' and 'skip'; the norm layers' names."""
+    out = tmp_path_factory.mktemp("jax_blocks") / "vjps.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_allow_excess_precision=false",
+               PYTHONPATH=os.pathsep.join([str(REPO), str(REPO / "tests")]))
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_BLOCKS_BF16, str(out)], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        model = M.port_dose()
+        variables, _ = M.to_jax(model, M.jax_dose(), TI.import_pyfer,
+                                (1, M.SIZE, M.SIZE, M.SIZE, 9))
+        f32 = jax_block_vjps(variables, np.float32)
+        port = port_block_vjps(model)
+        _, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    bf16 = dict(np.load(out))
+    zeros = jax.tree_util.tree_map(np.zeros_like, variables["params"])
+    stats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
+
+    def to_port(flat: dict, name: str) -> dict:
+        """One block's flax-path gradients under the port's names."""
+        grads = {k.split("|", 1)[1]: v for k, v in flat.items() if k.startswith(f"{name}|")}
+        tree = jax.tree_util.tree_map(lambda a: a, zeros)
+        tree["net_B"]["decoder"][name] = _tree({k: v for k, v in grads.items()
+                                                if k not in ("x", "skip")})
+        sd = weights.jax_to_torch({"params": tree, "batch_stats": stats}, model)
+        mine = {k: v.numpy() for k, v in sd.items() if k in port[name]}
+        return {**mine, "x": grads["x"], "skip": grads["skip"]}
+
+    runs = {}
+    for name in BLOCKS:
+        want, jax_bf16 = to_port(f32, name), to_port(bf16, name)
+        assert set(want) == set(port[name]), name
+        runs[name] = {k: (want[k], jax_bf16[k], port[name][k]) for k in want}
+    norms = {n for n, m in model.named_modules() if isinstance(m, NORMS)}
+    return runs, norms
+
+
 def leaf_class(name: str, norms: set) -> str:
     if ZERO_GRAD_BIAS.search(name):
         return "zero_grad_bias"
@@ -255,3 +396,26 @@ def test_bf16_train_step_within_twice_jax_bf16_error(bf16_steps, seed):
     assert classes == {"zero_grad_bias": 20, "norm_affine": 52, "head": 8, "held": 70}, classes
     failed = [name for name, ratio in ratios.items() if ratio > 1]
     assert not failed, f"leaves over 2x JAX's bf16 error: {failed}"
+
+
+@pytest.mark.parametrize("name", BLOCKS)
+def test_bf16_decoder_block_vjp_within_twice_jax_bf16_error(block_vjps, name):
+    runs, norms = block_vjps
+    classes, ratios = {}, {}
+    for leaf, (ref, jax_bf16, got) in runs[name].items():
+        cls = "held" if leaf in ("x", "skip") else leaf_class(leaf, norms)
+        classes[cls] = classes.get(cls, 0) + 1
+        bar = 2 * float(np.linalg.norm(jax_bf16 - ref)) + 1e-3 * float(np.linalg.norm(ref))
+        ratios[leaf] = (cls, float(np.linalg.norm(got - ref)) / bar if bar else
+                        float(np.linalg.norm(got - ref)))
+    held = {k: r for k, (c, r) in ratios.items() if c == "held"}
+    closest = max(held, key=held.get)
+    others = {k.rsplit(f"{name}.", 1)[-1]: round(r, 3) for k, (c, r) in ratios.items()
+              if c != "held"}
+    print(f"{name} bf16 VJP on a shared seeded cotangent: leaves {classes}; input gradient "
+          f"{held['x']:.3f} and skip gradient {held['skip']:.3f} of the bar; closest held leaf "
+          f"{closest} at {held[closest]:.3f}; left out (ratio to the bar) {others}")
+    assert classes.get("held", 0) >= 3 and set(classes) <= {"held", "zero_grad_bias",
+                                                             "norm_affine"}, classes
+    failed = [k for k, r in held.items() if r > 1]
+    assert not failed, f"{name}: leaves over 2x JAX's bf16 error: {failed}"
