@@ -3652,10 +3652,10 @@ def captured_train_run(dev, label, make, batch, route_k3) -> dict:
     LazyTrainStage, in turns, from the same seeded weights on the same batch:
     each call's seconds, loss, credited launches and captured_step_parity;
     the first captured call's seconds and peak memory above what was
-    allocated before it, the memory the graphs keep reserved; then one
-    eager and one replayed call under the profiler, whose K1, K2 and K3
-    kernels must equal the launches an eager call counts (K2's two-kernel
-    calls twice)."""
+    allocated before it, the memory the graphs keep reserved; then
+    profiled_pair: one eager and one replayed call under the profiler,
+    whose K1, K2 and K3 kernels must equal the launches an eager call
+    counts (K2's two-kernel calls twice)."""
     from dose_prediction_tpu_torch.infer.aot import LazyTrainStage
 
     runs = {name: make(dev) for name in ("eager_a", "eager_b", "captured")}
@@ -3697,16 +3697,12 @@ def captured_train_run(dev, label, make, batch, route_k3) -> dict:
                 states[name], _ = steps[name](states[name], batch)
             return run
 
-        prof = {"eager": profiled(call("eager_a"), f"eager {label}", settle=True),
-                "captured": profiled(call("captured"), f"replayed {label}", settle=True)}
-    eager = calls["eager_a"][-1]
-    counted = {"attention": eager["launches"]["attention"],
-               "instance_norm": eager["launches"]["instance_norm"] + eager["two_kernel"],
-               "conv3d_k3": eager["launches"]["conv3d_k3"]}
-    if any(p is None for p in prof.values()):
-        raise AssertionError(f"train_captured {label}: the profiler reported no device time")
-    groups = {k: {name: p["groups_launches"].get(g, 0) for name, g in PROFILE_GROUPS.items()}
-              for k, p in prof.items()}
+        eager = calls["eager_a"][-1]
+        counted = {"attention": eager["launches"]["attention"],
+                   "instance_norm": eager["launches"]["instance_norm"] + eager["two_kernel"],
+                   "conv3d_k3": eager["launches"]["conv3d_k3"]}
+        prof = profiled_pair(f"train step {label}", call("captured"), call("eager_a"), (),
+                             counted)
     replayed = [c["s"] for c in calls["captured"] if not c["captured"]]
     eager_s = [c["s"] for n in ("eager_a", "eager_b") for c in calls[n][1:]]
     row = {"first_s": calls["captured"][0]["s"], "captures": stage.captures,
@@ -3715,26 +3711,20 @@ def captured_train_run(dev, label, make, batch, route_k3) -> dict:
            "losses": {n: [c["loss"] for c in calls[n]] for n in runs},
            "checks": checks, "peak_gib": peak_gib, "pool_gib": pool_gib,
            "credited": calls["captured"][-1]["launches"], "eager_launches": eager["launches"],
-           "groups_launches": groups,
-           "idle_share": {k: p["idle_share"] for k, p in prof.items()},
-           "busy_ms": {k: p["busy_ms"] for k, p in prof.items()}}
+           "groups_launches": prof["groups_launches"], "idle_share": prof["idle_share"],
+           "busy_ms": prof["busy_ms"]}
     rules = [c["rule"] + (" ok" if c["ok"] else " FAILED") for c in checks]
     log(f"train_captured {label}: first call {row['first_s']} s (warm-up and capture), "
         f"{row['captures']} capture(s); replayed p50 {row['p50_s']} s over {len(replayed)} "
         f"calls {replayed}; eager p50 {row['eager_p50_s']} s over {eager_s}; losses "
         f"{row['losses']}; per call {rules}, worst "
         f"{[round(c.get('worst_leaf_ratio', 0.0), 4) for c in checks]} of the limit; "
-        f"kernels in the profile eager {groups['eager']}, replayed {groups['captured']}, "
-        f"counted in an eager call {counted}; idle share eager {row['idle_share']['eager']:.3f}, "
-        f"replayed {row['idle_share']['captured']:.3f}; device busy eager "
-        f"{row['busy_ms']['eager']:.2f} ms, replayed {row['busy_ms']['captured']:.2f} ms; peak "
-        f"memory of the first captured call {peak_gib:.2f} GiB, reserved by the graphs "
-        f"{pool_gib:.2f} GiB")
+        f"credited launches {row['credited']}; peak memory of the first captured call "
+        f"{peak_gib:.2f} GiB, reserved by the graphs {pool_gib:.2f} GiB")
     finite = all(math.isfinite(x) for v in row["losses"].values() for x in v)
     routed = (counted["conv3d_k3"] > 0) == route_k3
-    if not (finite and routed and all(c["ok"] for c in checks) and row["credited"]
-            == eager["launches"] and groups["captured"] == groups["eager"] == counted
-            and counted["attention"] > 0 and counted["instance_norm"] > 0):
+    if not (finite and routed and all(c["ok"] for c in checks)
+            and row["credited"] == eager["launches"]):
         raise AssertionError(f"train_captured {label} check failed: {row}")
     return row
 
