@@ -63,7 +63,8 @@ Phases, each printing its seconds on a line of its own:
             Adam's of PR 11); then the same with the routing off;
 13. train_parity  one float32 step (TF32 off) from identical weights and
             batch through the kernels and through their plain versions: the
-            loss and every gradient leaf;
+            loss and every gradient leaf, each leaf against its own largest
+            departure in three noise runs;
 14. train_seg  the full-width TranSeg (12-layer ViT-768, 12 heads, 8
             classes) train step on one seeded 96³ crop, bfloat16 compute,
             AdamW, K3 routing on: one warm-up and five timed steps, the
@@ -102,6 +103,29 @@ Phases, each printing its seconds on a line of its own:
             tests/test_packed_feed.py, which holds them in float32 (in bf16
             compute the packed CT's second rounding moves the loss more; the
             gap there is printed);
+19a. mesh   PyferTrainer on a mesh (parallel/, torch.distributed) at full
+            width on that cohort: (a) NCCL in this process, a world of one,
+            {'data': 1, 'model': 1}, adam8bit, three steps of its fit
+            (float32 at TF32 defaults; its 1 GB slot of whole leaves
+            written, then removed) against the trainer without a mesh,
+            eager, bit for bit (or within a second eager run's spread),
+            step p50, K1/K2 launches, peak memory; the group is then torn
+            down; (b) two worker processes on the one card over gloo on
+            CUDA tensors (``chip_smoke.py --mesh-worker args.json``; NCCL
+            refuses two ranks on one device), float32 with TF32 off and
+            cuDNN's deterministic algorithms, AdamW:
+            {'data': 2} with a global batch of 2, then {'model': 2} (three
+            heads and 1536 of linear1 a rank) with batch 1, two steps each;
+            rank 0 then holds the 'data' mesh and rank 1 the 'model' mesh
+            against the one-process run of the same global batch: the
+            parameters and losses after the steps (mesh_hold) and the
+            first step's gradients, leaf by leaf (mesh_grad_hold), by the
+            noise-run rule, the noise as large as the mesh's forward gap
+            from the one-process run (at least 1e-6); each rank's step
+            seconds, losses, K1/K2 launches a step and peak memory printed
+            (two processes sharing one card: not a scaling figure); a
+            worker's failure or hang fails the phase, and the other is
+            killed;
 20. trainer the CLI (python -m dose_prediction_tpu_torch) in this process at
             full width on that cohort, float32 compute at PyTorch's TF32
             defaults, as the CLI trains: train pyfer (adam8bit, the packed
@@ -146,10 +170,10 @@ Phases, each printing its seconds on a line of its own:
             float32 HD-UNet step holds each gradient leaf to its own limit,
             max(1e-3, 2 x its largest departure in three plane-scaled noise
             runs) x its max |g| (the rule of
-            tests/test_torch_port_zoo_train.py); the DOSE-PYFER and TranSeg
-            steps (phases 13 and 17) keep the worst leaf's noise as every
-            leaf's limit; all three print the worst ratio of a leaf's error
-            to its own per-leaf limit;
+            tests/test_torch_port_zoo_train.py), as the DOSE-PYFER and
+            TranSeg steps (phases 13 and 17, three noise runs) hold theirs;
+            all three print the worst ratio of a leaf's error to its own
+            per-leaf limit;
 22. hpo_gan DoseGAN and the search, after zoo, on the data phase's cohort:
             the DoseGAN step at the reference's width (ngf = ndf = 64, 9 ->
             1 channels, 128³, float32 at TF32 defaults): a warm-up and five
@@ -259,9 +283,11 @@ LABEL_AGREEMENT_MIN = 0.999
 
 # TranSeg windows, DOSE-PYFER, the dense TranSeg at 128³ (8³ tokens), the
 # TranSeg train step (one 96³ crop); the ViT generators' sliding-window
-# evaluation (four 128³ windows a batch, exp_gan)
+# evaluation (four 128³ windows a batch, exp_gan); DOSE-PYFER's ViT on a
+# 'model' axis of 2 (three heads a rank, mesh) and its one-process run of a
+# global batch of 2 (mesh)
 K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (1, 12, 512, 64), (1, 12, 216, 64),
-             (4, 6, 512, 128)]
+             (4, 6, 512, 128), (1, 3, 512, 128), (2, 6, 512, 128)]
 # every shape a bf16 serve request gives K2: the TranSeg windows' (8 per
 # call) decoder levels, then DOSE-PYFER's at 128³ (the dense TranSeg's five
 # shapes are among these: the dense phase fails on any other); then the
@@ -352,6 +378,8 @@ ZOO_ZERO_GRAD_BIAS = r"single_conv\.0\.bias$|upconv_\d\.conv\.0\.bias$"
 # the float32 HD-UNet step: each leaf against its own largest departure in
 # this many plane-scaled noise runs
 ZOO_NOISE_RUNS = 3
+# noise runs of the DOSE-PYFER and TranSeg float32 step parity (phases 13, 17)
+STEP_NOISE_RUNS = 3
 # hpo_gan: DoseGAN at the reference's width (ngf = ndf = 64) and, for the
 # card-against-CPU step, at 4 on 32³; the trainer's rate and L1 weight
 # (train/trainers.py DoseGANTrainer); conv biases that feed a train-mode
@@ -1302,8 +1330,8 @@ def phase_train_parity(dev, kernels):
     """One float32 DOSE-PYFER step (TF32 off, routing on) from identical
     weights and batch, by check_step_parity's rule."""
     runs = parity_runs(lambda: make_trainer(dev), seeded_batch(dev, torch.float32), kernels,
-                       True, dev)
-    row = check_step_parity("train_parity", runs, True)
+                       True, dev, noise_runs=STEP_NOISE_RUNS)
+    row = check_step_parity("train_parity", runs, True, per_leaf=True)
     if row["launches"]["attention"] == 0:
         raise AssertionError("train_parity: K1 was not launched")
     return row
@@ -1501,9 +1529,10 @@ def phase_train_seg_parity(dev, kernels):
     batch = seeded_seg_batch(dev, torch.float32)
     rows = {}
     for route_k3 in (False, True):
-        runs = parity_runs(lambda: make_seg_trainer(dev), batch, kernels, route_k3, dev)
+        runs = parity_runs(lambda: make_seg_trainer(dev), batch, kernels, route_k3, dev,
+                           noise_runs=STEP_NOISE_RUNS)
         rows["k3" if route_k3 else "cudnn"] = check_step_parity("train_seg_parity", runs,
-                                                                route_k3)
+                                                                route_k3, per_leaf=True)
         if runs["kernels"][2]["attention"] == 0:
             raise AssertionError("train_seg_parity: K1 was not launched")
         del runs
@@ -3745,11 +3774,393 @@ def phase_train_captured(dev) -> dict:
     return rows
 
 
+MESH_STEPS = 3                  # part (a): steps of each trainer
+MESH_WORKER_STEPS = 2           # part (b): steps of each run in the workers
+MESH_NOISE_RUNS = 3
+MESH_WORKER_TIMEOUT_S = 300
+# part (b)'s two meshes: (tag, mesh_shape, global batch)
+MESH_RUNS = (("data", {"data": 2}, 2), ("model", {"model": 2}, 1))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_trainer(dev, root, tag, mesh_shape, batch, steps, kind="adamw"):
+    """A PyferTrainer at full width (phase 12's seeded weights, the
+    optimizer ``kind`` at the trainer's defaults, net_A frozen, the float32
+    feed) on ``mesh_shape``, or without a mesh and eager (its step not
+    captured) for None."""
+    from dose_prediction_tpu_torch.train import trainers as T
+
+    cfg = T.TrainConfig(batch_size=batch, mesh_shape=mesh_shape, max_epochs=1,
+                        max_steps=steps, check_val=1000, device=str(dev), optimizer=kind,
+                        ckpt_dir=str(Path(root) / "mesh" / tag / "ck"),
+                        log_dir=str(Path(root) / "mesh" / tag / "log"))
+    with mock.patch.dict(os.environ, {"DPT_NO_AOT": "1"}):
+        return T.PyferTrainer(cfg, model=seeded_pyfer(dev), example_shape=(1,) + DATA_SHAPE + (9,))
+
+
+def mesh_feed_steps(tr, ds, n, swap_rows=False) -> list:
+    """``n`` steps of ``tr``'s own step on the first batches of its epoch-0
+    feed, as fit feeds them (this process's rows on a 'data' axis), or with
+    each batch's rows in reverse order (``swap_rows``; on a 'data' axis, each
+    rank then takes the other's rows): each step's seconds
+    to a synchronisation, loss and kernel launches; for the first step also
+    forward_probe's output before it and the gradients of the whole leaves
+    after it (summed over a 'data' axis, gathered over 'model'; a collective
+    on a mesh)."""
+    from dose_prediction_tpu_torch.data.pipeline import device_prefetch
+    from dose_prediction_tpu_torch.train import trainers as T
+
+    rows = T._feed_rows(tr.batch_sharding)
+    if swap_rows and rows is not None:     # on a mesh: the other rank's rows
+        rows = (rows[1] - 1 - rows[0], rows[1])
+    feed = device_prefetch(T._train_batches(tr.cfg, ds, 0, drop_last=tr.mesh is not None,
+                                            process_rows=rows),
+                           device=tr.device, sharding=tr.batch_sharding,
+                           local_rows=rows is not None)
+    out, probe = [], None
+    with contextlib.closing(feed):
+        for _, batch in zip(range(n), feed):
+            if swap_rows and rows is None:
+                batch = {k: v.flip(0) for k, v in batch.items()}
+            if probe is None:
+                probe = forward_probe(tr.model, batch)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.state, loss = tr.train_step(tr.state, batch)
+            torch.cuda.synchronize()
+            out.append({"s": time.perf_counter() - t0, "loss": float(loss),
+                        "launches": read_counts()})
+            if len(out) == 1:
+                out[0]["probe"] = probe
+                plan = tr.state.plan
+                out[0]["grads"] = {
+                    n: (p.grad if plan is None or plan.shard_of(p) is None
+                        else plan.shard_of(p).gather(p.grad, plan.mesh)).detach().clone()
+                    for n, p in tr.model.named_parameters() if p.grad is not None}
+    return out
+
+
+def forward_probe(model, batch) -> torch.Tensor:
+    """The full-resolution dose of a train-mode forward of ``batch`` (NCDHW,
+    float32), the model's buffers left as they were."""
+    from dose_prediction_tpu_torch.train import steps
+
+    x = steps.to_ncdhw(batch["input"])
+    model.train()
+    with torch.no_grad(), steps.buffers_kept(model):
+        return model(x, stop_gradient_a=True)[1][0].float()
+
+
+def trainable(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+
+
+def mesh_hold(first, ref, noisy, got, ref_losses, noisy_losses, got_losses, steps) -> dict:
+    """A mesh run (``got``) against the one-process run of the same global
+    batch (``ref``) by the noise-run rule of captured_step_parity, the
+    spread taken from the noise runs (one-process runs through the plain
+    versions with noise on their outputs as large as the mesh's forward
+    gap from the one-process run, at least TRAIN_PARITY_NOISE; for a batch of
+    several rows, one with the rows reversed and the 'data' mesh with its
+    ranks' rows swapped: the order of the batch's sums is what a 'data'
+    axis changes, and a sum over the volume of a gradient whose signs
+    nearly cancel loses digits in float32 whatever its order): each leaf's
+    displacement from ``first`` within max(1e-3, 2 × the worst relative
+    departure of a noise run) × its largest |value|, floor 2e-6 × the
+    largest; the conv biases that feed a norm (zero gradient in exact
+    arithmetic) moved by at most 2 × lr a step on both sides; the first
+    step's loss within 1e-5, the later ones within max(1e-5, 2 × the noise
+    runs' relative departure)."""
+    import re
+
+    zero = re.compile(ZERO_GRAD_BIAS)
+    names = [n for n in ref if not zero.search(n)]
+    zeros = [n for n in ref if zero.search(n)]
+    scale = dict(zip(names, (max(d, 1e-30) for d in leaf_max_abs([ref[n] for n in names],
+                                                                  [first[n] for n in names]))))
+    noise = max(d / scale[n] for run in noisy
+                for n, d in zip(names, leaf_max_abs([run[n] for n in names],
+                                                    [ref[n] for n in names])))
+    floor = 2e-6 * max(scale.values())
+    err = dict(zip(names, leaf_max_abs([got[n] for n in names], [ref[n] for n in names])))
+    ratio = {n: err[n] / max(max(1e-3, 2 * noise) * scale[n], floor) for n in names}
+    worst = max(names, key=ratio.get)
+    own = {n: max(d / scale[n] for d in leaf_max_abs([run[n] for run in noisy],
+                                                     [ref[n] for _ in noisy])) for n in names}
+    own_ratio = {n: err[n] / max(max(1e-3, 2 * own[n]) * scale[n], floor) for n in names}
+    worst_own = max(names, key=own_ratio.get)
+    moved = max(leaf_max_abs([t[n] for t in (got, ref) for n in zeros],
+                             [first[n] for _ in (got, ref) for n in zeros]), default=0.0)
+    loss_rel = [abs(g - r) / abs(r) for g, r in zip(got_losses, ref_losses)]
+    loss_noise = [max(abs(x[i] - ref_losses[i]) / abs(ref_losses[i]) for x in noisy_losses)
+                  for i in range(len(ref_losses))]
+    loss_ok = loss_rel[0] <= 1e-5 and all(
+        r <= max(1e-5, 2 * nz) for r, nz in zip(loss_rel[1:], loss_noise[1:]))
+    return {"ok": ratio[worst] <= 1 and moved <= 2 * TRAIN_LR * steps and loss_ok,
+            "worst_leaf_ratio": ratio[worst], "worst_leaf": worst, "noise_departure": noise,
+            "worst_per_leaf_ratio": own_ratio[worst_own], "worst_per_leaf_leaf": worst_own,
+            "zero_grad_biases": len(zeros), "zero_grad_moved": moved,
+            "loss_rel": loss_rel, "loss_noise_rel": loss_noise, "leaves": len(names)}
+
+
+def mesh_grad_hold(ref, noisy, got) -> dict:
+    """The first step's gradients of a mesh run (``got``) against the
+    one-process run's (``ref``) by check_step_parity's per-leaf rule: each
+    leaf within max(1e-3, 2 × its own largest noise-run departure) × its
+    max |g|, floor 2e-6 × the largest |g|; the conv biases that feed a norm
+    below 1e-5 × the largest on both sides."""
+    import re
+
+    zero = re.compile(ZERO_GRAD_BIAS)
+    names = [n for n in ref if not zero.search(n)]
+    zeros = [n for n in ref if zero.search(n)]
+    scale = dict(zip(names, (max(v, 1e-30) for v in leaf_max_abs(
+        [ref[n] for n in names], [torch.zeros_like(ref[n]) for n in names]))))
+    g_max = max(scale.values())
+    own = {n: 0.0 for n in names}
+    for run in noisy:
+        for n, d in zip(names, leaf_max_abs([run[n] for n in names], [ref[n] for n in names])):
+            own[n] = max(own[n], d / scale[n])
+    err = dict(zip(names, leaf_max_abs([got[n] for n in names], [ref[n] for n in names])))
+    ratio = {n: err[n] / max(max(1e-3, 2 * own[n]) * scale[n], 2e-6 * g_max) for n in names}
+    worst = max(names, key=ratio.get)
+    biggest_zero = max(leaf_max_abs([t[n] for t in (got, ref) for n in zeros],
+                                    [torch.zeros_like(ref[n]) for _ in (got, ref)
+                                     for n in zeros]), default=0.0)
+    return {"ok": ratio[worst] <= 1 and biggest_zero <= 1e-5 * g_max and set(got) == set(ref),
+            "worst_per_leaf_ratio": ratio[worst], "worst_leaf": worst,
+            "worst_rel_err": err[worst] / scale[worst], "its_noise": own[worst],
+            "over_1": sum(r > 1 for r in ratio.values()), "leaves": len(names),
+            "zero_grad_largest": biggest_zero / g_max}
+
+
+def mesh_worker(args_path: str) -> int:
+    """One rank of part (b) (``chip_smoke.py --mesh-worker args.json``): gloo
+    on the one card, each mesh of MESH_RUNS for MESH_WORKER_STEPS steps,
+    then this rank's share of the one-process references: rank 0 holds the
+    'data' mesh, rank 1 the 'model' mesh against the one-process run of the
+    same global batch and its noise runs. Prints one RESULT line."""
+    import torch.distributed as dist
+
+    args = json.loads(Path(args_path).read_text())
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
+    from dose_prediction_tpu_torch.kernels import attention as k1
+    from dose_prediction_tpu_torch.kernels import conv3d as k3
+    from dose_prediction_tpu_torch.kernels import cuda_lib
+    from dose_prediction_tpu_torch.kernels import instance_norm as k2
+    from dose_prediction_tpu_torch.parallel import multihost as MH
+
+    # float32 parity: TF32 off, and cuDNN's deterministic algorithms, so
+    # that the runs differ by the mesh and the noise alone
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rank = args["rank"]
+    dev = MH.initialize(f"127.0.0.1:{args['port']}", 2, rank, device="cuda", backend="gloo")
+    cuda_lib.library()
+    ds = OpenKBPDataset(args["pattern"], keep_structures=True)
+    out, finals = {"rank": rank, "device": str(dev)}, {}
+    # the 'data' mesh again with the ranks' rows swapped: the same global
+    # step with the batch summed in another order, a noise run of its hold
+    for tag, shape, batch in MESH_RUNS + (("data_swapped", {"data": 2}, 2),):
+        free_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = mesh_trainer(dev, args["root"], f"{tag}{rank}", shape, batch, MESH_WORKER_STEPS)
+        rows = mesh_feed_steps(tr, ds, MESH_WORKER_STEPS, swap_rows=tag == "data_swapped")
+        whole = tr.state.plan.whole_model_state(tr.model)
+        finals[tag] = ({n: whole[n].clone() for n in trainable(tr.model)},
+                       [r["loss"] for r in rows], rows[0].pop("grads"), rows[0].pop("probe"))
+        out[tag] = {"steps_s": [r["s"] for r in rows], "losses": finals[tag][1],
+                    "launches": rows[-1]["launches"],
+                    "split_leaves": len(tr.state.plan.shards),
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        del tr, whole
+    tag, shape, batch = MESH_RUNS[rank]
+    runs, amplitude = {}, None
+    names = ["ref"] + [f"noise{i}" for i in range(MESH_NOISE_RUNS)]
+    if batch > 1:      # the batch's sums in another order: the rows reversed
+        names.append("swapped")
+    for name in names:
+        free_memory()
+        tr = mesh_trainer(dev, args["root"], f"{tag}{rank}_{name}", None, batch,
+                          MESH_WORKER_STEPS)
+        first = trainable(tr.model)
+        # the noise runs' amplitude: the mesh's own forward gap from the
+        # one-process run at the first weights (this rank's rows of the
+        # global batch), at least TRAIN_PARITY_NOISE, as
+        # tests/test_torch_port_trainers.py sizes its noise runs
+        ctx = (noisy_plain_kernels(k1, k2, k3, amplitude, SEED + int(name[5:]), dev)
+               if name.startswith("noise") else contextlib.nullcontext())
+        with ctx:
+            rows = mesh_feed_steps(tr, ds, MESH_WORKER_STEPS, swap_rows=name == "swapped")
+        runs[name] = (trainable(tr.model), [r["loss"] for r in rows], rows[0].pop("grads"),
+                      rows[0].pop("probe"))
+        if name == "ref":
+            mine = finals[tag][3]
+            theirs = runs[name][3][rank if tag == "data" else 0:][:mine.shape[0]]
+            gap = float((mine - theirs).abs().max() / theirs.abs().max())
+            amplitude = max(TRAIN_PARITY_NOISE, gap)
+        del tr
+    (ref, ref_losses, ref_grads, _), noise = runs.pop("ref"), list(runs.values())
+    if tag == "data":
+        noise.append(finals.pop("data_swapped"))
+    out["hold"] = {"mesh": tag, "forward_gap": gap, "noise_amplitude": amplitude,
+                   **mesh_hold(first, ref, [r[0] for r in noise], finals[tag][0], ref_losses,
+                               [r[1] for r in noise], finals[tag][1], MESH_WORKER_STEPS)}
+    out["grads"] = mesh_grad_hold(ref_grads, [r[2] for r in noise], finals[tag][2])
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def mesh_part_a(dev, data, root) -> dict:
+    """Part (a): NCCL in this process, a world of one. PyferTrainer on
+    {'data': 1, 'model': 1} with adam8bit (the CLI's optimizer, whose 1 GB
+    slot is half AdamW's) fits MESH_STEPS steps of the data phase's cohort
+    (its 'last' slot written as whole leaves, then removed) against the
+    trainer without a mesh, eager, on the same seed and batches: bit for
+    bit, or else within a second eager run's spread (captured_step_parity)."""
+    import torch.distributed as dist
+
+    from dose_prediction_tpu_torch.parallel import multihost as MH
+
+    ds = data["dataset"]
+    MH.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        with torch_default_tf32():
+            ref = mesh_trainer(dev, root, "eager_a", None, 1, MESH_STEPS, "adam8bit")
+            first = trainable(ref.model)
+            ref_rows = mesh_feed_steps(ref, ds, MESH_STEPS)
+            ref_params = list(trainable(ref.model).values())
+            del ref
+            free_memory()
+            torch.cuda.reset_peak_memory_stats(dev)
+            tr = mesh_trainer(dev, root, "nccl", {"data": 1, "model": 1}, 1, MESH_STEPS,
+                              "adam8bit")
+            step, rows = tr.train_step, []
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, batch)
+                torch.cuda.synchronize()
+                rows.append({"s": time.perf_counter() - t0, "loss": float(loss)})
+                return state, loss
+
+            tr.train_step = timed
+            zero_counts()
+            tr.fit(ds, resume=False)
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            slot_gb = (Path(tr.cfg.ckpt_dir) / "last.pt").stat().st_size / 1e9
+            params = list(trainable(tr.model).values())
+            ref_loss = ref_rows[-1]["loss"]
+            check = captured_step_parity([ref_loss, ref_loss, rows[-1]["loss"]],
+                                         [ref_params, ref_params, params], list(first.values()))
+            if not check["ok"]:
+                # not bit-equal: a second eager run gives eager's own spread
+                del tr
+                free_memory()
+                again = mesh_trainer(dev, root, "eager_b", None, 1, MESH_STEPS, "adam8bit")
+                again_rows = mesh_feed_steps(again, ds, MESH_STEPS)
+                check = captured_step_parity(
+                    [ref_rows[-1]["loss"], again_rows[-1]["loss"], rows[-1]["loss"]],
+                    [ref_params, list(trainable(again.model).values()), params],
+                    list(first.values()))
+                del again
+    finally:
+        dist.destroy_process_group()
+        remove_work(root, "mesh")
+    equal_losses = [r["loss"] for r in rows] == [r["loss"] for r in ref_rows]
+    row = {"p50_s": pct([r["s"] for r in rows], 0.5), "steps_s": [r["s"] for r in rows],
+           "eager_steps_s": [r["s"] for r in ref_rows], "losses": [r["loss"] for r in rows],
+           "eager_losses": [r["loss"] for r in ref_rows], "losses_equal": equal_losses,
+           "launches": launches, "peak_gib": peak, "slot_gb": slot_gb, "check": check}
+    log(f"mesh (a) NCCL world of 1, mesh {{'data': 1, 'model': 1}}, adam8bit, float32 at TF32 "
+        f"defaults: step p50 {row['p50_s']} s over {row['steps_s']} (eager without a mesh "
+        f"{row['eager_steps_s']}); losses {row['losses']} against eager {row['eager_losses']} "
+        f"(equal: {equal_losses}); parameters: {check}; K1/K2/K3 launches in the fit's "
+        f"{MESH_STEPS} steps {launches}; peak {peak:.2f} GiB; slot {slot_gb:.2f} GB")
+    if not (check["ok"] and launches["attention"] == 8 * MESH_STEPS
+            and launches["instance_norm"] > 0):
+        raise AssertionError(f"mesh (a) failed: {row}")
+    return row
+
+
+def mesh_part_b(data, root) -> dict:
+    """Part (b): two worker processes on the one card (gloo on CUDA tensors;
+    NCCL refuses two ranks on one device), each running mesh_worker; a
+    worker's failure or hang fails the phase and kills the other."""
+    port, procs = free_port(), []
+    for rank in (0, 1):
+        args = Path(root) / f"mesh_worker{rank}.json"
+        args.write_text(json.dumps({"rank": rank, "port": port, "pattern": data["pattern"],
+                                    "root": str(root)}))
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--mesh-worker", str(args)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs, deadline = [], time.monotonic() + MESH_WORKER_TIMEOUT_S
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"mesh worker hung past {MESH_WORKER_TIMEOUT_S} s")
+            if p.returncode != 0:
+                raise AssertionError(f"mesh worker failed ({p.returncode}):\n{outs[-1][-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                tail = p.communicate()[0]
+                print(tail[-6000:], flush=True)
+    ranks = [json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:])
+             for out in outs]
+    for r in ranks:
+        for tag, _, batch in MESH_RUNS:
+            m = r[tag]
+            log(f"mesh (b) rank {r['rank']} on {r['device']}, {tag} mesh, global batch {batch}: "
+                f"steps {m['steps_s']} s, losses {m['losses']}, K1/K2/K3 launches a step "
+                f"{m['launches']}, {m['split_leaves']} split leaves, peak {m['peak_gib']:.2f} GiB "
+                f"(two processes share the card: not a scaling figure)")
+        log(f"mesh (b) rank {r['rank']}: parameters and losses after the steps {r['hold']}; "
+            f"first step's gradients {r['grads']}")
+    bad = [r["rank"] for r in ranks if not (r["hold"]["ok"] and r["grads"]["ok"])]
+    same = all(ranks[0][t]["losses"] == ranks[1][t]["losses"] for t, _, _ in MESH_RUNS)
+    launched = all(r[t]["launches"]["attention"] > 0 and r[t]["launches"]["instance_norm"] > 0
+                   for r in ranks for t, _, _ in MESH_RUNS)
+    if bad or not same or not launched:
+        raise AssertionError(f"mesh (b) failed: ranks {bad} over their limits, losses equal "
+                             f"across ranks {same}, K1 and K2 launched on every rank {launched}")
+    return {"ranks": ranks}
+
+
+def phase_mesh(dev, data, root) -> dict:
+    """The mesh phase: part (a), then part (b) (module docstring)."""
+    smi = nvidia_smi()
+    a = mesh_part_a(dev, data, root)
+    free_memory()
+    b = mesh_part_b(data, root)
+    log(f"mesh: on {smi}")
+    return {"a": a, "b": b}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
         return 1
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2])
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         from dose_prediction_tpu_torch.infer.cascade import make_cascade_stages
@@ -3818,6 +4229,8 @@ def main() -> int:
             run("data", lambda: phase_data(dev, root))
             run("train_feed", lambda: phase_train_feed(dev, results["data"]))
             free_memory()
+            run("mesh", lambda: phase_mesh(dev, results["data"], root))
+            free_memory()
             run("trainer", lambda: phase_trainer(dev, results["data"], root))
             free_memory()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3850,6 +4263,8 @@ def main() -> int:
         + "; train step p50 fed by "
         + ", ".join(f"{k} {results['train_feed'][k]['p50_s']} s" for k in ("float32", "bfloat16",
                                                                            "packed"))
+        + f"; mesh (a) step p50 {results['mesh']['a']['p50_s']} s (NCCL world of 1; eager "
+        f"{pct(results['mesh']['a']['eager_steps_s'], 0.5)} s)"
         + f"; trainer step p50 {results['trainer']['pyfer']['step_p50_s']} s (train pyfer, "
         f"float32); eval sweeps {results['trainer']['eval']['host']['sweep_s']} s host, "
         f"{results['trainer']['eval']['device']['sweep_s']} s device; checkpoint writes "

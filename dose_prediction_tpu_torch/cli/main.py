@@ -40,7 +40,7 @@ from pathlib import Path
 # the pyfer-tuned default (train_light_pyfer.py:296)
 _DEFAULT_LR = 0.0006130697604327541
 # ROADMAP queue 1 items of what the port refuses
-_INFRA = "ROADMAP queue 1 item 7 (parallel and serve infrastructure)"
+_INFRA = "ROADMAP queue 1 item 7.4 (the CLI's and the other trainers' meshes)"
 _UNPORTED_COMMANDS = {
     "bench": "ROADMAP queue 1 item 1 (bench_gpu.py)",
 }

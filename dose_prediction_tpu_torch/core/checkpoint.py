@@ -25,6 +25,12 @@ every model entry's name and shape, the optimizer's kind, groups and state
 shapes; then the template's models and optimizers are loaded in place and a
 new tree is returned. Without a template a restore returns the file's
 dict, on the CPU.
+
+A state sharded over a mesh (its ``plan``, parallel/mesh.py) is written as
+whole leaves under the single-device names: every rank gathers, rank 0
+writes, and every rank waits until the slot is in place. A restore on a
+mesh reads the whole leaves and keeps this rank's parts, so a slot written
+on a mesh resumes on one device and the other way round.
 """
 
 from __future__ import annotations
@@ -37,14 +43,34 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from dose_prediction_tpu_torch.parallel.collectives import barrier
 from dose_prediction_tpu_torch.train.state import TrainState
 
 SUFFIX = ".pt"
 
 
 def _state_payload(state: TrainState) -> Dict[str, Any]:
-    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+    if state.plan is None:
+        model, optimizer = state.model.state_dict(), state.optimizer.state_dict()
+    else:     # on a mesh: whole leaves, gathered by every rank
+        model = state.plan.whole_model_state(state.model)
+        optimizer = state.plan.whole_optimizer_state(state.optimizer)
+    return {"model": model, "optimizer": optimizer,
             "step": int(state.step), "moving_loss": float(state.moving_loss)}
+
+
+def _mesh_of(tree: Any):
+    """The mesh a trainer tree's states are sharded over, or None."""
+    if not _is_trainer_tree(tree):
+        return None
+    plans = [v.plan for v in tree.values() if isinstance(v, TrainState) and v.plan is not None]
+    return plans[0].mesh if plans else None
+
+
+def _writes(tree: Any) -> bool:
+    """Whether this process writes ``tree``'s slot: on a mesh, rank 0 only."""
+    mesh = _mesh_of(tree)
+    return mesh is None or mesh.writes
 
 
 def _payload(tree: Mapping[str, Any]) -> Dict[str, Any]:
@@ -68,13 +94,17 @@ def save_checkpoint(path: str | Path, tree: Any) -> int:
     path = Path(path).absolute()
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = _payload(tree) if _is_trainer_tree(tree) else tree
-    tmp = path.parent / f".{path.name}.tmp-{os.getpid()}"
-    try:
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-    finally:
-        if tmp.exists():
-            tmp.unlink()
+    mesh = _mesh_of(tree)
+    if _writes(tree):
+        tmp = path.parent / f".{path.name}.tmp-{os.getpid()}"
+        try:
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        finally:
+            if tmp.exists():
+                tmp.unlink()
+    if mesh is not None:       # every rank returns once the slot is in place
+        barrier(mesh.device)
     return path.stat().st_size
 
 
@@ -108,6 +138,11 @@ def restore_checkpoint(path: str | Path, target: Optional[Mapping[str, Any]] = N
     if missing:
         raise ValueError(f"{path}: the slot has no {missing}")
     for k, state in states.items():
+        if state.plan is not None:     # whole leaves → this rank's parts
+            saved[k] = {**saved[k],
+                        "model": state.plan.local_model_state(saved[k]["model"], state.model),
+                        "optimizer": state.plan.local_optimizer_state(saved[k]["optimizer"],
+                                                                      state.optimizer)}
         _check_model(state.model, saved[k]["model"])
         state.optimizer.check_state_dict(saved[k]["optimizer"])
     out = {k: payload[k] for k in target if k not in states}
@@ -172,6 +207,8 @@ class CheckpointManager:
         ``max_to_keep`` by ``monitor`` stay."""
         self._monitored.mkdir(exist_ok=True)
         save_checkpoint(self._monitored / f"{int(step)}{SUFFIX}", tree)
+        if not _writes(tree):
+            return
         index = self._index()
         index[int(step)] = {k: float(v) for k, v in metrics.items()}
         keep = self._ranked(index)[:self.max_to_keep]
@@ -248,7 +285,7 @@ class CheckpointManager:
     def write_run_config(self, spec: dict) -> None:
         """Atomically record the run's graph-determining settings
         (``<dir>/run_config.json``)."""
-        tmp = self._dir / ".run_config.json.tmp"
+        tmp = self._dir / f".run_config.json.tmp-{os.getpid()}"
         tmp.write_text(json.dumps(spec, indent=2, sort_keys=True, default=str))
         os.replace(tmp, self._dir / "run_config.json")
 

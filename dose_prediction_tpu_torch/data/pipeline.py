@@ -6,9 +6,10 @@ dose_prediction_tpu/data/pipeline.py (_local_row_range :27, dose_batches
 The builders draw from ``np.random.default_rng(seed)`` in the JAX builders'
 order, so one seed gives both packages the same batches, bit for bit. They
 yield dicts of CPU torch tensors with the JAX builders' keys, channels-last
-layouts and dtypes (float32, bfloat16, uint8). Not ported yet: the sharded
-feed (``host_to_global``, ``device_prefetch(sharding=..., local_rows=...)``),
-which waits for torch.distributed.
+layouts and dtypes (float32, bfloat16, uint8). On a mesh
+(parallel/mesh.py) ``device_prefetch(sharding=..., local_rows=...)`` moves
+only this process's rows of a batch-sharded feed to its device
+(``host_to_global`` says which), and the whole batch of a replicated one.
 """
 
 from __future__ import annotations
@@ -246,11 +247,39 @@ def linked_batches(
                "gt": torch.from_numpy(np.stack(gts))}
 
 
+def _local_part(sharding, a: torch.Tensor, local_rows: bool) -> torch.Tensor:
+    """What this process keeps of a host array under ``sharding``
+    (host_to_global)."""
+    if sharding is None or sharding.axis is None:
+        if local_rows:
+            raise ValueError("local_rows needs a batch-sharded sharding; replicated feeds "
+                             "ship whole batches")
+        return a
+    return a if local_rows else a[sharding.rows(a.shape[0])]
+
+
+def host_to_global(sharding, a, *, local_rows: bool = False) -> torch.Tensor:
+    """A host array as this process holds it under ``sharding``
+    (parallel/mesh.py::Sharding), on the mesh's device: with a batch-sharded
+    sharding, this process's contiguous rows of ``a``, the global batch, or
+    ``a`` itself with ``local_rows`` (the builders' ``process_rows`` mode,
+    where ``a`` holds only this process's rows); with a replicated one, all
+    of ``a``, which every process passes whole (the validation feed). Where
+    the JAX function (pipeline.py:265) returns one global array, each
+    process here keeps its own part."""
+    return _local_part(sharding, torch.as_tensor(a), local_rows).to(sharding.mesh.device)
+
+
 def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
-                    device: str | torch.device = "cuda") -> Iterator[Batch]:
+                    device: str | torch.device = "cuda", sharding=None,
+                    local_rows: bool = False) -> Iterator[Batch]:
     """Build batches in a worker thread and keep ``size`` of them on the card
     ahead of compute (the JAX package's device_prefetch, as
-    pin_memory + a copy stream).
+    pin_memory + a copy stream). With ``sharding`` (parallel/mesh.py), each
+    batch is cut to what this process keeps of it (host_to_global) before
+    it is copied: this process's rows of the global batch, or, with
+    ``local_rows``, the iterator's batches as they are (already this
+    process's rows); a replicated sharding ships the whole batch.
 
     On a CUDA device the worker pins each tensor and copies it with
     ``non_blocking=True`` on a side stream, then records an event there.
@@ -265,6 +294,8 @@ def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
     thread to end (at most ``JOIN_TIMEOUT_S``), so that once ``close()``
     returns no batch is held in its hands."""
     dev = resolve_device(device)
+    if local_rows and sharding is None:
+        raise ValueError("local_rows requires a (row-sharded) sharding")
     q: "queue.Queue" = queue.Queue(maxsize=size)
     sentinel = object()
     err: List[BaseException] = []
@@ -272,6 +303,8 @@ def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def put(batch: Batch):
+        if sharding is not None:
+            batch = {k: _local_part(sharding, v, local_rows) for k, v in batch.items()}
         if copy_stream is None:
             return {k: v.to(dev) for k, v in batch.items()}, None
         with torch.cuda.stream(copy_stream):

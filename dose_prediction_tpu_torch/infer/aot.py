@@ -360,12 +360,15 @@ class LazyTrainStage:
         return graph, out
 
 
-def maybe_wrap_train_step(kind: str, model: torch.nn.Module, step: Callable) -> Callable:
+def maybe_wrap_train_step(kind: str, model: torch.nn.Module, step: Callable,
+                          mesh=None) -> Callable:
     """Trainer hook (the JAX one, :411-425): on the card, ``step`` as a
-    LazyTrainStage named ``train:<kind>``; for a model on the CPU, or under
-    ``DPT_NO_AOT=1``, ``step`` itself. The JAX hook's config and example
-    shape select a shipped program; a capture reads its key from each call's
-    batch and state instead."""
-    if disabled() or next(model.parameters()).device.type != "cuda":
+    LazyTrainStage named ``train:<kind>``; for a model on the CPU, on a
+    ``mesh`` (a step that holds collectives is not captured; the JAX hook
+    returns its jit step for a mesh, :411-416), or under ``DPT_NO_AOT=1``,
+    ``step`` itself. The JAX hook's config and example shape select a
+    shipped program; a capture reads its key from each call's batch and
+    state instead."""
+    if disabled() or mesh is not None or next(model.parameters()).device.type != "cuda":
         return step
     return LazyTrainStage(f"train:{kind}", step)

@@ -52,7 +52,12 @@ def _biased(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     ``x.dtype`` plus the float32 bias, rounded again."""
     if b is None or x.dtype == torch.float32:
         return conv(x, w, b, **kwargs)
-    y, b = conv(x, w, None, **kwargs), b.float()
+    return add_bias(conv(x, w, None, **kwargs), b.float())
+
+
+def add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A low-precision ``y`` plus the float32 bias ``b`` (per channel),
+    computed in float32 and rounded once, in place."""
     if needs_grad(y, b):
         return _AddBiasF32.apply(y, b)
     return y.add_(b.view(1, -1, 1, 1, 1))    # no autograd: without the Function's host cost

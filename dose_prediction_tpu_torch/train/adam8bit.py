@@ -132,6 +132,22 @@ class Adam8bit(_Optimizer):
         self.block_size = block_size
         self.min_quantize_size = min_quantize_size
         self._layout = None
+        self._wholes = {}        # a split leaf's whole value, by id (_whole)
+
+    def _whole(self, params: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The leaves the rule runs over: on a mesh (``distribute``), each
+        tensor-parallel leaf as a buffer of its whole shape kept for it, so
+        that the blocks and their scales are the single-device ones; every
+        other leaf as it is."""
+        if self.plan is None or not self.plan.shards:
+            return params
+        out = []
+        for p in params:
+            shard = self.plan.shard_of(p)
+            if shard is not None and id(p) not in self._wholes:
+                self._wholes[id(p)] = p.new_zeros(shard.whole_shape(p.shape))
+            out.append(p if shard is None else self._wholes[id(p)])
+        return out
 
     def _init_layout(self, params: List[torch.Tensor]) -> None:
         """The flat buffers and the moments' initial state, the JAX init's
@@ -164,9 +180,27 @@ class Adam8bit(_Optimizer):
 
     def _init_state(self, group, params):
         if self._layout is None:
-            self._init_layout(params)
+            self._init_layout(self._whole(params))
 
     def _update(self, group, params, grads, scalars):
+        local, params = params, self._whole(params)
+        split = [i for i, (p, w) in enumerate(zip(local, params)) if p is not w]
+        if split:
+            # the update over whole leaves on every rank of their axis; each
+            # then keeps its part
+            mesh = self.plan.mesh
+            grads = list(grads)
+            for i in split:
+                shard = self.plan.shard_of(local[i])
+                params[i].copy_(shard.gather(local[i], mesh))
+                if grads[i] is not None:
+                    grads[i] = shard.gather(grads[i], mesh)
+        self._update_whole(group, params, grads, scalars)
+        for i in split:
+            shard = self.plan.shard_of(local[i])
+            local[i].copy_(shard.take(params[i], mesh.index(shard.axis)))
+
+    def _update_whole(self, group, params, grads, scalars):
         lay = self._layout
         if [id(p) for p in params] != [id(p) for p in lay["params"]]:
             raise ValueError("Adam8bit: the trainable parameters changed after the first step")
@@ -221,7 +255,7 @@ class Adam8bit(_Optimizer):
     def _moment_shapes(self) -> dict:
         """(shape, dtype) of each moment tensor the first update makes for
         the trainable leaves, by name and field."""
-        params, bs = self._groups()[0][1], self.block_size
+        params, bs = self._whole(self._groups()[0][1]), self.block_size
         quant = [i for i, p in enumerate(params) if p.numel() >= self.min_quantize_size]
         small = [i for i, p in enumerate(params) if p.numel() < self.min_quantize_size]
         out = {"quant": quant, "small": small}
@@ -258,7 +292,7 @@ class Adam8bit(_Optimizer):
         self._layout = None
         if saved is None:
             return
-        params = self._groups()[0][1]
+        params = self._whole(self._groups()[0][1])
         self._init_layout(params)
         lay, dev = self._layout, params[0].device
         for k, cls in (("mu", Quantized), ("nu", LogQuantized)):
@@ -274,6 +308,7 @@ class Adam8bit(_Optimizer):
         lay = self._layout
         if lay is None:
             return None
+        p = self._wholes.get(id(p), p)
         i = next(i for i, q in enumerate(lay["params"]) if q is p)
         if i in lay["quant"]:
             j = lay["quant"].index(i)

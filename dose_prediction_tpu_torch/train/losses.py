@@ -13,16 +13,21 @@ import torch
 from torch import nn
 
 from dose_prediction_tpu_torch.ops import downsample_pyramid
+from dose_prediction_tpu_torch.parallel.collectives import all_reduce_
 
 
-def _masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(err: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
     m = (mask > 0).float()
-    return (err.float() * m).sum() / m.sum().clamp_min(1.0)
+    count = m.sum()
+    if group is not None:       # this rank's share of the global batch's mean
+        all_reduce_(count, group)
+    return (err.float() * m).sum() / count.clamp_min(1.0)
 
 
-def masked_l1(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_l1(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
+              group=None) -> torch.Tensor:
     """Mean |pred − gt| over mask > 0 voxels (loss.py:22-27)."""
-    return _masked_mean((pred.float() - gt.float()).abs(), mask)
+    return _masked_mean((pred.float() - gt.float()).abs(), mask, group)
 
 
 def masked_l1_per_sample(pred: torch.Tensor, gt: torch.Tensor,
@@ -36,12 +41,12 @@ def masked_l1_per_sample(pred: torch.Tensor, gt: torch.Tensor,
 
 
 def masked_huber(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
-                 delta: float = 0.5) -> torch.Tensor:
+                 delta: float = 0.5, group=None) -> torch.Tensor:
     """torch.nn.HuberLoss(delta=0.5) over masked voxels (loss.py:53)."""
     d = pred.float() - gt.float()
     ad = d.abs()
     err = torch.where(ad < delta, 0.5 * d * d, delta * (ad - 0.5 * delta))
-    return _masked_mean(err, mask)
+    return _masked_mean(err, mask, group)
 
 
 def cascade_l1_loss(pred_a: torch.Tensor, pred_b: torch.Tensor, gt: torch.Tensor, *,
@@ -57,28 +62,34 @@ def cascade_l1_loss(pred_a: torch.Tensor, pred_b: torch.Tensor, gt: torch.Tensor
 
 def gen_loss(predictions, gt: torch.Tensor, *, delta1: float = 10.0, delta2: float = 1.0,
              mode: str = "train", cascade: bool = False, freeze: bool = True,
-             huber: bool = False) -> torch.Tensor:
+             huber: bool = False, group=None) -> torch.Tensor:
     """The DOSE-PYFER deep-supervision loss (GenLoss, loss.py:50-119).
 
     ``predictions``: in train + cascade mode ``(pred_A, [B_full, B½, B¼, B⅛])``;
     in train mode without cascade the list of B outputs; in val/test mode one
-    full-resolution prediction."""
+    full-resolution prediction. With ``group`` (the 'data' axis of a mesh,
+    each rank holding some rows of the global batch) each masked mean
+    divides by the global batch's mask count, clamped after the sum: the
+    loss is this rank's share, and the shares sum to the global batch's
+    loss (every term is linear in the masked means)."""
     gt_dose, mask = gt[:, 0:1], gt[:, 1:2]
     if mode != "train":
         if huber:
-            return masked_huber(predictions, gt_dose, mask) + masked_l1(predictions, gt_dose, mask)
-        return masked_l1(predictions, gt_dose, mask)
+            return (masked_huber(predictions, gt_dose, mask, group=group)
+                    + masked_l1(predictions, gt_dose, mask, group))
+        return masked_l1(predictions, gt_dose, mask, group)
     pred_a, preds_b = predictions if cascade else (None, predictions)
     pred_full, pred_intermediate = preds_b[0], preds_b[1:]
     gt_pyr, mask_pyr = downsample_pyramid(gt_dose, mask, levels=(2, 4, 8))
     l_ds = torch.zeros((), dtype=torch.float32, device=gt.device)
     for pred_i, gt_i, mask_i in zip(pred_intermediate, gt_pyr, mask_pyr):
-        l_ds = l_ds + masked_l1(pred_i, gt_i, mask_i)
+        l_ds = l_ds + masked_l1(pred_i, gt_i, mask_i, group)
     l_ds = l_ds / len(pred_intermediate)
-    l_pre = (masked_huber if huber else masked_l1)(pred_full, gt_dose, mask)
+    l_pre = (masked_huber(pred_full, gt_dose, mask, group=group) if huber
+             else masked_l1(pred_full, gt_dose, mask, group))
     loss = delta1 * l_pre + delta2 * l_ds
     if cascade and not freeze:
-        loss = loss + 0.5 * masked_l1(pred_a, gt_dose, mask)
+        loss = loss + 0.5 * masked_l1(pred_a, gt_dose, mask, group)
     return loss
 
 

@@ -37,7 +37,10 @@ import struct
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from dose_prediction_tpu_torch.parallel.collectives import all_reduce_
 
 OPTIMIZERS = ("adamw", "adam", "adam8bit")
 # a schedule maps optax's update count to a float32 learning rate
@@ -56,6 +59,9 @@ class TrainState:
     # EMA of the train loss (eps 0.01, network_trainer.py:162-168): a 0-d
     # float32 tensor on the model's device; a number given here is put there
     moving_loss: Union[float, torch.Tensor] = math.nan
+    # on a mesh, parallel/mesh.py::shard_params's plan: a checkpoint gathers
+    # the split leaves whole (core/checkpoint.py)
+    plan: Optional[object] = None
 
     def __post_init__(self):
         if not torch.is_tensor(self.moving_loss):
@@ -137,6 +143,18 @@ class _Optimizer(torch.optim.Optimizer):
         self.count = 0           # inner updates (optax's count): emits only
         self.mini_step = 0       # MultiSteps' mini_step
         self.scalars: Optional[torch.Tensor] = None
+        self.plan = None         # parallel/mesh.py::ShardPlan, set by distribute()
+
+    def distribute(self, plan) -> None:
+        """Train over ``plan.mesh`` (parallel/mesh.py::shard_params's plan):
+        each call first sums the gradients over the 'data' axis (each rank's
+        loss being its share of the global batch's), in one all-reduce over
+        the optimizer's gradient lists, then gives every rank of the 'model'
+        axis the gradients of the replicated leaves of its first rank (one
+        broadcast; they are equal but where a kernel sums in a
+        nondeterministic order, and the replicas must not drift apart); the
+        clip's norm is that of the whole leaves."""
+        self.plan = plan
 
     def _groups(self):
         return [(g, [p for p in g["params"] if p.requires_grad]) for g in self.param_groups]
@@ -252,6 +270,9 @@ class _Optimizer(torch.optim.Optimizer):
             raise ValueError(f"{type(self).__name__}.step takes no closure")
         groups = self._groups()
         grads = [[p.grad for p in ps] for _, ps in groups]
+        if self.plan is not None:
+            self._sum_over_data(grads)
+            self._replicate_over_model(groups, grads)
         emits = self.advance()
         if self.grad_accum > 1:
             grads = self._accumulate(groups, grads, self.scalars[-1])
@@ -286,13 +307,54 @@ class _Optimizer(torch.optim.Optimizer):
             torch._foreach_add_(without, d)
         return [[self.state[p]["acc"] for p in ps] for _, ps in groups]
 
+    def _sum_over_data(self, grads) -> None:
+        """Each present gradient summed in place over the mesh's 'data' axis,
+        in one all-reduce of the gradients laid end to end."""
+        group = self.plan.mesh.group("data")
+        present = [g for gs in grads for g in gs if g is not None]
+        if group is None or not present:
+            return
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in present]), group)
+        torch._foreach_copy_(present, [f.view_as(g) for f, g in
+                                       zip(flat.split([g.numel() for g in present]), present)])
+
+    def _replicate_over_model(self, groups, grads) -> None:
+        """The replicated leaves' gradients of the 'model' axis's first rank,
+        on every rank of the axis (distribute)."""
+        group = self.plan.mesh.group("model")
+        replicated = [g for (_, ps), gs in zip(groups, grads) for p, g in zip(ps, gs)
+                      if g is not None and self.plan.shard_of(p) is None]
+        if group is None or not replicated:
+            return
+        flat = torch.cat([g.reshape(-1) for g in replicated])
+        dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+        torch._foreach_copy_(replicated, [f.view_as(g) for f, g in
+                                          zip(flat.split([g.numel() for g in replicated]),
+                                              replicated)])
+
+    def _global_norm(self, grads, present) -> torch.Tensor:
+        """The float32 norm of every trainable gradient: on a mesh, of the
+        whole leaves (a split leaf's squares summed over its axis, a
+        replicated leaf's counted once)."""
+        norms = torch.stack(torch._foreach_norm(present))
+        if self.plan is None or not self.plan.shards:
+            return torch.linalg.vector_norm(norms)
+        shards = [self.plan.shard_of(p) for (_, ps), gs in zip(self._groups(), grads)
+                  for p, g in zip(ps, gs) if g is not None]
+        squares = norms.square()
+        total = squares[[i for i, s in enumerate(shards) if s is None]].sum()
+        for axis in sorted({s.axis for s in shards if s is not None}):
+            split = squares[[i for i, s in enumerate(shards) if s is not None and s.axis == axis]]
+            total = total + all_reduce_(split.sum(), self.plan.mesh.group(axis))
+        return total.sqrt()
+
     def _clip(self, grads):
         """optax.clip_by_global_norm: ``(g / ‖g‖) · max`` where ``‖g‖ ≥ max``,
         ``g`` otherwise, over every trainable gradient (float32 norm)."""
         present = [g for gs in grads for g in gs if g is not None]
         if not present:
             return grads
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
+        norm = self._global_norm(grads, present)
         keep = norm < self.grad_clip_norm
         # g / 1 · 1 == g exactly, so a select needs no branch on the host
         div = torch.where(keep, torch.ones_like(norm), norm)

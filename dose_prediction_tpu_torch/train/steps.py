@@ -29,6 +29,7 @@ from torch import nn
 from dose_prediction_tpu_torch.data.packed import unpack_dose_batch
 from dose_prediction_tpu_torch.evaluation.metrics import postprocess_prediction
 from dose_prediction_tpu_torch.nn import remat as R
+from dose_prediction_tpu_torch.parallel.collectives import all_reduce_
 from dose_prediction_tpu_torch.train import losses as L
 from dose_prediction_tpu_torch.train.state import TrainState, update_moving_loss
 
@@ -50,7 +51,7 @@ def _dose_feed(batch: Dict[str, torch.Tensor], packed: bool, dtype: Optional[tor
 def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
                           delta1: float = 10.0, delta2: float = 8.0, freeze: bool = True,
                           remat: bool = False, packed: bool = False,
-                          dtype: Optional[torch.dtype] = None
+                          dtype: Optional[torch.dtype] = None, mesh=None
                           ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                         Tuple[TrainState, torch.Tensor]]:
     """``step(state, batch) -> (state, loss)``: GenLoss deep supervision over
@@ -60,7 +61,11 @@ def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     ``remat`` recomputes the whole model call in the backward (steps.py:54-55,
     ``jax.checkpoint``; nn/remat.py), with BatchNorm statistics updated once.
     ``packed`` takes the packed feed; ``dtype`` is the dtype the model
-    computes in (module docstring)."""
+    computes in (module docstring). On a ``mesh`` (parallel/mesh.py) whose
+    'data' axis splits the global batch, the batch is this rank's rows: the
+    loss is this rank's share of the global batch's (losses.py::gen_loss),
+    and the loss returned is the global one (the shares all-reduced)."""
+    group = None if mesh is None else mesh.group("data")
 
     def apply(x: torch.Tensor):
         return model(x, stop_gradient_a=freeze)
@@ -70,19 +75,24 @@ def make_pyfer_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
         optimizer.zero_grad(set_to_none=True)
         x, gt = _dose_feed(batch, packed, dtype)
         preds = R.checkpoint(apply, x, enabled=remat)
-        loss = L.gen_loss(preds, gt, delta1=delta1, delta2=delta2, cascade=True, freeze=freeze)
-        return _apply_update(state, optimizer, loss)
+        loss = L.gen_loss(preds, gt, delta1=delta1, delta2=delta2, cascade=True, freeze=freeze,
+                          group=group)
+        return _apply_update(state, optimizer, loss, group)
 
     return step
 
 
-def _apply_update(state: TrainState, optimizer: torch.optim.Optimizer, loss: torch.Tensor
-                  ) -> Tuple[TrainState, torch.Tensor]:
+def _apply_update(state: TrainState, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+                  group=None) -> Tuple[TrainState, torch.Tensor]:
     """Back-propagate ``loss``, update, and advance the state's count and
-    moving loss (the tail of every JAX step); nothing is read on the host."""
+    moving loss (the tail of every JAX step); nothing is read on the host.
+    With ``group``, ``loss`` is a rank's share: the one kept is the sum over
+    the group."""
     loss.backward()
     optimizer.step()
     loss = loss.detach()
+    if group is not None:
+        loss = all_reduce_(loss.clone(), group)
     moving = update_moving_loss(state.moving_loss, loss)
     return dataclasses.replace(state, step=state.step + 1, moving_loss=moving), loss
 

@@ -28,8 +28,17 @@ card. Hyperparameter defaults are the reference's tuned values
 (train_light_pyfer.py:293-300). On the card PyferTrainer and
 TranSegTrainer, and so UNETRSegTrainer, run their steps as CUDA graphs
 (infer/aot.py::maybe_wrap_train_step, as the JAX trainers wrap theirs at
-:547 and :1047). Not ported yet: the mesh branches (ROADMAP queue 1 item
-7): a set ``mesh_shape`` raises.
+:547 and :1047).
+
+PyferTrainer trains on a mesh (``mesh_shape``, e.g. {'data': 2},
+{'model': 2} or {'data': 2, 'model': 2}) of the processes that
+parallel/multihost.py::initialize joined, one device each (the JAX mesh
+branch, :522-609): each process builds the trainer, which shards the model
+(parallel/mesh.py::shard_params) before it makes the optimizer, feeds this
+process's rows of each global batch, and validates several patients at
+once over a 'data' axis (``_mesh_val_metrics``). Its step stays eager. The
+other trainers refuse a mesh: their mesh branches are ROADMAP queue 1 item
+7.4.
 """
 
 from __future__ import annotations
@@ -90,7 +99,8 @@ class TrainConfig:
     ckpt_dir: str = "checkpoints"
     log_dir: str = "logs"
     max_steps: Optional[int] = None
-    # a device mesh (dp / dp×tp): ROADMAP queue 1 item 7; set, it raises
+    # a device mesh (dp / dp×tp) over torch.distributed's processes:
+    # PyferTrainer only (module docstring); batch_size divides over 'data'
     mesh_shape: Optional[Dict[str, int]] = None
     feed_dtype: str = "float32"      # 'float32' | 'bfloat16' | 'packed'
     # every N epochs a never-rotated 'iter_<global_step>' slot
@@ -116,8 +126,33 @@ class TrainConfig:
 def _refuse_mesh(cfg: TrainConfig) -> None:
     if cfg.mesh_shape:
         raise NotImplementedError(
-            f"mesh_shape={cfg.mesh_shape}: the port trains on one device; meshes "
-            "(torch.distributed, NCCL) are ROADMAP queue 1 item 7")
+            f"mesh_shape={cfg.mesh_shape}: this trainer trains on one device; its mesh "
+            "branch is ROADMAP queue 1 item 7.4 (PyferTrainer takes a mesh)")
+
+
+def _build_mesh(mesh_shape: Dict[str, int], device: torch.device):
+    """The mesh of ``mesh_shape`` over every process of the group (:114-124):
+    its axes' product must equal the world size."""
+    from dose_prediction_tpu_torch.parallel import mesh as PM
+
+    return PM.create_mesh(dict(mesh_shape), device=device)
+
+
+def _check_mesh_batch(cfg: TrainConfig, mesh) -> None:
+    if mesh is not None and cfg.batch_size % mesh.size("data"):
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by the 'data' mesh "
+                         f"axis ({mesh.size('data')})")
+
+
+def _feed_rows(batch_sharding):
+    """(this process's 'data' index, the axis's size) where each process
+    builds only its rows of the global batch (:202-210), else None (no
+    mesh, or a 'data' axis of size 1: every process takes the whole
+    batch). Pass it to the builders' ``process_rows`` and as
+    device_prefetch's ``local_rows``."""
+    if batch_sharding is None or batch_sharding.mesh.size("data") == 1:
+        return None
+    return batch_sharding.mesh.index("data"), batch_sharding.mesh.size("data")
 
 
 def _timed_batches(iterator, timer: EpochTimer, bucket: str = "loader"):
@@ -135,23 +170,61 @@ def _timed_batches(iterator, timer: EpochTimer, bucket: str = "loader"):
         yield batch
 
 
-def _train_batches(cfg: TrainConfig, train_ds, epoch: int):
+def _train_batches(cfg: TrainConfig, train_ds, epoch: int, *, drop_last: bool = False,
+                   process_rows=None):
     """One epoch's batches by cfg.feed_dtype (:213-238); a cohort that does
     not pack (non-binary masks or a non-integer 70·PTV) takes the float32
-    feed, which the packed-built steps pass through."""
+    feed, which the packed-built steps pass through. ``process_rows``
+    builds only this process's rows (_feed_rows)."""
     if cfg.feed_dtype == "packed":
         from dose_prediction_tpu_torch.data.packed import pack_patient, packed_dose_batches
 
         patients = getattr(train_ds, "patients", None)
         if patients is not None and all(pack_patient(p) is not None for p in patients):
             return packed_dose_batches(train_ds, batch_size=cfg.batch_size,
-                                       seed=cfg.seed + epoch,
-                                       num_samples_per_epoch=cfg.samples_per_epoch)
+                                       seed=cfg.seed + epoch, drop_last=drop_last,
+                                       num_samples_per_epoch=cfg.samples_per_epoch,
+                                       process_rows=process_rows)
         print("[feed] dataset not packable (non-binary masks or non-integer "
               "70*PTV); falling back to the float32 feed")
     return dose_batches(train_ds, batch_size=cfg.batch_size, seed=cfg.seed + epoch,
-                        native_bf16=cfg.feed_dtype == "bfloat16",
-                        num_samples_per_epoch=cfg.samples_per_epoch)
+                        drop_last=drop_last, native_bf16=cfg.feed_dtype == "bfloat16",
+                        num_samples_per_epoch=cfg.samples_per_epoch,
+                        process_rows=process_rows)
+
+
+def _padded_dose_val_batches(val_ds, val_batch: int):
+    """The full-volume validation feed of a 'data' axis (:240-254): batches
+    of ``val_batch`` rows, the last padded by repeating its last patient,
+    with a 'valid' (B,) weight marking the real rows, in the batch-1
+    sweep's order."""
+    for batch in dose_batches(val_ds, batch_size=val_batch, shuffle=False, augment=False):
+        n = batch["input"].shape[0]
+        if n < val_batch:
+            batch = {k: torch.cat([v] + [v[-1:]] * (val_batch - n)) for k, v in batch.items()}
+        batch["valid"] = (torch.arange(val_batch) < n).float()
+        yield batch
+
+
+def _mesh_val_metrics(eval_fn, val_ds, mesh, batch_sharding, device) -> Dict[str, float]:
+    """Validation over a 'data' axis (:257-276): each process scores its
+    rows of ``mesh.size('data')`` patients a batch; ``eval_fn(batch)``
+    returns the validity-weighted means of its rows and their count
+    (dose_score_mean, val_loss_mean, n_valid). Their weighted sums,
+    all-reduced over 'data', give the cohort's means, equal in exact
+    arithmetic to the batch-1 sweep's."""
+    from dose_prediction_tpu_torch.parallel.collectives import all_reduce_
+
+    weighted = []
+    for batch in device_prefetch(_padded_dose_val_batches(val_ds, mesh.size("data")),
+                                 device=device, sharding=batch_sharding):
+        s, l, n = eval_fn(batch)
+        weighted.append(torch.stack([s * n, l * n, n]).float())
+    if not weighted:
+        return {"mean_dose_score": float("nan"), "val_loss": float("nan")}
+    tot = all_reduce_(torch.stack(weighted).sum(0), mesh.group("data")).tolist()
+    n_tot = max(tot[2], 1.0)
+    return {"mean_dose_score": -tot[0] / n_tot, "val_loss": tot[1] / n_tot}
 
 
 def _host_mean(losses: List[torch.Tensor]) -> float:
@@ -401,7 +474,6 @@ class PyferTrainer:
     def __init__(self, cfg: TrainConfig, *, model: Optional[DosePyfer] = None,
                  pretrained_c3d_params: Optional[Dict[str, torch.Tensor]] = None,
                  example_shape: Sequence[int] = (1, 128, 128, 128, 9)):
-        _refuse_mesh(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.model = model if model is not None else seeded(cfg.seed, lambda: DosePyfer(
@@ -412,16 +484,28 @@ class PyferTrainer:
             # depend on the parameters
             merged, _ = C.load_pretrained_net_a(self.model.state_dict(), pretrained_c3d_params)
             self.model.load_state_dict(merged, strict=True)
+        self.mesh = self.batch_sharding = plan = None
+        if cfg.mesh_shape:
+            from dose_prediction_tpu_torch.parallel import mesh as PM
+
+            # shard before the optimizer exists: split leaves are new
+            # parameters (the JAX branch shards its fresh state, :522-535)
+            self.mesh = _build_mesh(cfg.mesh_shape, self.device)
+            _check_mesh_batch(cfg, self.mesh)
+            plan = PM.shard_params(self.model, self.mesh)
+            self.batch_sharding = PM.batch_sharding(self.mesh)
         # freeze labels pair with freeze_net_a (:515-521)
         freeze = S.cascade_freeze_labels(self.model) if cfg.freeze_net_a else None
         optimizer = S.make_optimizer(self.model, learning_rate=cfg.learning_rate,
                                      weight_decay=cfg.weight_decay, freeze_labels=freeze,
                                      kind=cfg.optimizer, grad_accum=cfg.grad_accum)
-        self.state = S.TrainState(self.model, optimizer)
+        if plan is not None:
+            optimizer.distribute(plan)
+        self.state = S.TrainState(self.model, optimizer, plan=plan)
         step = STEP.make_pyfer_train_step(
             self.model, optimizer, delta1=cfg.delta1, delta2=cfg.delta2,
-            freeze=cfg.freeze_net_a, packed=cfg.feed_dtype == "packed")
-        self.train_step = AOT.maybe_wrap_train_step("pyfer", self.model, step)
+            freeze=cfg.freeze_net_a, packed=cfg.feed_dtype == "packed", mesh=self.mesh)
+        self.train_step = AOT.maybe_wrap_train_step("pyfer", self.model, step, mesh=self.mesh)
         self.eval_step = STEP.make_pyfer_eval_step(self.model)
         self.logger = MetricLogger(cfg.log_dir, run_name="pyfer")
         self.ckpt = C.CheckpointManager(cfg.ckpt_dir, monitor="mean_dose_score", mode="max")
@@ -429,7 +513,15 @@ class PyferTrainer:
 
     def validate(self, val_ds: OpenKBPDataset) -> Dict[str, float]:
         """The batch-1 full-volume sweep (train_light_pyfer.py:154-179):
-        mean_dose_score (negated, to maximize) and val_loss."""
+        mean_dose_score (negated, to maximize) and val_loss; over a 'data'
+        axis, several patients a batch (_mesh_val_metrics)."""
+        if self.mesh is not None and self.mesh.size("data") > 1:
+            def eval_fn(batch):
+                out = self.eval_step(batch)
+                return out["dose_score_mean"], out["val_loss_mean"], out["n_valid"]
+
+            return _mesh_val_metrics(eval_fn, val_ds, self.mesh, self.batch_sharding,
+                                     self.device)
         return _full_volume_validation(self.eval_step, val_ds, self.device)
 
     @_drains_checkpoints
@@ -449,10 +541,14 @@ class PyferTrainer:
                 self.logger.log_text(f"resumed from epoch {start_epoch - 1}")
         timer = EpochTimer()
         global_step = int(self.state.step)
+        rows = _feed_rows(self.batch_sharding)
         for epoch in range(start_epoch, cfg.max_epochs):
             timer.reset()
             epoch_losses: List[torch.Tensor] = []
-            feed = device_prefetch(_train_batches(cfg, train_ds, epoch), device=self.device)
+            feed = device_prefetch(
+                _train_batches(cfg, train_ds, epoch, drop_last=self.mesh is not None,
+                               process_rows=rows),
+                device=self.device, sharding=self.batch_sharding, local_rows=rows is not None)
             with trace(cfg.profile_dir if epoch == start_epoch else None), contextlib.closing(feed):
                 for batch in _timed_batches(feed, timer):
                     timer.tick()

@@ -1,7 +1,8 @@
 """The port's trainers against themselves on the CPU
 (tests/test_torch_port_trainers.py's cohort and small DOSE-PYFER): an
 interrupted and resumed fit ends bit for bit where an uninterrupted one
-ends, the resume guard refuses a changed ``act``, and a mesh is refused.
+ends, the resume guard refuses a changed ``act``, and a mesh is refused
+where a trainer has no mesh branch or the processes cannot fill it.
 """
 import numpy as np
 import pytest
@@ -71,6 +72,10 @@ def test_resume_guard_refuses_a_changed_act(tmp_path, cohort, monkeypatch):
 
 
 def test_mesh_shape_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    """A trainer without a mesh branch refuses a mesh; PyferTrainer has one,
+    and refuses a mesh that the processes cannot fill (one process here)."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 7.4"):
+        T.CascadeC3DTrainer(T.TrainConfig(mesh_shape={"data": 2}, device="cpu"))
+    with pytest.raises(ValueError, match="mesh wants 2 devices, have 1"):
         T.PyferTrainer(T.TrainConfig(mesh_shape={"data": 2}, device="cpu"),
                        model=port_pyfer(), example_shape=SHAPE)
