@@ -1845,8 +1845,9 @@ def trainer_probes():
 
     wrap = aot.maybe_wrap_train_step
 
-    def counted_wrap(kind, model, step):      # outside the stage: a replay calls no Python
-        stage = wrap(kind, model, step)
+    # outside the stage: a replay calls no Python
+    def counted_wrap(kind, model, step, mesh=None):
+        stage = wrap(kind, model, step, mesh=mesh)
         if isinstance(stage, aot.LazyTrainStage):
             rec["stages"].append(stage)
         return counted_step(stage)
