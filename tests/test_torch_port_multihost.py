@@ -31,8 +31,11 @@ waited for with its own timeout and killed on expiry, with its pair.
   initial weights within rel 1e-5 of the batch-1 sweep.
 - A slot written on {'model': 2} after the first epoch (whole leaves)
   resumes in one process, whose second epoch lands where the mesh's did.
+- {'data': 2, 'model': 2} in four processes: one step in lockstep, its
+  loss and the validation at the initial weights as the one process's.
 """
 import json
+import math
 import shutil
 import socket
 import subprocess
@@ -85,7 +88,7 @@ WORKER = textwrap.dedent("""
     torch.set_num_threads(1)
     a = json.load(open(sys.argv[1]))
     from dose_prediction_tpu_torch.parallel import multihost as MH
-    MH.initialize("127.0.0.1:%d" % a["port"], 2, a["rank"], device="cpu")
+    MH.initialize("127.0.0.1:%d" % a["port"], a["world"], a["rank"], device="cpu")
     from dose_prediction_tpu_torch.parallel import mesh as PM
     out = {{}}
     if a["job"] == "toy":
@@ -145,7 +148,8 @@ WORKER = textwrap.dedent("""
         ds = OpenKBPDataset(a["pattern"], keep_structures=True, num_workers=1)
         model = DosePyfer(img_size=32, device="cpu", **a["tiny"])
         model.load_state_dict(torch.load(a["init"], weights_only=True))
-        cfg = T.TrainConfig(max_epochs=2, check_val=2, batch_size=a["batch"], device="cpu",
+        cfg = T.TrainConfig(max_epochs=a["epochs"], check_val=2, batch_size=a["batch"],
+                            device="cpu",
                             optimizer=a["optimizer"], mesh_shape=a["mesh"],
                             save_per_epoch=1, ckpt_dir=a["ckpt"], log_dir=a["log"])
         tr = T.PyferTrainer(cfg, model=model, example_shape=(1, 32, 32, 32, 9))
@@ -163,13 +167,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(job: dict, where: Path):
-    """Two worker processes of ``job`` (ranks 0 and 1) on a free port, each
-    reading its arguments from a JSON file under ``where``."""
+def launch(job: dict, where: Path, world: int = 2):
+    """``world`` worker processes of ``job`` on a free port, each reading
+    its arguments from a JSON file under ``where``."""
     port, procs = free_port(), []
-    for rank in (0, 1):
+    for rank in range(world):
         args = where / f"job_{port}_{rank}.json"
-        args.write_text(json.dumps({**job, "rank": rank, "port": port}))
+        args.write_text(json.dumps({**job, "rank": rank, "port": port, "world": world}))
         procs.append(subprocess.Popen([sys.executable, "-c", WORKER, str(args)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True))
@@ -294,11 +298,16 @@ def runs(tmp_path_factory):
     torch.save(port_model(start).state_dict(), root / "init.pt")
     jobs = {"dp": ({"data": 2}, 2, "adamw"), "tp": ({"model": 2}, 1, "adamw"),
             "tp8": ({"model": 2}, 1, "adam8bit")}
+    # (mesh, global batch, optimizer, epochs) by tag; 'dptp', four
+    # processes, one epoch of one step
+    runs_on = {**{tag: (*job, 2) for tag, job in jobs.items()},
+               "dptp": ({"data": 2, "model": 2}, 2, "adamw", 1)}
     procs = {tag: launch({"job": "fit", "pattern": str(root / "cohort" / "pt_*"),
                           "init": str(root / "init.pt"), "tiny": TINY, "mesh": mesh,
-                          "batch": batch, "optimizer": opt, "ckpt": str(root / f"{tag}_mesh_ck"),
-                          "log": str(root / f"{tag}_mesh_log")}, root)
-             for tag, (mesh, batch, opt) in jobs.items()}
+                          "batch": batch, "optimizer": opt, "epochs": epochs,
+                          "ckpt": str(root / f"{tag}_mesh_ck"),
+                          "log": str(root / f"{tag}_mesh_log")}, root, math.prod(mesh.values()))
+             for tag, (mesh, batch, opt, epochs) in runs_on.items()}
     try:
         from dose_prediction_tpu.data.pipeline import dose_batches
 
@@ -417,3 +426,18 @@ def test_mesh_slot_resumes_in_one_process(runs, tmp_path):
                  {"loss": mrec["train_mean_loss"]},
                  [(None, {"loss": r["train_mean_loss"]}) for _, r in one["tp_noise"]],
                  "loss", ())
+
+
+def test_dp_tp_mesh_trains_in_four_processes(runs):
+    """{'data': 2, 'model': 2} in four processes: the four ranks in
+    lockstep, and the first step's loss (taken before any update) within
+    rel 1e-5 of the one-process batch of 2."""
+    root, _, one, mesh = runs
+    ranks = mesh["dptp"]
+    assert len({r["moving_loss"] for r in ranks}) == 1 and {r["step"] for r in ranks} == {1}
+    got = records(root / "dptp_mesh_log")["train_mean_loss"][0]
+    want = one["dp"][2]["train_mean_loss"][0]
+    assert abs(got - want) <= REL_EPOCH * abs(want), (got, want)
+    for k in ("mean_dose_score", "val_loss"):
+        assert abs(ranks[0]["validate"][k] - one["validate"][k]) <= \
+            REL_EPOCH * abs(one["validate"][k])
