@@ -112,20 +112,25 @@ Phases, each printing its seconds on a line of its own:
             step p50, K1/K2 launches, peak memory; the group is then torn
             down; (b) two worker processes on the one card over gloo on
             CUDA tensors (``chip_smoke.py --mesh-worker args.json``; NCCL
-            refuses two ranks on one device), float32 with TF32 off and
-            cuDNN's deterministic algorithms, AdamW:
+            refuses two ranks on one device), float32 with TF32 off, cuDNN
+            at its defaults, AdamW:
             {'data': 2} with a global batch of 2, then {'model': 2} (three
             heads and 1536 of linear1 a rank) with batch 1, two steps each;
-            rank 0 then holds the 'data' mesh and rank 1 the 'model' mesh
-            against the one-process run of the same global batch: the
-            parameters and losses after the steps (mesh_hold) and the
-            first step's gradients, leaf by leaf (mesh_grad_hold), by the
-            noise-run rule, the noise as large as the mesh's forward gap
-            from the one-process run (at least 1e-6); each rank's step
-            seconds, losses, K1/K2 launches a step and peak memory printed
-            (two processes sharing one card: not a scaling figure); a
-            worker's failure or hang fails the phase, and the other is
-            killed;
+            both ranks' whole trainable leaves equal after each mesh (the
+            replicas in step); rank 0 then holds the 'data' mesh and rank 1
+            the 'model' mesh against the one-process run of the same global
+            batch: the parameters and losses after the steps (mesh_hold)
+            and the first step's gradients, leaf by leaf (mesh_grad_hold),
+            by the noise-run rule, its noise from one-process runs only
+            (three with noise on the kernels' outputs as large as the
+            mesh's forward gap from the one-process run, at least 1e-6, and
+            for batch 2 one with the rows reversed and one with every
+            convolution evaluated row by row); each rank's step
+            seconds, losses, K1/K2 launches a step and peak memory printed,
+            and the bytes and seconds of the 'model' axis's broadcast of
+            the replicated gradients (two processes sharing one card: not a
+            scaling figure); a worker's failure or hang fails the phase, and
+            the other is killed;
 20. trainer the CLI (python -m dose_prediction_tpu_torch) in this process at
             full width on that cohort, float32 compute at PyTorch's TF32
             defaults, as the CLI trains: train pyfer (adam8bit, the packed
@@ -3806,21 +3811,18 @@ def mesh_trainer(dev, root, tag, mesh_shape, batch, steps, kind="adamw"):
         return T.PyferTrainer(cfg, model=seeded_pyfer(dev), example_shape=(1,) + DATA_SHAPE + (9,))
 
 
-def mesh_feed_steps(tr, ds, n, swap_rows=False) -> list:
+def mesh_feed_steps(tr, ds, n, reverse_rows=False) -> list:
     """``n`` steps of ``tr``'s own step on the first batches of its epoch-0
-    feed, as fit feeds them (this process's rows on a 'data' axis), or with
-    each batch's rows in reverse order (``swap_rows``; on a 'data' axis, each
-    rank then takes the other's rows): each step's seconds
-    to a synchronisation, loss and kernel launches; for the first step also
-    forward_probe's output before it and the gradients of the whole leaves
-    after it (summed over a 'data' axis, gathered over 'model'; a collective
-    on a mesh)."""
+    feed, as fit feeds them (this process's rows on a 'data' axis), or, in
+    one process, with each batch's rows in reverse order (``reverse_rows``):
+    each step's seconds to a synchronisation, loss and kernel launches; for
+    the first step also forward_probe's output before it and the gradients
+    of the whole leaves after it (summed over a 'data' axis, gathered over
+    'model'; a collective on a mesh)."""
     from dose_prediction_tpu_torch.data.pipeline import device_prefetch
     from dose_prediction_tpu_torch.train import trainers as T
 
     rows = T._feed_rows(tr.batch_sharding)
-    if swap_rows and rows is not None:     # on a mesh: the other rank's rows
-        rows = (rows[1] - 1 - rows[0], rows[1])
     feed = device_prefetch(T._train_batches(tr.cfg, ds, 0, drop_last=tr.mesh is not None,
                                             process_rows=rows),
                            device=tr.device, sharding=tr.batch_sharding,
@@ -3828,7 +3830,7 @@ def mesh_feed_steps(tr, ds, n, swap_rows=False) -> list:
     out, probe = [], None
     with contextlib.closing(feed):
         for _, batch in zip(range(n), feed):
-            if swap_rows and rows is None:
+            if reverse_rows:
                 batch = {k: v.flip(0) for k, v in batch.items()}
             if probe is None:
                 probe = forward_probe(tr.model, batch)
@@ -3867,13 +3869,11 @@ def trainable(model) -> dict:
 def mesh_hold(first, ref, noisy, got, ref_losses, noisy_losses, got_losses, steps) -> dict:
     """A mesh run (``got``) against the one-process run of the same global
     batch (``ref``) by the noise-run rule of captured_step_parity, the
-    spread taken from the noise runs (one-process runs through the plain
-    versions with noise on their outputs as large as the mesh's forward
-    gap from the one-process run, at least TRAIN_PARITY_NOISE; for a batch of
-    several rows, one with the rows reversed and the 'data' mesh with its
-    ranks' rows swapped: the order of the batch's sums is what a 'data'
-    axis changes, and a sum over the volume of a gradient whose signs
-    nearly cancel loses digits in float32 whatever its order): each leaf's
+    spread taken from the noise runs, each a one-process run (through the
+    plain versions with noise on their outputs as large as the mesh's
+    forward gap from the one-process run, at least TRAIN_PARITY_NOISE; for a
+    batch of several rows, the rows reversed and the convolutions row by
+    row: mesh_witnesses): each leaf's
     displacement from ``first`` within max(1e-3, 2 × the worst relative
     departure of a noise run) × its largest |value|, floor 2e-6 × the
     largest; the conv biases that feed a norm (zero gradient in exact
@@ -3887,9 +3887,9 @@ def mesh_hold(first, ref, noisy, got, ref_losses, noisy_losses, got_losses, step
     zeros = [n for n in ref if zero.search(n)]
     scale = dict(zip(names, (max(d, 1e-30) for d in leaf_max_abs([ref[n] for n in names],
                                                                   [first[n] for n in names]))))
-    noise = max(d / scale[n] for run in noisy
-                for n, d in zip(names, leaf_max_abs([run[n] for n in names],
-                                                    [ref[n] for n in names])))
+    departures = [max(d / scale[n] for n, d in zip(names, leaf_max_abs(
+        [run[n] for n in names], [ref[n] for n in names]))) for run in noisy]
+    noise = max(departures)
     floor = 2e-6 * max(scale.values())
     err = dict(zip(names, leaf_max_abs([got[n] for n in names], [ref[n] for n in names])))
     ratio = {n: err[n] / max(max(1e-3, 2 * noise) * scale[n], floor) for n in names}
@@ -3907,9 +3907,13 @@ def mesh_hold(first, ref, noisy, got, ref_losses, noisy_losses, got_losses, step
         r <= max(1e-5, 2 * nz) for r, nz in zip(loss_rel[1:], loss_noise[1:]))
     return {"ok": ratio[worst] <= 1 and moved <= 2 * TRAIN_LR * steps and loss_ok,
             "worst_leaf_ratio": ratio[worst], "worst_leaf": worst, "noise_departure": noise,
+            "noise_departures": departures,
             "worst_per_leaf_ratio": own_ratio[worst_own], "worst_per_leaf_leaf": worst_own,
             "zero_grad_biases": len(zeros), "zero_grad_moved": moved,
-            "loss_rel": loss_rel, "loss_noise_rel": loss_noise, "leaves": len(names)}
+            "loss_rel": loss_rel, "loss_noise_rel": loss_noise,
+            "loss_rel_by_run": [[abs(x[i] - ref_losses[i]) / abs(ref_losses[i])
+                                 for i in range(len(ref_losses))] for x in noisy_losses],
+            "leaves": len(names)}
 
 
 def mesh_grad_hold(ref, noisy, got) -> dict:
@@ -3943,6 +3947,71 @@ def mesh_grad_hold(ref, noisy, got) -> dict:
             "zero_grad_largest": biggest_zero / g_max}
 
 
+def leaves_digest(leaves: dict) -> str:
+    """A digest of each leaf's float64 sum, in name order: equal on two
+    ranks whose leaves are equal."""
+    import hashlib
+
+    sums = torch.stack([leaves[n].double().sum() for n in sorted(leaves)]).tolist()
+    return hashlib.sha256(json.dumps(sums).encode()).hexdigest()[:16]
+
+
+def replicated_broadcast(tr) -> dict:
+    """What the 'model' axis's broadcast of the replicated leaves'
+    gradients (train/state.py::_replicate_over_model) costs a step: its
+    bytes, and the seconds of three broadcasts of the last step's
+    gradients, each to a synchronisation (a collective: every rank of the
+    axis calls it)."""
+    import torch.distributed as dist
+
+    plan = tr.state.plan
+    flat = torch.cat([p.grad.reshape(-1) for p in tr.model.parameters()
+                      if p.grad is not None and plan.shard_of(p) is None])
+    group, times = plan.mesh.group("model"), []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"bytes": flat.numel() * flat.element_size(), "s": times}
+
+
+@contextlib.contextmanager
+def row_convs():
+    """Every convolution evaluated one row of the batch at a time, in one
+    process: each weight gradient is then a sum over the rows, as a 'data'
+    axis sums it over its ranks, where one call sums the whole batch in
+    cuDNN's own order."""
+    import torch.nn.functional as F
+
+    def by_row(conv):
+        return lambda x, w, *a, **k: torch.cat([conv(x[i:i + 1], w, *a, **k)
+                                                for i in range(x.shape[0])])
+
+    with mock.patch.object(F, "conv3d", by_row(F.conv3d)), \
+            mock.patch.object(F, "conv_transpose3d", by_row(F.conv_transpose3d)):
+        yield
+
+
+def mesh_witnesses(batch, amplitude, kernels, dev) -> list:
+    """The one-process runs whose departures from the one-process reference
+    size a mesh hold's noise, as (name, context, rows reversed):
+    MESH_NOISE_RUNS runs through the plain versions with noise of
+    ``amplitude`` on their outputs and, for a batch of several rows, one with
+    the rows reversed and one with each convolution evaluated row by row
+    (row_convs): the order and the split of the batch's sums are what a
+    'data' axis changes. None runs mesh code, so a fault of the mesh cannot
+    hide in them."""
+    k1, k2, k3 = kernels
+    out = [(f"noise{i}", noisy_plain_kernels(k1, k2, k3, amplitude, SEED + i, dev), False)
+           for i in range(MESH_NOISE_RUNS)]
+    if batch > 1:
+        out += [("reversed", contextlib.nullcontext(), True),
+                ("row_convs", row_convs(), False)]
+    return out
+
+
 def mesh_worker(args_path: str) -> int:
     """One rank of part (b) (``chip_smoke.py --mesh-worker args.json``): gloo
     on the one card, each mesh of MESH_RUNS for MESH_WORKER_STEPS steps,
@@ -3960,60 +4029,57 @@ def mesh_worker(args_path: str) -> int:
     from dose_prediction_tpu_torch.kernels import instance_norm as k2
     from dose_prediction_tpu_torch.parallel import multihost as MH
 
-    # float32 parity: TF32 off, and cuDNN's deterministic algorithms, so
-    # that the runs differ by the mesh and the noise alone
+    # float32 parity: TF32 off; cuDNN at its defaults, as users train (the
+    # 'model' axis's broadcast keeps the replicas in step whatever its
+    # algorithms sum in)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
     rank = args["rank"]
     dev = MH.initialize(f"127.0.0.1:{args['port']}", 2, rank, device="cuda", backend="gloo")
     cuda_lib.library()
     ds = OpenKBPDataset(args["pattern"], keep_structures=True)
     out, finals = {"rank": rank, "device": str(dev)}, {}
-    # the 'data' mesh again with the ranks' rows swapped: the same global
-    # step with the batch summed in another order, a noise run of its hold
-    for tag, shape, batch in MESH_RUNS + (("data_swapped", {"data": 2}, 2),):
+    for tag, shape, batch in MESH_RUNS:
         free_memory()
         torch.cuda.reset_peak_memory_stats(dev)
         tr = mesh_trainer(dev, args["root"], f"{tag}{rank}", shape, batch, MESH_WORKER_STEPS)
-        rows = mesh_feed_steps(tr, ds, MESH_WORKER_STEPS, swap_rows=tag == "data_swapped")
+        rows = mesh_feed_steps(tr, ds, MESH_WORKER_STEPS)
         whole = tr.state.plan.whole_model_state(tr.model)
         finals[tag] = ({n: whole[n].clone() for n in trainable(tr.model)},
                        [r["loss"] for r in rows], rows[0].pop("grads"), rows[0].pop("probe"))
         out[tag] = {"steps_s": [r["s"] for r in rows], "losses": finals[tag][1],
                     "launches": rows[-1]["launches"],
                     "split_leaves": len(tr.state.plan.shards),
-                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                    "replicas": leaves_digest(finals[tag][0])}
+        if shape.get("model", 1) > 1:
+            out[tag]["broadcast"] = replicated_broadcast(tr)
         del tr, whole
     tag, shape, batch = MESH_RUNS[rank]
-    runs, amplitude = {}, None
-    names = ["ref"] + [f"noise{i}" for i in range(MESH_NOISE_RUNS)]
-    if batch > 1:      # the batch's sums in another order: the rows reversed
-        names.append("swapped")
-    for name in names:
+
+    def one_process(name, ctx=contextlib.nullcontext(), reverse_rows=False):
         free_memory()
         tr = mesh_trainer(dev, args["root"], f"{tag}{rank}_{name}", None, batch,
                           MESH_WORKER_STEPS)
         first = trainable(tr.model)
-        # the noise runs' amplitude: the mesh's own forward gap from the
-        # one-process run at the first weights (this rank's rows of the
-        # global batch), at least TRAIN_PARITY_NOISE, as
-        # tests/test_torch_port_trainers.py sizes its noise runs
-        ctx = (noisy_plain_kernels(k1, k2, k3, amplitude, SEED + int(name[5:]), dev)
-               if name.startswith("noise") else contextlib.nullcontext())
         with ctx:
-            rows = mesh_feed_steps(tr, ds, MESH_WORKER_STEPS, swap_rows=name == "swapped")
-        runs[name] = (trainable(tr.model), [r["loss"] for r in rows], rows[0].pop("grads"),
-                      rows[0].pop("probe"))
-        if name == "ref":
-            mine = finals[tag][3]
-            theirs = runs[name][3][rank if tag == "data" else 0:][:mine.shape[0]]
-            gap = float((mine - theirs).abs().max() / theirs.abs().max())
-            amplitude = max(TRAIN_PARITY_NOISE, gap)
-        del tr
-    (ref, ref_losses, ref_grads, _), noise = runs.pop("ref"), list(runs.values())
-    if tag == "data":
-        noise.append(finals.pop("data_swapped"))
+            rows = mesh_feed_steps(tr, ds, MESH_WORKER_STEPS, reverse_rows=reverse_rows)
+        return first, (trainable(tr.model), [r["loss"] for r in rows], rows[0].pop("grads"),
+                       rows[0].pop("probe"))
+
+    first, (ref, ref_losses, ref_grads, probe) = one_process("ref")
+    # the noise runs' amplitude: the mesh's own forward gap from the
+    # one-process run at the first weights (this rank's rows of the global
+    # batch), at least TRAIN_PARITY_NOISE, as tests/test_torch_port_trainers.py
+    # sizes its noise runs
+    mine = finals[tag][3]
+    theirs = probe[rank if tag == "data" else 0:][:mine.shape[0]]
+    gap = float((mine - theirs).abs().max() / theirs.abs().max())
+    amplitude = max(TRAIN_PARITY_NOISE, gap)
+    runs = {name: one_process(name, ctx, reverse)[1]
+            for name, ctx, reverse in mesh_witnesses(batch, amplitude, (k1, k2, k3), dev)}
+    noise = list(runs.values())
     out["hold"] = {"mesh": tag, "forward_gap": gap, "noise_amplitude": amplitude,
+                   "noise_runs": list(runs),
                    **mesh_hold(first, ref, [r[0] for r in noise], finals[tag][0], ref_losses,
                                [r[1] for r in noise], finals[tag][1], MESH_WORKER_STEPS)}
     out["grads"] = mesh_grad_hold(ref_grads, [r[2] for r in noise], finals[tag][2])
@@ -4131,17 +4197,22 @@ def mesh_part_b(data, root) -> dict:
             m = r[tag]
             log(f"mesh (b) rank {r['rank']} on {r['device']}, {tag} mesh, global batch {batch}: "
                 f"steps {m['steps_s']} s, losses {m['losses']}, K1/K2/K3 launches a step "
-                f"{m['launches']}, {m['split_leaves']} split leaves, peak {m['peak_gib']:.2f} GiB "
-                f"(two processes share the card: not a scaling figure)")
+                f"{m['launches']}, {m['split_leaves']} split leaves, peak {m['peak_gib']:.2f} GiB, "
+                f"whole leaves' digest {m['replicas']}"
+                + (f", the replicated gradients' broadcast {m['broadcast']['bytes']} bytes a step, "
+                   f"{m['broadcast']['s']} s" if "broadcast" in m else "")
+                + " (two processes share the card: not a scaling figure)")
         log(f"mesh (b) rank {r['rank']}: parameters and losses after the steps {r['hold']}; "
             f"first step's gradients {r['grads']}")
     bad = [r["rank"] for r in ranks if not (r["hold"]["ok"] and r["grads"]["ok"])]
-    same = all(ranks[0][t]["losses"] == ranks[1][t]["losses"] for t, _, _ in MESH_RUNS)
+    same = all(ranks[0][t]["losses"] == ranks[1][t]["losses"]
+               and ranks[0][t]["replicas"] == ranks[1][t]["replicas"] for t, _, _ in MESH_RUNS)
     launched = all(r[t]["launches"]["attention"] > 0 and r[t]["launches"]["instance_norm"] > 0
                    for r in ranks for t, _, _ in MESH_RUNS)
     if bad or not same or not launched:
-        raise AssertionError(f"mesh (b) failed: ranks {bad} over their limits, losses equal "
-                             f"across ranks {same}, K1 and K2 launched on every rank {launched}")
+        raise AssertionError(f"mesh (b) failed: ranks {bad} over their limits, losses and "
+                             f"whole leaves equal across ranks {same}, K1 and K2 launched on "
+                             f"every rank {launched}")
     return {"ranks": ranks}
 
 

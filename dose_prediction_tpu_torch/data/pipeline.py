@@ -9,7 +9,7 @@ yield dicts of CPU torch tensors with the JAX builders' keys, channels-last
 layouts and dtypes (float32, bfloat16, uint8). On a mesh
 (parallel/mesh.py) ``device_prefetch(sharding=..., local_rows=...)`` moves
 only this process's rows of a batch-sharded feed to its device
-(``host_to_global`` says which), and the whole batch of a replicated one.
+(``host_to_global`` says which); with no sharding, the whole batch.
 """
 
 from __future__ import annotations
@@ -247,27 +247,18 @@ def linked_batches(
                "gt": torch.from_numpy(np.stack(gts))}
 
 
-def _local_part(sharding, a: torch.Tensor, local_rows: bool) -> torch.Tensor:
-    """What this process keeps of a host array under ``sharding``
-    (host_to_global)."""
-    if sharding is None or sharding.axis is None:
-        if local_rows:
-            raise ValueError("local_rows needs a batch-sharded sharding; replicated feeds "
-                             "ship whole batches")
+def host_to_global(sharding, a: torch.Tensor, *, local_rows: bool = False) -> torch.Tensor:
+    """What this process holds of a host batch array under ``sharding``
+    (parallel/mesh.py::Sharding): its contiguous rows of ``a``, the global
+    batch, or ``a`` itself with ``local_rows`` (the builders'
+    ``process_rows`` mode, where ``a`` holds only this process's rows);
+    with no sharding, all of ``a``, which every process passes whole (the
+    replicated feed). Where the JAX function (pipeline.py:265) returns one
+    global array on the devices, each process here keeps its part on the
+    host, and device_prefetch copies it to its device."""
+    if sharding is None or local_rows:
         return a
-    return a if local_rows else a[sharding.rows(a.shape[0])]
-
-
-def host_to_global(sharding, a, *, local_rows: bool = False) -> torch.Tensor:
-    """A host array as this process holds it under ``sharding``
-    (parallel/mesh.py::Sharding), on the mesh's device: with a batch-sharded
-    sharding, this process's contiguous rows of ``a``, the global batch, or
-    ``a`` itself with ``local_rows`` (the builders' ``process_rows`` mode,
-    where ``a`` holds only this process's rows); with a replicated one, all
-    of ``a``, which every process passes whole (the validation feed). Where
-    the JAX function (pipeline.py:265) returns one global array, each
-    process here keeps its own part."""
-    return _local_part(sharding, torch.as_tensor(a), local_rows).to(sharding.mesh.device)
+    return a[sharding.rows(a.shape[0])]
 
 
 def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
@@ -279,7 +270,7 @@ def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
     batch is cut to what this process keeps of it (host_to_global) before
     it is copied: this process's rows of the global batch, or, with
     ``local_rows``, the iterator's batches as they are (already this
-    process's rows); a replicated sharding ships the whole batch.
+    process's rows); with none, the whole batch (a replicated feed).
 
     On a CUDA device the worker pins each tensor and copies it with
     ``non_blocking=True`` on a side stream, then records an event there.
@@ -304,7 +295,8 @@ def device_prefetch(iterator: Iterator[Batch], *, size: int = 2,
 
     def put(batch: Batch):
         if sharding is not None:
-            batch = {k: _local_part(sharding, v, local_rows) for k, v in batch.items()}
+            batch = {k: host_to_global(sharding, v, local_rows=local_rows)
+                     for k, v in batch.items()}
         if copy_stream is None:
             return {k: v.to(dev) for k, v in batch.items()}, None
         with torch.cuda.stream(copy_stream):

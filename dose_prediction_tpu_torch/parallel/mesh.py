@@ -112,14 +112,6 @@ def create_mesh(axis_sizes: Mapping[str, int], *, device: Optional[torch.device]
     return Mesh(device_mesh, sizes, device)
 
 
-def data_parallel_mesh(n: Optional[int] = None, **kwargs) -> Mesh:
-    return create_mesh({"data": _world_size() if n is None else n}, **kwargs)
-
-
-def dp_tp_mesh(n_data: int, n_model: int, **kwargs) -> Mesh:
-    return create_mesh({"data": n_data, "model": n_model}, **kwargs)
-
-
 # ---------------------------------------------------------------------------
 # sharding rules: (parameter-name regex, Split); first match wins; default
 # replicated
@@ -246,38 +238,27 @@ def param_shardings(model: nn.Module, mesh: Mesh,
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
-    """Where a batch goes on a mesh: its rows split over ``axis``, or, with
-    ``axis`` None, the whole batch on every process (JAX's NamedSharding of
-    ``P(axis)`` or ``P()``)."""
+    """A batch's rows split over the mesh axis ``axis`` (JAX's NamedSharding
+    of ``P(axis)``); a feed with no sharding ships the whole batch to every
+    process, as ``P()`` would."""
 
     mesh: Mesh
-    axis: Optional[str] = None
+    axis: str = "data"
 
     def rows(self, n: int) -> slice:
         """This process's rows of a global batch of ``n``."""
-        parts = self.mesh.size(self.axis) if self.axis else 1
+        parts = self.mesh.size(self.axis)
         if n % parts:
             raise ValueError(f"global batch {n} does not divide over the {parts} "
                              f"'{self.axis}' ranks")
         per = n // parts
-        i = self.mesh.index(self.axis) if self.axis else 0
+        i = self.mesh.index(self.axis)
         return slice(i * per, (i + 1) * per)
-
-
-def replicated(mesh: Mesh) -> Sharding:
-    return Sharding(mesh)
 
 
 def batch_sharding(mesh: Mesh, *, axis: str = "data") -> Sharding:
     """The leading (batch) dim over ``axis``."""
     return Sharding(mesh, axis)
-
-
-def shard_batch(batch: Mapping[str, torch.Tensor], mesh: Mesh, *, axis: str = "data"
-                ) -> Dict[str, torch.Tensor]:
-    """This process's rows of a global batch, on its device."""
-    sh = batch_sharding(mesh, axis=axis)
-    return {k: v[sh.rows(v.shape[0])].to(mesh.device) for k, v in batch.items()}
 
 
 class ShardPlan:

@@ -5,7 +5,7 @@ One process per device: ``initialize`` joins this process to the group, and
 a mesh over every process (``global_mesh``) gives the trainers their data
 and model axes (parallel/mesh.py). Where a JAX process passes its shard of a
 batch and gets back one global array, a process here keeps its own rows on
-its own device: ``shard_host_batch`` moves them there.
+its own device (data/pipeline.py::device_prefetch).
 
 The backend follows from the device: NCCL for 'cuda', gloo for 'cpu'. An
 explicit ``backend='gloo'`` serves several processes on one card (NCCL
@@ -17,7 +17,6 @@ Typical use (one process per device):
     from dose_prediction_tpu_torch.parallel import multihost as MH
     dev = MH.initialize("10.0.0.1:29500", num_processes=4, process_id=rank)
     mesh = MH.global_mesh({"data": 2, "model": 2})
-    batch = MH.shard_host_batch(mesh, local_batch)   # this rank's rows
 
 With no arguments ``initialize`` reads torch's environment (``env://``:
 MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK), as a launcher such as torchrun
@@ -28,7 +27,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Mapping, Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -36,12 +35,15 @@ import torch.distributed as dist
 from dose_prediction_tpu_torch.device import resolve_device
 from dose_prediction_tpu_torch.parallel.mesh import Mesh, create_mesh
 
+# how long a collective or the rendezvous waits for the other ranks
+TIMEOUT = datetime.timedelta(seconds=600)
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None, *,
-               device: str | torch.device = "cuda", backend: Optional[str] = None,
-               timeout_s: float = 600.0) -> torch.device:
+               device: str | torch.device = "cuda", backend: Optional[str] = None
+               ) -> torch.device:
     """Join this process to the group and return its device.
 
     ``coordinator_address`` is rank 0's ``host:port`` (a TCP rendezvous);
@@ -67,8 +69,7 @@ def initialize(coordinator_address: Optional[str] = None,
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     kwargs = {} if coordinator_address is None else dict(world_size=num_processes,
                                                          rank=process_id)
-    dist.init_process_group(backend, init_method=init_method,
-                            timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+    dist.init_process_group(backend, init_method=init_method, timeout=TIMEOUT, **kwargs)
     return dev
 
 
@@ -78,14 +79,6 @@ def global_mesh(axis_sizes: Mapping[str, int], *, device: Optional[torch.device]
     the world size. Put 'data' first, so that 'model', the last axis, varies
     fastest over the ranks (the ranks of one host, on a cluster)."""
     return create_mesh(axis_sizes, device=device)
-
-
-def shard_host_batch(mesh: Mesh, local_batch: Mapping[str, torch.Tensor]
-                     ) -> Dict[str, torch.Tensor]:
-    """This process's rows (its shard of the global batch, of equal size on
-    every rank of the 'data' axis) on its device: the global batch's
-    leading dim is theirs times ``mesh.size('data')``."""
-    return {k: torch.as_tensor(v).to(mesh.device) for k, v in local_batch.items()}
 
 
 def process_slice(n_items: int) -> slice:

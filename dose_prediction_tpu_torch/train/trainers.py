@@ -133,9 +133,9 @@ def _refuse_mesh(cfg: TrainConfig) -> None:
 def _build_mesh(mesh_shape: Dict[str, int], device: torch.device):
     """The mesh of ``mesh_shape`` over every process of the group (:114-124):
     its axes' product must equal the world size."""
-    from dose_prediction_tpu_torch.parallel import mesh as PM
+    from dose_prediction_tpu_torch.parallel import multihost as MH
 
-    return PM.create_mesh(dict(mesh_shape), device=device)
+    return MH.global_mesh(dict(mesh_shape), device=device)
 
 
 def _check_mesh_batch(cfg: TrainConfig, mesh) -> None:

@@ -14,6 +14,8 @@ waited for with its own timeout and killed on expiry, with its pair.
   leaves and 8-bit moments bit for bit the one-process update's; a
   replicated leaf whose gradient differs between the model ranks updated
   alike on both, with the first rank's.
+- BatchNorm on {'data': 2} (DOSE-PYFER's decoders hold eight): the
+  global batch's statistics, against the one-process BatchNorm3d.
 - ``PyferTrainer.fit`` at the tiny widths of __graft_entry__.py:81-84 on two
   32³ patients, two epochs, AdamW: on {'data': 2} with batch 2 and on
   {'model': 2} with batch 1, each against the port's one-process fit of the
@@ -141,6 +143,26 @@ WORKER = textwrap.dedent("""
         out["rep"] = rep.tolist()
         out["q_moments"] = [t.tolist() for k in ("mu", "nu")
                             for t in opt8.state_dict()["moments"][k].values()]
+    elif a["job"] == "bn":
+        from dose_prediction_tpu_torch.nn.layers import BatchNorm3d
+        from dose_prediction_tpu_torch.parallel import sharded
+        from dose_prediction_tpu_torch.parallel.collectives import all_reduce_
+        mesh = PM.create_mesh({{"data": 2}})
+        x, w = torch.tensor(a["x"]), torch.tensor(a["w"])
+        rows = PM.batch_sharding(mesh).rows(x.shape[0])
+        net = torch.nn.Sequential(BatchNorm3d(x.shape[1]))
+        with torch.no_grad():
+            net[0].weight.copy_(torch.tensor(a["gamma"]))
+        sharded.swap_modules(net, mesh, {{}})
+        out["cls"] = type(net[0]).__name__
+        xr = x[rows].clone().requires_grad_(True)
+        y = net(xr)
+        (y * w[rows]).sum().backward()
+        data = mesh.group("data")
+        out["y"], out["dx"] = y.tolist(), xr.grad.tolist()
+        out["dgamma"] = all_reduce_(net[0].weight.grad.clone(), data).tolist()
+        out["dbeta"] = all_reduce_(net[0].bias.grad.clone(), data).tolist()
+        out["running"] = [net[0].running_mean.tolist(), net[0].running_var.tolist()]
     else:
         from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
         from dose_prediction_tpu_torch.models import DosePyfer
@@ -216,6 +238,37 @@ def toy_inputs():
             "qb": rng.normal(size=5000).astype(np.float32).tolist(),
             "qgrads": [[rng.normal(size=(64, 128)).astype(np.float32).tolist(),
                         rng.normal(size=5000).astype(np.float32).tolist()] for _ in range(2)]}
+
+
+def test_batchnorm_takes_the_global_batch_statistics(tmp_path):
+    """DOSE-PYFER's decoders hold BatchNorm3d: on {'data': 2} it is recast as
+    DataBatchNorm3d, whose forward, input gradient, summed affine gradients
+    and running statistics are the one-process BatchNorm3d's over the
+    global batch (rows of unequal spread on the two ranks)."""
+    from dose_prediction_tpu_torch.nn.layers import BatchNorm3d
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4, 3, 2, 3, 2)).astype(np.float32)
+    x[2:] = 3 * x[2:] + 1           # rank 1's rows: another mean and spread
+    inp = {"x": x.tolist(), "w": rng.normal(size=x.shape).astype(np.float32).tolist(),
+           "gamma": rng.uniform(0.5, 1.5, size=3).astype(np.float32).tolist()}
+    got = results(launch({"job": "bn", **inp}, tmp_path))
+    bn = BatchNorm3d(3)
+    with torch.no_grad():
+        bn.weight.copy_(torch.tensor(inp["gamma"]))
+    xt = torch.tensor(x, requires_grad=True)
+    y = bn(xt)
+    (y * torch.tensor(inp["w"])).sum().backward()
+    close = dict(rtol=1e-5, atol=1e-6)
+    for rank, g in enumerate(got):
+        rows = slice(2 * rank, 2 * rank + 2)
+        assert g["cls"] == "DataBatchNorm3d"
+        assert np.allclose(g["y"], y[rows].detach().numpy(), **close)
+        assert np.allclose(g["dx"], xt.grad[rows].numpy(), **close)
+        assert np.allclose(g["dgamma"], bn.weight.grad.numpy(), **close)
+        assert np.allclose(g["dbeta"], bn.bias.grad.numpy(), **close)
+        assert np.allclose(g["running"][0], bn.running_mean.numpy(), **close)
+        assert np.allclose(g["running"][1], bn.running_var.numpy(), **close)
 
 
 def test_toy_step_and_clip_match_one_process(tmp_path):

@@ -138,27 +138,23 @@ def test_batch_rows_and_sharded_prefetch():
     mesh = sized_mesh({"data": 2, "model": 2}, {"data": 1, "model": 1})
     rows = PM.batch_sharding(mesh)
     assert rows.rows(4) == slice(2, 4)
-    mine = PM.shard_batch(batch, mesh)
-    assert all(torch.equal(mine[k], v[2:]) for k, v in batch.items())
-    assert all(torch.equal(a, b) for a, b in zip(MH.shard_host_batch(mesh, mine).values(),
-                                                  mine.values()))
     assert MH.process_slice(4) == slice(0, 4)
     with pytest.raises(ValueError, match="does not divide"):
         rows.rows(3)
     got = host_to_global(rows, batch["input"])
     assert torch.equal(got, batch["input"][2:])
-    assert torch.equal(host_to_global(PM.replicated(mesh), batch["input"]), batch["input"])
+    assert torch.equal(host_to_global(None, batch["input"]), batch["input"])
     assert torch.equal(host_to_global(rows, batch["input"][:2], local_rows=True),
                        batch["input"][:2])
     fed = list(device_prefetch(iter([batch]), device="cpu", sharding=rows))
     assert [torch.equal(fed[0][k], v[2:]) for k, v in batch.items()] == [True, True]
-    whole = list(device_prefetch(iter([batch]), device="cpu", sharding=PM.replicated(mesh)))
+    mine = list(device_prefetch(iter([{k: v[2:] for k, v in batch.items()}]), device="cpu",
+                                sharding=rows, local_rows=True))
+    assert [torch.equal(mine[0][k], v[2:]) for k, v in batch.items()] == [True, True]
+    whole = list(device_prefetch(iter([batch]), device="cpu"))
     assert torch.equal(whole[0]["input"], batch["input"])
     with pytest.raises(ValueError, match="local_rows"):
         list(device_prefetch(iter([batch]), device="cpu", local_rows=True))
-    with pytest.raises(ValueError, match="replicated feeds"):
-        list(device_prefetch(iter([batch]), device="cpu", sharding=PM.replicated(mesh),
-                             local_rows=True))
 
 
 @pytest.fixture
