@@ -129,8 +129,21 @@ Phases, each printing its seconds on a line of its own:
             seconds, losses, K1/K2 launches a step and peak memory printed,
             and the bytes and seconds of the 'model' axis's broadcast of
             the replicated gradients (two processes sharing one card: not a
-            scaling figure); a worker's failure or hang fails the phase, and
-            the other is killed;
+            scaling figure); (c) in the same two workers, TranSegTrainer
+            at full width (12-layer ViT-768, 12 heads, feature size 16, 8
+            classes; 96³ crops of that cohort, float32, AdamW) on
+            {'data': 2} with a global batch of 2, then {'model': 2} (six
+            heads a rank, decoder4's convs by output channel) with batch
+            1, two steps each, held as (b) holds DOSE-PYFER; after the
+            {'data': 2} steps, TranSegTrainer.validate of one 128³ patient
+            with its 8 windows split over the ranks (4 a rank, one call):
+            both ranks' logits equal, and within max(2 x the one-process
+            sweep's own departure at sw batch 4, 1e-4) of one process's
+            sliding_window_inference at sw batch 8 from the same weights
+            (no padding window, so both sweep the same windows), its
+            seconds, Dice, HD95 and K1/K2 launches a rank printed; no
+            slot is written; a worker's failure or hang fails the phase,
+            and the other is killed;
 20. trainer the CLI (python -m dose_prediction_tpu_torch) in this process at
             full width on that cohort, float32 compute at PyTorch's TF32
             defaults, as the CLI trains: train pyfer (adam8bit, the packed
@@ -290,9 +303,12 @@ LABEL_AGREEMENT_MIN = 0.999
 # TranSeg train step (one 96³ crop); the ViT generators' sliding-window
 # evaluation (four 128³ windows a batch, exp_gan); DOSE-PYFER's ViT on a
 # 'model' axis of 2 (three heads a rank, mesh) and its one-process run of a
-# global batch of 2 (mesh)
+# global batch of 2 (mesh); TranSeg's on a 'model' axis of 2 (six heads a
+# rank), its sharded validation (four windows a rank) and its one-process
+# run of a global batch of 2 (mesh part (c))
 K1_SHAPES = [(8, 12, 216, 64), (1, 6, 512, 128), (1, 12, 512, 64), (1, 12, 216, 64),
-             (4, 6, 512, 128), (1, 3, 512, 128), (2, 6, 512, 128)]
+             (4, 6, 512, 128), (1, 3, 512, 128), (2, 6, 512, 128),
+             (1, 6, 216, 64), (4, 12, 216, 64), (2, 12, 216, 64)]
 # every shape a bf16 serve request gives K2: the TranSeg windows' (8 per
 # call) decoder levels, then DOSE-PYFER's at 128³ (the dense TranSeg's five
 # shapes are among these: the dense phase fails on any other); then the
@@ -338,6 +354,14 @@ K2_ZOO_SHAPES = K2_SHAPES[21:]
 # the float32 K2 shapes only exp_gan gives (the kernels line lists each with
 # its launches in that phase)
 K2_EXP_GAN_SHAPES = K2_F32_SHAPES[-6:]
+# float32, the mesh phase's part (c): TranSeg's one-process run of a global
+# batch of 2 (96³ crops) and its one-process sweep at sw batch 8 (the
+# part's ranks run shapes held above)
+K2_MESH_SHAPES = [(2, 16, 96, 96, 96), (2, 32, 48, 48, 48), (2, 64, 24, 24, 24),
+                  (2, 32, 24, 24, 24), (2, 128, 12, 12, 12),
+                  (8, 32, 48, 48, 48), (8, 64, 24, 24, 24), (8, 32, 24, 24, 24),
+                  (8, 128, 12, 12, 12)]
+K2_F32_SHAPES = K2_F32_SHAPES + K2_MESH_SHAPES
 # every shape a bf16 serve_k3 request gives K3: C3D / DOSE-PYFER levels 1-3
 # at 128³, the TranSeg windows' levels at 96³, then the decoders' two
 # narrower convs (appended, so that K3_SHAPES[3] stays the kernels line's);
@@ -1351,18 +1375,24 @@ def seeded_seg_batch(dev, dtype):
     return {"ct": ct.to(dtype), "labels": labels}
 
 
-def make_seg_trainer(dev):
+def seeded_seg_model(dev):
     """The full-width TranSeg as the serve path builds it (12-layer ViT-768,
     12 heads, feature size 16, 8 classes, seg family), weights from one
-    seed, and AdamW at TRAIN_LR / TRAIN_WD (TranSegTrainer,
-    train/trainers.py:1025-1026)."""
+    seed, norm affines and BatchNorm statistics off 1/0."""
     from dose_prediction_tpu_torch.models import TranSeg
     from dose_prediction_tpu_torch.nn.init import init_params
+
+    g = torch.Generator(dev).manual_seed(SEED + 6)
+    return perturb_norms([init_params(TranSeg(out_ch=8, device=dev), g)], g)[0]
+
+
+def make_seg_trainer(dev):
+    """seeded_seg_model with AdamW at TRAIN_LR / TRAIN_WD (TranSegTrainer,
+    train/trainers.py:1025-1026)."""
     from dose_prediction_tpu_torch.train import state as S
     from dose_prediction_tpu_torch.train import steps
 
-    g = torch.Generator(dev).manual_seed(SEED + 6)
-    model = perturb_norms([init_params(TranSeg(out_ch=8, device=dev), g)], g)[0]
+    model = seeded_seg_model(dev)
     opt = S.make_optimizer(model, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
     return model, steps.make_transeg_train_step(model, opt), S.TrainState(model, opt)
 
@@ -3783,9 +3813,12 @@ def phase_train_captured(dev) -> dict:
 MESH_STEPS = 3                  # part (a): steps of each trainer
 MESH_WORKER_STEPS = 2           # part (b): steps of each run in the workers
 MESH_NOISE_RUNS = 3
-MESH_WORKER_TIMEOUT_S = 300
-# part (b)'s two meshes: (tag, mesh_shape, global batch)
+MESH_WORKER_TIMEOUT_S = 600
+# part (b)'s two meshes: (tag, mesh_shape, global batch); part (c)'s
+# TranSeg takes the same two
 MESH_RUNS = (("data", {"data": 2}, 2), ("model", {"model": 2}, 1))
+SEG_MESH_STEPS = 2              # part (c): steps of each TranSeg run in the workers
+SEG_VAL_SW_BATCH = 8            # part (c): the one-process sweep the sharded one is held to
 
 
 def free_port() -> int:
@@ -3822,11 +3855,14 @@ def mesh_feed_steps(tr, ds, n, reverse_rows=False) -> list:
     from dose_prediction_tpu_torch.data.pipeline import device_prefetch
     from dose_prediction_tpu_torch.train import trainers as T
 
-    rows = T._feed_rows(tr.batch_sharding)
-    feed = device_prefetch(T._train_batches(tr.cfg, ds, 0, drop_last=tr.mesh is not None,
-                                            process_rows=rows),
-                           device=tr.device, sharding=tr.batch_sharding,
-                           local_rows=rows is not None)
+    if isinstance(tr, T.TranSegTrainer):
+        feed = tr.batches(ds, 0)
+    else:
+        rows = T._feed_rows(tr.batch_sharding)
+        feed = device_prefetch(T._train_batches(tr.cfg, ds, 0, drop_last=tr.mesh is not None,
+                                                process_rows=rows),
+                               device=tr.device, sharding=tr.batch_sharding,
+                               local_rows=rows is not None)
     out, probe = [], None
     with contextlib.closing(feed):
         for _, batch in zip(range(n), feed):
@@ -3852,14 +3888,16 @@ def mesh_feed_steps(tr, ds, n, reverse_rows=False) -> list:
 
 
 def forward_probe(model, batch) -> torch.Tensor:
-    """The full-resolution dose of a train-mode forward of ``batch`` (NCDHW,
-    float32), the model's buffers left as they were."""
+    """The full-resolution dose (DOSE-PYFER) or the logits (TranSeg) of a
+    train-mode forward of ``batch`` (NCDHW, float32), the model's buffers
+    left as they were."""
     from dose_prediction_tpu_torch.train import steps
 
-    x = steps.to_ncdhw(batch["input"])
     model.train()
     with torch.no_grad(), steps.buffers_kept(model):
-        return model(x, stop_gradient_a=True)[1][0].float()
+        if "ct" in batch:
+            return model(steps.to_ncdhw(batch["ct"])).float()
+        return model(steps.to_ncdhw(batch["input"]), stop_gradient_a=True)[1][0].float()
 
 
 def trainable(model) -> dict:
@@ -4012,12 +4050,148 @@ def mesh_witnesses(batch, amplitude, kernels, dev) -> list:
     return out
 
 
+def seg_mesh_trainer(dev, root, tag, mesh_shape, batch, steps):
+    """A TranSegTrainer at full width (seeded_seg_model's weights, AdamW at
+    the trainer's defaults, SEG_CROP crops, the float32 feed) on
+    ``mesh_shape``, or without a mesh and eager for None."""
+    from dose_prediction_tpu_torch.train import trainers as T
+
+    cfg = T.TrainConfig(batch_size=batch, mesh_shape=mesh_shape, max_epochs=1,
+                        max_steps=steps, check_val=1000, device=str(dev),
+                        ckpt_dir=str(Path(root) / "mesh" / tag / "ck"),
+                        log_dir=str(Path(root) / "mesh" / tag / "log"))
+    with mock.patch.dict(os.environ, {"DPT_NO_AOT": "1"}):
+        return T.TranSegTrainer(cfg, model=seeded_seg_model(dev), crop=SEG_CROP)
+
+
+def mesh_runs(dev, args, ds, make, steps, prefix, after=None):
+    """This rank's share of each mesh of MESH_RUNS: the trainer ``make``
+    builds on it, ``steps`` steps of its own feed (mesh_feed_steps), then
+    ``after(tag, trainer, whole state)``'s readings. Returns (readings by
+    mesh, (whole trainable leaves, losses, first gradients, first probe) by
+    mesh)."""
+    rank, out, finals = args["rank"], {}, {}
+    for tag, shape, batch in MESH_RUNS:
+        free_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = make(dev, args["root"], f"{prefix}{tag}{rank}", shape, batch, steps)
+        rows = mesh_feed_steps(tr, ds, steps)
+        whole = tr.state.plan.whole_model_state(tr.model)
+        finals[tag] = ({n: whole[n].clone() for n in trainable(tr.model)},
+                       [r["loss"] for r in rows], rows[0].pop("grads"), rows[0].pop("probe"))
+        out[tag] = {"steps_s": [r["s"] for r in rows], "losses": finals[tag][1],
+                    "launches": rows[-1]["launches"],
+                    "split_leaves": len(tr.state.plan.shards),
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                    "replicas": leaves_digest(finals[tag][0])}
+        if shape.get("model", 1) > 1:
+            out[tag]["broadcast"] = replicated_broadcast(tr)
+        if after is not None:
+            out[tag].update(after(tag, tr, whole))
+        del tr, whole
+    return out, finals
+
+
+def mesh_hold_rank(dev, args, ds, make, steps, prefix, finals, kernels) -> dict:
+    """This rank's mesh of MESH_RUNS (rank 0 the 'data' mesh, rank 1 the
+    'model' mesh) against the one-process run of the same global batch, its
+    noise from mesh_witnesses: the parameters and losses after the steps
+    (mesh_hold) and the first step's gradients (mesh_grad_hold)."""
+    rank = args["rank"]
+    tag, _, batch = MESH_RUNS[rank]
+
+    def one_process(name, ctx=contextlib.nullcontext(), reverse_rows=False):
+        free_memory()
+        tr = make(dev, args["root"], f"{prefix}{tag}{rank}_{name}", None, batch, steps)
+        first = trainable(tr.model)
+        with ctx:
+            rows = mesh_feed_steps(tr, ds, steps, reverse_rows=reverse_rows)
+        return first, (trainable(tr.model), [r["loss"] for r in rows], rows[0].pop("grads"),
+                       rows[0].pop("probe"))
+
+    first, (ref, ref_losses, ref_grads, probe) = one_process("ref")
+    # the noise runs' amplitude: the mesh's own forward gap from the
+    # one-process run at the first weights (this rank's rows of the global
+    # batch), at least TRAIN_PARITY_NOISE, as tests/test_torch_port_trainers.py
+    # sizes its noise runs
+    mine = finals[tag][3]
+    theirs = probe[rank if tag == "data" else 0:][:mine.shape[0]]
+    gap = float((mine - theirs).abs().max() / theirs.abs().max())
+    amplitude = max(TRAIN_PARITY_NOISE, gap)
+    runs = {name: one_process(name, ctx, reverse)[1]
+            for name, ctx, reverse in mesh_witnesses(batch, amplitude, kernels, dev)}
+    noise = list(runs.values())
+    return {"hold": {"mesh": tag, "forward_gap": gap, "noise_amplitude": amplitude,
+                     "noise_runs": list(runs),
+                     **mesh_hold(first, ref, [r[0] for r in noise], finals[tag][0], ref_losses,
+                                 [r[1] for r in noise], finals[tag][1], steps)},
+            "grads": mesh_grad_hold(ref_grads, [r[2] for r in noise], finals[tag][2])}
+
+
+def seg_sharded_validation(tr, patient) -> dict:
+    """TranSegTrainer.validate of one patient on the trainer's 'data' mesh
+    (the window batch split over the ranks), to a synchronisation: its
+    seconds, metrics and kernel launches, and the sweep's logits (caught at
+    ``sliding_logits``) with a digest of their bytes."""
+    import hashlib
+
+    caught, sliding = [], tr.sliding_logits
+
+    def keep(volume, **kwargs):
+        caught.append(sliding(volume, **kwargs))
+        return caught[-1]
+
+    tr.sliding_logits = keep
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dice, hd95, val_loss = tr.validate(patient, sw_batch_size=SEG_VAL_SW_BATCH)
+    torch.cuda.synchronize()
+    row = {"s": time.perf_counter() - t0, "dice": dice, "hd95": hd95, "val_loss": val_loss,
+           "launches": read_counts(), "vit_layers": len(tr.model.vit.blocks),
+           "logits": caught[0]}
+    row["logits_digest"] = hashlib.sha256(caught[0].cpu().numpy().tobytes()).hexdigest()[:16]
+    return row
+
+
+def seg_val_hold(dev, state, patient, got) -> dict:
+    """The sharded sweep's logits (``got``) against one process's
+    sliding_window_inference at sw batch SEG_VAL_SW_BATCH, from the same
+    weights and buffers (``state``): within max(2 × the one-process sweep's
+    own departure at sw batch 4, the windows a rank predicts a call, and
+    tolerance()). The grid needs no padding window, so both sweep the same
+    windows."""
+    from dose_prediction_tpu_torch.infer.sliding_window import (
+        sliding_window_inference,
+        window_grid,
+    )
+
+    model = seeded_seg_model(dev)
+    model.load_state_dict(state)
+    model.eval()
+    ct = patient.patients[0].ct
+    vol = torch.from_numpy(ct[None, None].astype("float32")).to(dev)
+    with torch.no_grad():
+        want, four = (sliding_window_inference(vol, model, roi_size=SEG_CROP, sw_batch_size=b,
+                                               out_channels=8)
+                      for b in (SEG_VAL_SW_BATCH, 4))
+    err = (got - want).abs().max().item()
+    own = (four - want).abs().max().item()
+    limit = max(2 * own, tolerance(want))
+    return {"ok": bool(torch.isfinite(got).all()) and err <= limit, "max_abs_err": err,
+            "sw4_departure": own, "limit": limit, "shape": list(got.shape),
+            "windows": len(window_grid(ct.shape, SEG_CROP))}
+
+
 def mesh_worker(args_path: str) -> int:
-    """One rank of part (b) (``chip_smoke.py --mesh-worker args.json``): gloo
-    on the one card, each mesh of MESH_RUNS for MESH_WORKER_STEPS steps,
-    then this rank's share of the one-process references: rank 0 holds the
-    'data' mesh, rank 1 the 'model' mesh against the one-process run of the
-    same global batch and its noise runs. Prints one RESULT line."""
+    """One rank of parts (b) and (c) (``chip_smoke.py --mesh-worker
+    args.json``): gloo on the one card; part (b), PyferTrainer on each mesh
+    of MESH_RUNS for MESH_WORKER_STEPS steps, then this rank's share of the
+    one-process references (mesh_hold_rank); part (c), TranSegTrainer on
+    the same meshes for SEG_MESH_STEPS steps, the 'data' mesh then
+    validating one 128³ patient with its window batch split over the ranks
+    (rank 0 holds its logits against one process's sweep, seg_val_hold),
+    then the one-process references. Prints one RESULT line."""
     import torch.distributed as dist
 
     args = json.loads(Path(args_path).read_text())
@@ -4037,52 +4211,30 @@ def mesh_worker(args_path: str) -> int:
     dev = MH.initialize(f"127.0.0.1:{args['port']}", 2, rank, device="cuda", backend="gloo")
     cuda_lib.library()
     ds = OpenKBPDataset(args["pattern"], keep_structures=True)
-    out, finals = {"rank": rank, "device": str(dev)}, {}
-    for tag, shape, batch in MESH_RUNS:
-        free_memory()
-        torch.cuda.reset_peak_memory_stats(dev)
-        tr = mesh_trainer(dev, args["root"], f"{tag}{rank}", shape, batch, MESH_WORKER_STEPS)
-        rows = mesh_feed_steps(tr, ds, MESH_WORKER_STEPS)
-        whole = tr.state.plan.whole_model_state(tr.model)
-        finals[tag] = ({n: whole[n].clone() for n in trainable(tr.model)},
-                       [r["loss"] for r in rows], rows[0].pop("grads"), rows[0].pop("probe"))
-        out[tag] = {"steps_s": [r["s"] for r in rows], "losses": finals[tag][1],
-                    "launches": rows[-1]["launches"],
-                    "split_leaves": len(tr.state.plan.shards),
-                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                    "replicas": leaves_digest(finals[tag][0])}
-        if shape.get("model", 1) > 1:
-            out[tag]["broadcast"] = replicated_broadcast(tr)
-        del tr, whole
-    tag, shape, batch = MESH_RUNS[rank]
+    kernels = (k1, k2, k3)
+    out = {"rank": rank, "device": str(dev)}
+    runs, finals = mesh_runs(dev, args, ds, mesh_trainer, MESH_WORKER_STEPS, "")
+    out.update(runs)
+    out.update(mesh_hold_rank(dev, args, ds, mesh_trainer, MESH_WORKER_STEPS, "", finals,
+                              kernels))
+    del finals
+    patient, state = OpenKBPDataset(args["pattern"], size=1), {}
 
-    def one_process(name, ctx=contextlib.nullcontext(), reverse_rows=False):
-        free_memory()
-        tr = mesh_trainer(dev, args["root"], f"{tag}{rank}_{name}", None, batch,
-                          MESH_WORKER_STEPS)
-        first = trainable(tr.model)
-        with ctx:
-            rows = mesh_feed_steps(tr, ds, MESH_WORKER_STEPS, reverse_rows=reverse_rows)
-        return first, (trainable(tr.model), [r["loss"] for r in rows], rows[0].pop("grads"),
-                       rows[0].pop("probe"))
+    def validate(tag, tr, whole):
+        if tag != "data":
+            return {}
+        if rank == 0:
+            state.update((k, v.clone()) for k, v in whole.items())
+        return {"validate": seg_sharded_validation(tr, patient)}
 
-    first, (ref, ref_losses, ref_grads, probe) = one_process("ref")
-    # the noise runs' amplitude: the mesh's own forward gap from the
-    # one-process run at the first weights (this rank's rows of the global
-    # batch), at least TRAIN_PARITY_NOISE, as tests/test_torch_port_trainers.py
-    # sizes its noise runs
-    mine = finals[tag][3]
-    theirs = probe[rank if tag == "data" else 0:][:mine.shape[0]]
-    gap = float((mine - theirs).abs().max() / theirs.abs().max())
-    amplitude = max(TRAIN_PARITY_NOISE, gap)
-    runs = {name: one_process(name, ctx, reverse)[1]
-            for name, ctx, reverse in mesh_witnesses(batch, amplitude, (k1, k2, k3), dev)}
-    noise = list(runs.values())
-    out["hold"] = {"mesh": tag, "forward_gap": gap, "noise_amplitude": amplitude,
-                   "noise_runs": list(runs),
-                   **mesh_hold(first, ref, [r[0] for r in noise], finals[tag][0], ref_losses,
-                               [r[1] for r in noise], finals[tag][1], MESH_WORKER_STEPS)}
-    out["grads"] = mesh_grad_hold(ref_grads, [r[2] for r in noise], finals[tag][2])
+    seg, finals = mesh_runs(dev, args, ds, seg_mesh_trainer, SEG_MESH_STEPS, "seg_", validate)
+    logits = seg["data"]["validate"].pop("logits")
+    if rank == 0:
+        seg["val_hold"] = seg_val_hold(dev, state, patient, logits)
+    del logits, state
+    seg.update(mesh_hold_rank(dev, args, ds, seg_mesh_trainer, SEG_MESH_STEPS, "seg_", finals,
+                              kernels))
+    out["seg"] = seg
     dist.destroy_process_group()
     print("RESULT " + json.dumps(out), flush=True)
     return 0
@@ -4162,10 +4314,11 @@ def mesh_part_a(dev, data, root) -> dict:
     return row
 
 
-def mesh_part_b(data, root) -> dict:
-    """Part (b): two worker processes on the one card (gloo on CUDA tensors;
-    NCCL refuses two ranks on one device), each running mesh_worker; a
-    worker's failure or hang fails the phase and kills the other."""
+def mesh_workers(data, root) -> list:
+    """Two worker processes on the one card (gloo on CUDA tensors; NCCL
+    refuses two ranks on one device), each running mesh_worker; a worker's
+    failure or hang fails the phase and kills the other. Returns each
+    rank's RESULT."""
     port, procs = free_port(), []
     for rank in (0, 1):
         args = Path(root) / f"mesh_worker{rank}.json"
@@ -4190,40 +4343,83 @@ def mesh_part_b(data, root) -> dict:
                 p.kill()
                 tail = p.communicate()[0]
                 print(tail[-6000:], flush=True)
-    ranks = [json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:])
-             for out in outs]
-    for r in ranks:
-        for tag, _, batch in MESH_RUNS:
-            m = r[tag]
-            log(f"mesh (b) rank {r['rank']} on {r['device']}, {tag} mesh, global batch {batch}: "
-                f"steps {m['steps_s']} s, losses {m['losses']}, K1/K2/K3 launches a step "
-                f"{m['launches']}, {m['split_leaves']} split leaves, peak {m['peak_gib']:.2f} GiB, "
-                f"whole leaves' digest {m['replicas']}"
-                + (f", the replicated gradients' broadcast {m['broadcast']['bytes']} bytes a step, "
-                   f"{m['broadcast']['s']} s" if "broadcast" in m else "")
-                + " (two processes share the card: not a scaling figure)")
-        log(f"mesh (b) rank {r['rank']}: parameters and losses after the steps {r['hold']}; "
-            f"first step's gradients {r['grads']}")
+    return [json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:])
+            for out in outs]
+
+
+def mesh_ranks_hold(part, ranks) -> None:
+    """Fail ``part`` unless each rank's hold and gradients are within their
+    limits, both ranks' losses and whole leaves are equal after each mesh,
+    and K1 and K2 launched on every rank on each mesh."""
     bad = [r["rank"] for r in ranks if not (r["hold"]["ok"] and r["grads"]["ok"])]
     same = all(ranks[0][t]["losses"] == ranks[1][t]["losses"]
                and ranks[0][t]["replicas"] == ranks[1][t]["replicas"] for t, _, _ in MESH_RUNS)
     launched = all(r[t]["launches"]["attention"] > 0 and r[t]["launches"]["instance_norm"] > 0
                    for r in ranks for t, _, _ in MESH_RUNS)
     if bad or not same or not launched:
-        raise AssertionError(f"mesh (b) failed: ranks {bad} over their limits, losses and "
+        raise AssertionError(f"mesh {part} failed: ranks {bad} over their limits, losses and "
                              f"whole leaves equal across ranks {same}, K1 and K2 launched on "
                              f"every rank {launched}")
-    return {"ranks": ranks}
+
+
+def mesh_log_ranks(part, model, ranks) -> None:
+    for r in ranks:
+        for tag, _, batch in MESH_RUNS:
+            m = r[tag]
+            log(f"mesh {part} rank {r['rank']} on {r['device']}, {model} on the {tag} mesh, "
+                f"global batch {batch}: steps {m['steps_s']} s, losses {m['losses']}, K1/K2/K3 "
+                f"launches a step {m['launches']}, {m['split_leaves']} split leaves, peak "
+                f"{m['peak_gib']:.2f} GiB, whole leaves' digest {m['replicas']}"
+                + (f", the replicated gradients' broadcast {m['broadcast']['bytes']} bytes a "
+                   f"step, {m['broadcast']['s']} s" if "broadcast" in m else "")
+                + " (two processes share the card: not a scaling figure)")
+        log(f"mesh {part} rank {r['rank']}: parameters and losses after the steps "
+            f"{r['hold']}; first step's gradients {r['grads']}")
+
+
+def mesh_part_b(ranks) -> dict:
+    """Part (b): PyferTrainer in the two workers (mesh_worker)."""
+    mesh_log_ranks("(b)", "DOSE-PYFER", ranks)
+    mesh_ranks_hold("(b)", ranks)
+    return {"ranks": [{k: v for k, v in r.items() if k != "seg"} for r in ranks]}
+
+
+def mesh_part_c(ranks) -> dict:
+    """Part (c): TranSegTrainer in the two workers (mesh_worker): part (b)'s
+    holds, and the sharded validation's: both ranks' logits equal, rank 0's
+    within seg_val_hold's limit, K1 launched once a ViT layer on each rank
+    (one predictor call of its windows) and K2 launched."""
+    seg = [r["seg"] | {"rank": r["rank"], "device": r["device"]} for r in ranks]
+    mesh_log_ranks("(c)", "TranSeg", seg)
+    for r in seg:
+        v = r["data"]["validate"]
+        log(f"mesh (c) rank {r['rank']}: validate of one 128³ patient on the data mesh "
+            f"(window batch split over the ranks) {v['s']:.3f} s, Dice {v['dice']}, HD95 "
+            f"{v['hd95']}, val loss {v['val_loss']}, K1/K2/K3 launches {v['launches']}, "
+            f"logits digest {v['logits_digest']}")
+    hold = seg[0]["val_hold"]
+    log(f"mesh (c): the sharded logits against one process's sweep at sw batch "
+        f"{SEG_VAL_SW_BATCH}: {hold}")
+    mesh_ranks_hold("(c)", seg)
+    val = [r["data"]["validate"] for r in seg]
+    if not (hold["ok"] and val[0]["logits_digest"] == val[1]["logits_digest"]
+            and all(v["launches"]["attention"] == v["vit_layers"]
+                    and v["launches"]["instance_norm"] > 0 for v in val)):
+        raise AssertionError(f"mesh (c) failed: sharded validation {hold}, logits digests "
+                             f"{[v['logits_digest'] for v in val]}, launches "
+                             f"{[v['launches'] for v in val]}")
+    return {"ranks": seg}
 
 
 def phase_mesh(dev, data, root) -> dict:
-    """The mesh phase: part (a), then part (b) (module docstring)."""
+    """The mesh phase: part (a), then parts (b) and (c) (module docstring)."""
     smi = nvidia_smi()
     a = mesh_part_a(dev, data, root)
     free_memory()
-    b = mesh_part_b(data, root)
+    ranks = mesh_workers(data, root)
+    b, c = mesh_part_b(ranks), mesh_part_c(ranks)
     log(f"mesh: on {smi}")
-    return {"a": a, "b": b}
+    return {"a": a, "b": b, "c": c}
 
 
 def main() -> int:
@@ -4442,6 +4638,21 @@ def main() -> int:
                         "shape": list(shape), "dtype": "bfloat16",
                         "launches_in": f"train_captured: kernels the profiler saw in one "
                                        f"replayed step ({label}), every shape"})
+    seg_mesh = results["mesh"]["c"]["ranks"]
+    for shape, launches, where in (
+            (K1_SHAPES[7], seg_mesh[1]["model"]["launches"]["attention"],
+             "mesh (c): rank 1's last TranSeg step on {'model': 2}"),
+            (K1_SHAPES[8], seg_mesh[0]["data"]["validate"]["launches"]["attention"],
+             "mesh (c): rank 0's share of the sharded validation of one 128³ patient on "
+             "{'data': 2}")):
+        source, replaces = sources["attention"]
+        row = results["kernels"][("attention", shape, torch.float32)]
+        kernels.append({"name": "attention", "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "shape": list(shape), "dtype": "float32", "launches_in": where})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

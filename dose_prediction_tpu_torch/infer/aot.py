@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Any, Callable, Mapping, Optional
 
@@ -56,6 +57,9 @@ import torch
 
 from dose_prediction_tpu_torch.core.config import FLAGS
 from dose_prediction_tpu_torch.kernels import attention, conv3d, instance_norm
+
+# held while a train step is captured (LazyTrainStage._graph)
+_CAPTURE_LOCK = threading.Lock()
 
 # the kernels' launch counters, credited at every replay
 _COUNTERS = ((attention.fused_attention, "launches"),
@@ -353,9 +357,12 @@ class LazyTrainStage:
         (the graph, ``fn``'s outputs, which each replay overwrites)."""
         graph = torch.cuda.CUDAGraph()
         # thread_local: concurrent trials on one card (train/tune.py) launch
-        # from their own threads while this one captures
-        with torch.cuda.graph(graph, pool=self._pool.handle(device), stream=stream,
-                              capture_error_mode="thread_local"):
+        # from their own threads while this one captures. One capture at a
+        # time: entering one synchronizes the device and empties the
+        # allocator's cache, which invalidates another thread's capture in
+        # flight (seen as cudaErrorStreamCaptureInvalidated at its first op)
+        with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._pool.handle(device),
+                                             stream=stream, capture_error_mode="thread_local"):
             out = fn()
         return graph, out
 

@@ -16,6 +16,14 @@ version does
 others in the blend. MONAI runs a shorter last batch instead; that
 difference is a fault of both packages (ROADMAP queue 3), kept here so the
 two agree. On the main path, 8 windows in one batch of 8, nothing is padded.
+
+``sliding_window_inference_sharded`` splits the window batch over a mesh
+axis (parallel/mesh.py; JAX :153-268): the grid is padded to a multiple of
+the axis size by repeating the last window, each rank predicts its
+contiguous rows of windows in one call, the float32 predictions are
+gathered whole over the axis (an exact all-reduce into zeros,
+parallel/collectives.py::gather), and every rank blends all of them as the
+local engine does, the repeated window counted in the blend as there.
 """
 
 from __future__ import annotations
@@ -68,6 +76,33 @@ def _importance_map(roi_size: Sequence[int], mode: str, sigma_scale: float = 0.1
     return m.clamp_min(torch.finfo(torch.float32).tiny)
 
 
+def _pad_to_roi(volume: torch.Tensor, roi: Tuple[int, int, int]) -> torch.Tensor:
+    """``volume`` zero-padded at the far end of each axis shorter than ``roi``."""
+    pads = [max(0, roi[i] - volume.shape[2 + i]) for i in range(3)]
+    if any(pads):
+        volume = F.pad(volume, (0, pads[2], 0, pads[1], 0, pads[0]))
+    return volume
+
+
+def _region(start, roi):
+    z, y, x = start
+    return (slice(None), slice(None), slice(z, z + roi[0]), slice(y, y + roi[1]),
+            slice(x, x + roi[2]))
+
+
+def _blend(acc: torch.Tensor, count: torch.Tensor, preds: torch.Tensor, starts, roi,
+           weight) -> None:
+    """Add each window's prediction (× ``weight``, None for 'constant') and
+    its weight into ``acc`` and ``count``, in the order of ``starts``."""
+    for i, s in enumerate(starts):
+        if weight is None:
+            acc[_region(s, roi)] += preds[i:i + 1]
+            count[_region(s, roi)] += 1.0
+        else:
+            acc[_region(s, roi)] += preds[i:i + 1] * weight
+            count[_region(s, roi)] += weight
+
+
 def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
                              roi_size: Sequence[int] = (96, 96, 96), sw_batch_size: int = 4,
                              overlap: float = 0.25, mode: str = "constant",
@@ -87,9 +122,7 @@ def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
         raise ValueError("sliding_window_inference expects batch size 1")
     _, c, d, h, w = volume.shape
     roi = tuple(int(r) for r in roi_size)
-    pads = [max(0, roi[i] - volume.shape[2 + i]) for i in range(3)]
-    if any(pads):
-        volume = F.pad(volume, (0, pads[2], 0, pads[1], 0, pads[0]))
+    volume = _pad_to_roi(volume, roi)
     full = tuple(volume.shape[2:])
     grid = window_grid(full, roi, overlap)
     n_batches = -(-len(grid) // sw_batch_size)
@@ -100,21 +133,63 @@ def sliding_window_inference(volume: torch.Tensor, predictor: Callable, *,
     weight = None if mode == "constant" else _importance_map(roi, mode, device=volume.device)
     acc = torch.zeros((1, c_out, *full), dtype=torch.float32, device=volume.device)
     count = torch.zeros((1, 1, *full), dtype=torch.float32, device=volume.device)
-
-    def region(start):
-        z, y, x = start
-        return (slice(None), slice(None), slice(z, z + roi[0]), slice(y, y + roi[1]),
-                slice(x, x + roi[2]))
-
     for b in range(0, len(grid), sw_batch_size):
         starts = grid[b:b + sw_batch_size]
-        preds = predictor(torch.cat([volume[region(s)] for s in starts])).float()
-        for i, s in enumerate(starts):
-            if weight is None:
-                acc[region(s)] += preds[i:i + 1]
-                count[region(s)] += 1.0
-            else:
-                acc[region(s)] += preds[i:i + 1] * weight
-                count[region(s)] += weight
+        preds = predictor(torch.cat([volume[_region(s, roi)] for s in starts])).float()
+        _blend(acc, count, preds, starts, roi, weight)
     out = acc / count
     return out[:, :, :d, :h, :w]
+
+
+def make_sliding_window_sharded_fn(predictor: Callable, mesh, *, axis: str = "data",
+                                   roi_size: Sequence[int] = (96, 96, 96),
+                                   overlap: float = 0.25, mode: str = "constant",
+                                   out_channels: int | None = None
+                                   ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``run(volume)``: the sliding window with the window batch split over
+    ``mesh``'s ``axis`` (module docstring). Every rank of the axis calls it
+    on the same ``(1, C, D, H, W)`` volume and returns the same
+    ``(1, C_out, D, H, W)`` float32 blend; ``predictor`` maps ``(n, C,
+    *roi) -> (n, C_out, *roi)`` and runs once a call, on this rank's
+    windows."""
+    from dose_prediction_tpu_torch.parallel import collectives as PC
+
+    roi = tuple(int(r) for r in roi_size)
+    parts, index, group = mesh.size(axis), mesh.index(axis), mesh.group(axis)
+
+    def run(volume: torch.Tensor) -> torch.Tensor:
+        _, c, d, h, w = volume.shape
+        volume = _pad_to_roi(volume, roi)
+        full = tuple(volume.shape[2:])
+        grid = window_grid(full, roi, overlap)
+        grid = grid + [grid[-1]] * (-len(grid) % parts)
+        per = len(grid) // parts
+        mine = grid[index * per:(index + 1) * per]
+        local = predictor(torch.cat([volume[_region(s, roi)] for s in mine])).float()
+        preds = PC.gather(local.contiguous(), 0, group)
+        c_out = int(out_channels) if out_channels is not None else c
+        weight = None if mode == "constant" else _importance_map(roi, mode,
+                                                                 device=volume.device)
+        acc = torch.zeros((1, c_out, *full), dtype=torch.float32, device=volume.device)
+        count = torch.zeros((1, 1, *full), dtype=torch.float32, device=volume.device)
+        _blend(acc, count, preds, grid, roi, weight)
+        return (acc / count)[:, :, :d, :h, :w]
+
+    return run
+
+
+def sliding_window_inference_sharded(volume: torch.Tensor, predictor: Callable, mesh, *,
+                                     axis: str = "data",
+                                     roi_size: Sequence[int] = (96, 96, 96),
+                                     overlap: float = 0.25, mode: str = "constant",
+                                     out_channels: int | None = None) -> torch.Tensor:
+    """One call of :func:`make_sliding_window_sharded_fn` on ``volume``
+    (batch 1). The JAX package memoises the function it builds
+    (``_SHARDED_FN_CACHE``) only so that a repeat call does not trace and
+    compile its program again; the port compiles nothing, so it builds and
+    calls."""
+    if volume.shape[0] != 1:
+        raise ValueError("sliding_window_inference_sharded expects batch size 1")
+    return make_sliding_window_sharded_fn(predictor, mesh, axis=axis, roi_size=roi_size,
+                                          overlap=overlap, mode=mode,
+                                          out_channels=out_channels)(volume)

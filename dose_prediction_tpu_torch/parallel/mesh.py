@@ -132,8 +132,10 @@ VIT_TP_RULES: Tuple[Tuple[str, Split], ...] = (
     (r".*mlp\.linear1\.weight$", Split("model", "out")),
     (r".*mlp\.linear1\.bias$", Split("model", "out")),
     (r".*mlp\.linear2\.weight$", Split("model", "in")),
-    # wide conv weights: output channels
-    (r".*\.(skip4|decoder4)\..*\.weight$", Split("model", "out")),
+    # wide conv weights: output channels, the stage at the top level (TranSeg,
+    # UNETR) or below it (DOSE-PYFER's net_B); a norm's weight there has no
+    # feature dim (_feature_dim), as the JAX rule names kernels only
+    (r"(^|.*\.)(skip4|decoder4)\..*\.weight$", Split("model", "out")),
 )
 
 

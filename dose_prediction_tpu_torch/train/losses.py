@@ -143,8 +143,13 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor, *, include_background:
 
 
 def dice_ce_loss(logits: torch.Tensor, labels: torch.Tensor, *, lambda_dice: float = 1.0,
-                 lambda_ce: float = 1.0) -> torch.Tensor:
+                 lambda_ce: float = 1.0, group=None) -> torch.Tensor:
     """MONAI DiceCELoss(to_onehot_y=True, softmax=True), the TranSeg loss
-    (train_light_transeg.py:148; losses.py:170-174)."""
-    return (lambda_dice * dice_loss(logits, labels)
+    (train_light_transeg.py:148; losses.py:170-174). With ``group`` (the
+    'data' axis of a mesh, each rank holding as many rows of the global
+    batch) the loss is this rank's share: both terms are means over the
+    rows, so the global loss is the mean of the ranks' losses, and the
+    shares sum to it."""
+    loss = (lambda_dice * dice_loss(logits, labels)
             + lambda_ce * softmax_cross_entropy(logits, labels))
+    return loss if group is None else loss / group.size()

@@ -249,21 +249,24 @@ def make_dosegan_eval_step(generator: nn.Module) -> Callable[[Dict[str, torch.Te
     return step
 
 
-def make_transeg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer
+def make_transeg_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *, mesh=None
                             ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                           Tuple[TrainState, torch.Tensor]]:
     """The OAR-TranSeg step (steps.py:174-204; train_light_transeg.py:193-198):
     DiceCE on crops. ``batch``: ``ct (N, D, H, W, 1)`` and ``labels (N, D, H,
     W)`` of any integer type (uint8 on the wire), widened to int64 on their
     device for one_hot and gather. The seg family's BatchNorms update their
-    running statistics."""
+    running statistics. On a ``mesh`` whose 'data' axis splits the global
+    batch, as make_pyfer_train_step: the loss is this rank's share, the one
+    returned the global one."""
+    group = None if mesh is None else mesh.group("data")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
         logits = model(to_ncdhw(batch["ct"]))
-        loss = L.dice_ce_loss(logits, batch["labels"].long())
-        return _apply_update(state, optimizer, loss)
+        loss = L.dice_ce_loss(logits, batch["labels"].long(), group=group)
+        return _apply_update(state, optimizer, loss, group)
 
     return step
 

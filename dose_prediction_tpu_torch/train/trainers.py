@@ -30,15 +30,17 @@ TranSegTrainer, and so UNETRSegTrainer, run their steps as CUDA graphs
 (infer/aot.py::maybe_wrap_train_step, as the JAX trainers wrap theirs at
 :547 and :1047).
 
-PyferTrainer trains on a mesh (``mesh_shape``, e.g. {'data': 2},
-{'model': 2} or {'data': 2, 'model': 2}) of the processes that
-parallel/multihost.py::initialize joined, one device each (the JAX mesh
-branch, :522-609): each process builds the trainer, which shards the model
-(parallel/mesh.py::shard_params) before it makes the optimizer, feeds this
-process's rows of each global batch, and validates several patients at
-once over a 'data' axis (``_mesh_val_metrics``). Its step stays eager. The
-other trainers refuse a mesh: their mesh branches are ROADMAP queue 1 item
-7.4.
+PyferTrainer, TranSegTrainer and UNETRSegTrainer train on a mesh
+(``mesh_shape``, e.g. {'data': 2}, {'model': 2} or {'data': 2, 'model': 2})
+of the processes that parallel/multihost.py::initialize joined, one device
+each (the JAX mesh branches, :522-609 and :1027-1093): each process builds
+the trainer, which shards the model (parallel/mesh.py::shard_params) before
+it makes the optimizer, and feeds this process's rows of each global batch.
+Over a 'data' axis PyferTrainer validates several patients at once
+(``_mesh_val_metrics``), and the seg trainers split each patient's window
+batch (infer/sliding_window.py::sliding_window_inference_sharded). Their
+steps stay eager. The other trainers refuse a mesh: their mesh branches are
+ROADMAP queue 1 item 7.4.
 """
 
 from __future__ import annotations
@@ -61,7 +63,10 @@ from dose_prediction_tpu_torch.device import resolve_device
 from dose_prediction_tpu_torch.evaluation import metrics as M
 from dose_prediction_tpu_torch.infer import aot as AOT
 from dose_prediction_tpu_torch.infer.pipeline import pipeline_map
-from dose_prediction_tpu_torch.infer.sliding_window import sliding_window_inference
+from dose_prediction_tpu_torch.infer.sliding_window import (
+    sliding_window_inference,
+    sliding_window_inference_sharded,
+)
 from dose_prediction_tpu_torch.models import (
     UNETR,
     CascadeC3D,
@@ -100,7 +105,8 @@ class TrainConfig:
     log_dir: str = "logs"
     max_steps: Optional[int] = None
     # a device mesh (dp / dp×tp) over torch.distributed's processes:
-    # PyferTrainer only (module docstring); batch_size divides over 'data'
+    # PyferTrainer and the seg trainers (module docstring); batch_size
+    # divides over 'data'
     mesh_shape: Optional[Dict[str, int]] = None
     feed_dtype: str = "float32"      # 'float32' | 'bfloat16' | 'packed'
     # every N epochs a never-rotated 'iter_<global_step>' slot
@@ -127,7 +133,8 @@ def _refuse_mesh(cfg: TrainConfig) -> None:
     if cfg.mesh_shape:
         raise NotImplementedError(
             f"mesh_shape={cfg.mesh_shape}: this trainer trains on one device; its mesh "
-            "branch is ROADMAP queue 1 item 7.4 (PyferTrainer takes a mesh)")
+            "branch is ROADMAP queue 1 item 7.4 (PyferTrainer, TranSegTrainer and "
+            "UNETRSegTrainer take a mesh)")
 
 
 def _build_mesh(mesh_shape: Dict[str, int], device: torch.device):
@@ -873,7 +880,6 @@ class TranSegTrainer:
                  crop: Sequence[int] = (96, 96, 96), num_classes: int = 8,
                  pretrained_params: Optional[Dict[str, torch.Tensor]] = None,
                  block_family: str = "seg", k7_mode: str = "dense"):
-        _refuse_mesh(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.crop = tuple(crop)
@@ -882,30 +888,61 @@ class TranSegTrainer:
             out_ch=num_classes, img_size=self.crop, remat_blocks=cfg.remat_blocks,
             block_family=block_family, k7_mode=k7_mode, device=self.device))
         if pretrained_params is not None:
-            # shape-matched partial restore (train_light_transeg.py:126-146)
+            # shape-matched partial restore (train_light_transeg.py:126-146),
+            # on whole leaves before a mesh splits them (:1029-1032)
             merged, _ = C.merge_partial(self.model.state_dict(), pretrained_params)
             self.model.load_state_dict(merged, strict=True)
+        self.mesh = self.batch_sharding = plan = None
+        if cfg.mesh_shape:
+            from dose_prediction_tpu_torch.parallel import mesh as PM
+
+            # as PyferTrainer: the ViT on its heads and decoder4's convs by
+            # output channel over 'model', BatchNorm over the global batch
+            self.mesh = _build_mesh(cfg.mesh_shape, self.device)
+            _check_mesh_batch(cfg, self.mesh)
+            plan = PM.shard_params(self.model, self.mesh)
+            self.batch_sharding = PM.batch_sharding(self.mesh)
         optimizer = S.make_optimizer(self.model, learning_rate=cfg.learning_rate,
                                      weight_decay=cfg.weight_decay)
-        self.state = S.TrainState(self.model, optimizer)
+        if plan is not None:
+            optimizer.distribute(plan)
+        self.state = S.TrainState(self.model, optimizer, plan=plan)
         self.train_step = AOT.maybe_wrap_train_step(
-            "transeg", self.model, STEP.make_transeg_train_step(self.model, optimizer))
+            "transeg", self.model, STEP.make_transeg_train_step(self.model, optimizer,
+                                                                mesh=self.mesh),
+            mesh=self.mesh)
         self.logger = MetricLogger(cfg.log_dir, run_name="transeg")
         self.ckpt = C.CheckpointManager(cfg.ckpt_dir, monitor="val_loss", mode="min")
 
+    @torch.no_grad()
+    def sliding_logits(self, volume: torch.Tensor, *, sw_batch_size: int = 4) -> torch.Tensor:
+        """The eval-mode sliding-window logits ``(1, num_classes, D, H, W)`` of
+        a ``(1, 1, D, H, W)`` CT on the device at the crop's ROI. On a mesh
+        whose 'data' axis is above 1, the window batch is split over it
+        (sliding_window_inference_sharded; every ``sw_batch_size`` runs the
+        same sweep, as the JAX trainer's one program, :1069-1093); on a
+        'model'-only mesh, the local engine over the sharded model. Every
+        rank returns the same logits."""
+        self.model.eval()
+        if self.mesh is not None and self.mesh.size("data") > 1:
+            return sliding_window_inference_sharded(volume, self.model, self.mesh,
+                                                    roi_size=self.crop,
+                                                    out_channels=self.num_classes)
+        return sliding_window_inference(volume, self.model, roi_size=self.crop,
+                                        sw_batch_size=sw_batch_size,
+                                        out_channels=self.num_classes)
+
     def validate(self, val_ds: OpenKBPDataset, *, sw_batch_size: int = 4):
         """(Dice, HD95, val loss) over the cohort (train_light_transeg.py:205-242):
-        the val loss is the DiceCE of the sliding-window logits."""
+        the val loss is the DiceCE of the sliding-window logits
+        (``sliding_logits``)."""
         dices, hds, vlosses = [], [], []
-        self.model.eval()
 
         @torch.no_grad()
         def produce(p):
             gt_labels = np.asarray(p.oars_label_encoded)
             vol = torch.from_numpy(np.ascontiguousarray(p.ct[None, None], np.float32))
-            logits = sliding_window_inference(vol.to(self.device), self.model,
-                                              roi_size=self.crop, sw_batch_size=sw_batch_size,
-                                              out_channels=self.num_classes)
+            logits = self.sliding_logits(vol.to(self.device), sw_batch_size=sw_batch_size)
             labels = torch.from_numpy(gt_labels[None].astype(np.int64)).to(self.device)
             vloss = L.dice_ce_loss(logits, labels)
             return p, gt_labels, to_host({"labels": logits.argmax(dim=1), "vloss": vloss})
@@ -923,6 +960,20 @@ class TranSegTrainer:
             pass
         return float(np.nanmean(dices)), float(np.nanmean(hds)), float(np.mean(vlosses))
 
+    def batches(self, train_ds: OpenKBPDataset, epoch: int, *, num_samples: int = 4):
+        """Epoch ``epoch``'s crops on the device (:1117-1130): ``num_samples``
+        a patient, drawn from ``seed + epoch``; on a mesh, this process's rows
+        of each global batch, a short last batch dropped."""
+        cfg = self.cfg
+        rows = _feed_rows(self.batch_sharding)
+        return device_prefetch(seg_batches(
+            train_ds, crop=self.crop, num_samples=num_samples, batch_size=cfg.batch_size,
+            seed=cfg.seed + epoch, drop_last=self.mesh is not None,
+            num_samples_per_epoch=cfg.samples_per_epoch, process_rows=rows,
+            # seg has no packed format: 'packed' ships the bf16 CT
+            feed_dtype="bfloat16" if cfg.feed_dtype in ("bfloat16", "packed") else "float32"),
+            device=self.device, sharding=self.batch_sharding, local_rows=rows is not None)
+
     @_drains_checkpoints
     def fit(self, train_ds, val_ds=None, *, num_samples: int = 4, resume: bool = True):
         cfg = self.cfg
@@ -937,13 +988,7 @@ class TranSegTrainer:
         global_step = int(self.state.step)
         for epoch in range(start_epoch, cfg.max_epochs):
             losses = []
-            feed = device_prefetch(seg_batches(
-                train_ds, crop=self.crop, num_samples=num_samples,
-                batch_size=cfg.batch_size, seed=cfg.seed + epoch,
-                num_samples_per_epoch=cfg.samples_per_epoch,
-                # seg has no packed format: 'packed' ships the bf16 CT
-                feed_dtype="bfloat16" if cfg.feed_dtype in ("bfloat16", "packed")
-                else "float32"), device=self.device)
+            feed = self.batches(train_ds, epoch, num_samples=num_samples)
             with trace(cfg.profile_dir if epoch == start_epoch else None), contextlib.closing(feed):
                 for batch in feed:
                     self.state, loss = self.train_step(self.state, batch)

@@ -7,7 +7,8 @@ uint8 moments and scales included); the monitored saves keep the best
 temporary file is never read; a restore checks before it loads; the
 run_config guard refuses a changed configuration unless
 ``DPT_FRESH_ON_MISMATCH=1``. merge_partial and load_pretrained_net_a equal
-the JAX functions on weights carried across by weights.jax_to_torch, and
+the JAX functions on weights carried across by weights.jax_to_torch (seeded
+values in the JAX models' structure: no init program is compiled), and
 load_torch_checkpoint reads the three container formats of a replica of
 the reference C3D cascade (tests/test_torch_import.py) into the port's
 CascadeC3D with a strict load.
@@ -191,8 +192,13 @@ def test_unrestorable_slots_are_refused_unless_fresh(tmp_path, monkeypatch):
 
 
 def jax_variables(model, shape, seed):
-    v = jax.jit(model.init)(jax.random.PRNGKey(seed), jnp.zeros(shape, jnp.float32))
-    return jax.tree_util.tree_map(np.asarray, v)
+    """Variables of ``model``'s structure (``jax.eval_shape`` of its init,
+    which compiles nothing), each leaf drawn from a normal seeded by
+    ``seed``: the merges copy by path and shape, whatever the values."""
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(seed), jnp.zeros(shape, jnp.float32))
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s.shape).astype(s.dtype), shapes)
 
 
 def port_pyfer():

@@ -1,10 +1,18 @@
-"""The port's mesh in two gloo processes on the CPU (modelled on
-tests/test_multihost.py and tests/test_multihost_trainer.py).
+"""The port's mesh in gloo worker processes on the CPU (modelled on
+tests/test_multihost.py, tests/test_multihost_trainer.py and
+tests/test_multihost_seg.py).
 
-Worker processes import torch and the port only; each joins a world of two
-through parallel/multihost.py::initialize on a free port (from a socket
-bound to port 0: ``--dist loadfile`` runs test files side by side), is
-waited for with its own timeout and killed on expiry, with its pair.
+Worker processes import torch and the port only. One pair of them joins a
+world of two through parallel/multihost.py::initialize on a free port (from
+a socket bound to port 0: ``--dist loadfile`` runs test files side by side),
+runs every two-process job of this file in turn in that one world, leaves
+it, and then runs the one-process references, split between the two. Four
+more join a world of four for the {'data': 2, 'model': 2} job once the pair
+has exited: no more than four worker processes run at once. Each world is
+waited for with its own timeout and killed on expiry; a worker writes its
+output to a file (a pipe nobody reads would stop it mid-job). While the
+pair runs, this process runs the JAX package: its fits, the packages'
+forward gaps that size the noise runs, its sharded window.
 
 - The toy step: a data-parallel step of a linear model on {'data': 2},
   whose masked mean divides by the global mask count with one rank's mask
@@ -29,34 +37,69 @@ waited for with its own timeout and killed on expiry, with its pair.
   amplitude the packages' forward gap, at least 1e-6); adam8bit's second
   epoch loss within that file's 2e-3, and its 8-bit moments laid out in
   the single-device blocks (after four updates their codes differ as the
-  trajectories do: the quantizer magnifies rounding). The validation over the data axis at the
-  initial weights within rel 1e-5 of the batch-1 sweep.
+  trajectories do: the quantizer magnifies rounding). The validation over
+  the data axis at the initial weights within rel 1e-5 of the batch-1
+  sweep.
 - A slot written on {'model': 2} after the first epoch (whole leaves)
   resumes in one process, whose second epoch lands where the mesh's did.
 - {'data': 2, 'model': 2} in four processes: one step in lockstep, its
   loss and the validation at the initial weights as the one process's.
+- TranSeg: the CLIs' small one (feature size 2, ViT 24/48, four layers,
+  two heads) on 32³ crops of the same two patients, as
+  tests/test_torch_port_trainers_seg_c3d.py trains it. At 16³ a window is
+  one ViT token, whose softmax is exactly 1: q and k would get no
+  gradient, and the {'model': 2} split of attention would be held through
+  v alone; here each window is 2³ tokens. The JAX programs are then that
+  file's too, which the persistent compile cache keeps once.
+- The sharded sliding window (infer/sliding_window.py) on {'data': 2}: a
+  72 × 72 × 32 volume in 32³ windows, whose 9 windows become 10, against the JAX
+  package's sliding_window_inference_sharded on a two-device JAX mesh at
+  rel/abs 1e-5 (tests/test_parallel.py:77-95's bar), with that test's
+  affine predictor and with the TranSeg carried across by weights.py;
+  each rank predicts its 5 windows in one call, and both blend alike.
+- ``TranSegTrainer.fit``, two epochs of two crops a patient, AdamW, as
+  PyferTrainer's: {'data': 2} with batch 2 and {'model': 2} with batch 1
+  against the one-process fit of the same global batch, {'data': 2} also
+  against the JAX package's TranSegTrainer; the validation on each mesh at
+  the initial weights within rel 1e-4 of the one-process sweep (the JAX
+  test's bar, tests/test_mesh_val.py:98-104), for the val loss, Dice and
+  HD95; the {'model': 2} slot after the first epoch resumes in one
+  process.
 """
+import dataclasses
 import json
-import math
 import shutil
 import socket
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+import jax
+import jax.numpy as jnp
+
 torch = pytest.importorskip("torch")
 
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
+from dose_prediction_tpu.infer.sliding_window import (  # noqa: E402
+    sliding_window_inference_sharded as jax_sharded_window,
+)
 from dose_prediction_tpu.models import DosePyfer as JDosePyfer  # noqa: E402
+from dose_prediction_tpu.cli import main as JCLI  # noqa: E402
+from dose_prediction_tpu.parallel import mesh as JPM  # noqa: E402
 from dose_prediction_tpu.train import trainers as JT  # noqa: E402
 
 from dose_prediction_tpu_torch import weights  # noqa: E402
-from dose_prediction_tpu_torch.models import DosePyfer  # noqa: E402
+from dose_prediction_tpu_torch.infer.sliding_window import (  # noqa: E402
+    sliding_window_inference,
+    sliding_window_inference_sharded,
+)
+from dose_prediction_tpu_torch.models import DosePyfer, TranSeg  # noqa: E402
 from dose_prediction_tpu_torch.train import losses as L  # noqa: E402
 from dose_prediction_tpu_torch.train import state as S  # noqa: E402
 from dose_prediction_tpu_torch.train.adam8bit import Adam8bit  # noqa: E402
@@ -70,7 +113,6 @@ from test_torch_port_trainers import (  # noqa: E402,F401
     jax_without_native,
     make_cohort,
     noise_amplitude,
-    noisy_outputs,
     records,
     variables_of,
 )
@@ -79,24 +121,35 @@ REPO = Path(__file__).resolve().parents[1]
 TINY = dict(out_ch=1, list_ch_A=(-1, 4, 8, 16, 32, 64), feature_size=4, hidden_size=48,
             mlp_dim=96, num_layers=8, num_heads=6)
 SHAPE = (1, 32, 32, 32, 9)
-WORKER_TIMEOUT_S = 240
+# the CLIs' small TranSeg on 32³ crops of the 32³ cohort, as
+# tests/test_torch_port_trainers_seg_c3d.py trains it (module docstring)
+SEG_TINY = dict(out_ch=8, feature_size=2, hidden_size=24, mlp_dim=48, num_layers=4,
+                num_heads=2)
+CROP, SEG_SAMPLES = (32, 32, 32), 2
+WINDOW_VOLUME = (1, 2, 72, 72, 32)     # 3 × 3 × 1 windows of 32³, padded to 10 over two ranks
+WORLD_TIMEOUT_S = 900
 NO_VAL = 5          # a check_val past the two epochs: the one-process fits skip validation
 EXCLUDE = ("net_A.", "conv_out_A.")
+REL_SEG_VAL = 1e-4
 
 WORKER = textwrap.dedent("""
     import json, sys
     sys.path.insert(0, {repo!r})
+    import numpy as np
     import torch
     torch.set_num_threads(1)
     a = json.load(open(sys.argv[1]))
     from dose_prediction_tpu_torch.parallel import multihost as MH
-    MH.initialize("127.0.0.1:%d" % a["port"], a["world"], a["rank"], device="cpu")
+    RANK = a["rank"]
+    MH.initialize("127.0.0.1:%d" % a["port"], a["world"], RANK, device="cpu")
     from dose_prediction_tpu_torch.parallel import mesh as PM
-    out = {{}}
-    if a["job"] == "toy":
+
+
+    def toy(a):
         from dose_prediction_tpu_torch.parallel.collectives import all_reduce_
         from dose_prediction_tpu_torch.train import losses as L
         from dose_prediction_tpu_torch.train import state as S
+        out = {{}}
         x, y, m = (torch.tensor(a[k]) for k in ("x", "y", "mask"))
         mesh = PM.create_mesh({{"data": 2}})
         rows = PM.batch_sharding(mesh).rows(x.shape[0])
@@ -143,10 +196,14 @@ WORKER = textwrap.dedent("""
         out["rep"] = rep.tolist()
         out["q_moments"] = [t.tolist() for k in ("mu", "nu")
                             for t in opt8.state_dict()["moments"][k].values()]
-    elif a["job"] == "bn":
+        return out
+
+
+    def bn(a):
         from dose_prediction_tpu_torch.nn.layers import BatchNorm3d
         from dose_prediction_tpu_torch.parallel import sharded
         from dose_prediction_tpu_torch.parallel.collectives import all_reduce_
+        out = {{}}
         mesh = PM.create_mesh({{"data": 2}})
         x, w = torch.tensor(a["x"]), torch.tensor(a["w"])
         rows = PM.batch_sharding(mesh).rows(x.shape[0])
@@ -163,7 +220,11 @@ WORKER = textwrap.dedent("""
         out["dgamma"] = all_reduce_(net[0].weight.grad.clone(), data).tolist()
         out["dbeta"] = all_reduce_(net[0].bias.grad.clone(), data).tolist()
         out["running"] = [net[0].running_mean.tolist(), net[0].running_var.tolist()]
-    else:
+        return out
+
+
+    def fit(a):
+        wait(a["init"])
         from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
         from dose_prediction_tpu_torch.models import DosePyfer
         from dose_prediction_tpu_torch.train import trainers as T
@@ -175,11 +236,136 @@ WORKER = textwrap.dedent("""
                             optimizer=a["optimizer"], mesh_shape=a["mesh"],
                             save_per_epoch=1, ckpt_dir=a["ckpt"], log_dir=a["log"])
         tr = T.PyferTrainer(cfg, model=model, example_shape=(1, 32, 32, 32, 9))
-        out["validate"] = tr.validate(ds)
+        out = {{"validate": tr.validate(ds)}}
         tr.fit(ds, ds, resume=False)
         out["step"] = tr.state.step
         out["moving_loss"] = float(tr.state.moving_loss)
-    print("RESULT " + json.dumps(out), flush=True)
+        return out
+
+
+    def seg_model(a):
+        from dose_prediction_tpu_torch.models import TranSeg
+        model = TranSeg(img_size=a["crop"], device="cpu", **a["seg_tiny"])
+        model.load_state_dict(torch.load(a["init"], weights_only=True))
+        return model
+
+
+    def wait(path):
+        # path, once the test process has written it
+        import os, time
+        deadline = time.monotonic() + a["timeout"]
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise TimeoutError(path)
+            time.sleep(0.2)
+        return path
+
+
+    def noisy_outputs(seed, amplitude):
+        # tests/test_torch_port_trainers.py::noisy_outputs
+        from unittest import mock
+        from dose_prediction_tpu_torch.nn.layers import InstanceNorm3d, Linear
+        g = torch.Generator().manual_seed(seed)
+
+        def noisy(forward):
+            def run(self, inp):
+                out = forward(self, inp)
+                u = torch.rand(out.shape, generator=g) * 2 - 1
+                return out + (out * (amplitude * u)).detach()
+            return run
+
+        patches = [mock.patch.object(InstanceNorm3d, "forward", noisy(InstanceNorm3d.forward)),
+                   mock.patch.object(Linear, "forward", noisy(Linear.forward))]
+        for p in patches:
+            p.start()
+        return patches
+
+
+    def one_trainer(a, mesh=None, **kw):
+        from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
+        from dose_prediction_tpu_torch.models import DosePyfer
+        from dose_prediction_tpu_torch.train import trainers as T
+        ds = OpenKBPDataset(a["pattern"], keep_structures=True, num_workers=1)
+        cfg = T.TrainConfig(max_epochs=2, batch_size=a["batch"], device="cpu",
+                            mesh_shape=mesh, ckpt_dir=a["ckpt"], log_dir=a["log"], **kw)
+        if a["model"] == "seg":
+            return ds, T.TranSegTrainer(cfg, model=seg_model(a), crop=a["crop"])
+        model = DosePyfer(img_size=32, device="cpu", **a["tiny"])
+        model.load_state_dict(torch.load(a["init"], weights_only=True))
+        return ds, T.PyferTrainer(cfg, model=model, example_shape=(1, 32, 32, 32, 9))
+
+
+    def ref_validate(a):
+        ds, tr = one_trainer(a)
+        return {{"validate": tr.validate(ds, **a["validate_kw"])}}
+
+
+    def ref_fit(a):
+        # the one-process fit of a global batch, a noise run with "seed"
+        ds, tr = one_trainer(a, check_val=a["no_val"], optimizer=a["optimizer"])
+        patches = []
+        if a["seed"] is not None:
+            amplitude = json.load(open(wait(a["amplitude"])))[a["model"]]
+            patches = noisy_outputs(a["seed"], amplitude)
+        tr.fit(ds, ds, resume=False, **a["fit_kw"])
+        for p in patches:
+            p.stop()
+        out = {{"model": tr.model.state_dict(), "step": tr.state.step}}
+        if a["optimizer"] == "adam8bit":
+            out["moments"] = tr.state.optimizer.state_dict()["moments"]
+        torch.save(out, a["out"])
+        return {{}}
+
+
+    def leave(a):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        return {{}}
+
+
+    def seg_window(a):
+        from dose_prediction_tpu_torch.infer.sliding_window import (
+            sliding_window_inference_sharded)
+        wait(a["init"])
+        mesh = PM.create_mesh({{"data": 2}})
+        vol = torch.from_numpy(np.load(a["volume"]))
+        model = seg_model(a).eval()
+        calls = []
+
+        def counted(predictor):
+            def run(windows):
+                calls.append(windows.shape[0])
+                return predictor(windows)
+            return run
+
+        affine = sliding_window_inference_sharded(
+            vol, counted(lambda w: w * 2.0 + 1.0), mesh, roi_size=a["crop"])
+        with torch.no_grad():
+            logits = sliding_window_inference_sharded(vol[:, :1], counted(model), mesh,
+                                                      roi_size=a["crop"], out_channels=8)
+        for name, t in (("affine", affine), ("logits", logits)):
+            np.save("%s_%s_%d.npy" % (a["out"], name, RANK), t.numpy())
+        return {{"calls": calls}}
+
+
+    def seg_fit(a):
+        wait(a["init"])
+        ds, tr = one_trainer(a, a["mesh"], check_val=2, save_per_epoch=1)
+        out = {{"validate": tr.validate(ds, sw_batch_size=2),
+               "split_leaves": sorted(tr.state.plan.shards)}}
+        tr.fit(ds, ds, num_samples=a["samples"], resume=False)
+        out["step"] = tr.state.step
+        out["moving_loss"] = float(tr.state.moving_loss)
+        return out
+
+
+    for job in a["jobs"]:
+        if job.get("on_rank", RANK) != RANK:
+            continue
+        out = {{"toy": toy, "bn": bn, "fit": fit, "seg_window": seg_window,
+               "seg_fit": seg_fit, "leave": leave, "ref_validate": ref_validate,
+               "ref_fit": ref_fit}}[job["job"]](job)
+        print("RESULT " + json.dumps({{"tag": job["tag"], **out}}), flush=True)
 """).format(repo=str(REPO))
 
 
@@ -189,40 +375,54 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(job: dict, where: Path, world: int = 2):
-    """``world`` worker processes of ``job`` on a free port, each reading
-    its arguments from a JSON file under ``where``."""
+def launch(jobs: list, where: Path, world: int):
+    """``world`` worker processes on a free port that run ``jobs`` in turn in
+    one world, each reading its arguments from a JSON file under ``where``
+    and writing its output to a log file there (a pipe that nobody reads
+    while the other rank is waited for would block a rank mid-job)."""
     port, procs = free_port(), []
     for rank in range(world):
-        args = where / f"job_{port}_{rank}.json"
-        args.write_text(json.dumps({**job, "rank": rank, "port": port, "world": world}))
-        procs.append(subprocess.Popen([sys.executable, "-c", WORKER, str(args)],
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True))
+        args = where / f"world_{port}_{rank}.json"
+        args.write_text(json.dumps({"jobs": jobs, "rank": rank, "port": port, "world": world,
+                                    "timeout": WORLD_TIMEOUT_S}))
+        with open(where / f"world_{port}_{rank}.log", "w") as out:
+            procs.append((subprocess.Popen([sys.executable, "-c", WORKER, str(args)],
+                                           stdout=out, stderr=subprocess.STDOUT),
+                          where / f"world_{port}_{rank}.log"))
     return procs
 
 
-def results(procs) -> list:
-    """Each worker's RESULT, waiting for each with its own timeout; on a
-    timeout or a failure both are killed and the test fails with their
-    output."""
-    outs = []
-    for p in procs:
+def kill(procs) -> None:
+    """Kill the workers still running."""
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def results(procs) -> dict:
+    """{job tag: [each rank's RESULT]}, waiting for the world with its own
+    timeout; on a timeout or a failure all are killed and the test fails
+    with their output."""
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    for p, _ in procs:
         try:
-            out, _ = p.communicate(timeout=WORKER_TIMEOUT_S)
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
         except subprocess.TimeoutExpired:
-            partial = []
-            for q in procs:
-                q.kill()
-                partial.append(q.communicate()[0])
-            pytest.fail("mesh worker hung; output:\n" + "\n---\n".join(partial))
+            kill(procs)
+            pytest.fail("mesh worker hung; output:\n" +
+                        "\n---\n".join(log.read_text()[-6000:] for _, log in procs))
         if p.returncode != 0:
-            for q in procs:
-                q.kill()
-            pytest.fail(f"mesh worker failed ({p.returncode}):\n{out}")
-        outs.append(out)
-    return [json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:])
-            for out in outs]
+            kill(procs)
+            pytest.fail(f"mesh worker failed ({p.returncode}):\n" +
+                        "\n---\n".join(log.read_text()[-6000:] for _, log in procs))
+    got = {}
+    for _, log in procs:
+        for line in log.read_text().splitlines():
+            if line.startswith("RESULT "):
+                rec = json.loads(line[7:])
+                got.setdefault(rec.pop("tag"), []).append(rec)
+    return got
 
 
 def toy_inputs():
@@ -240,23 +440,220 @@ def toy_inputs():
                         rng.normal(size=5000).astype(np.float32).tolist()] for _ in range(2)]}
 
 
-def test_batchnorm_takes_the_global_batch_statistics(tmp_path):
+def bn_inputs():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4, 3, 2, 3, 2)).astype(np.float32)
+    x[2:] = 3 * x[2:] + 1           # rank 1's rows: another mean and spread
+    return {"x": x.tolist(), "w": rng.normal(size=x.shape).astype(np.float32).tolist(),
+            "gamma": rng.uniform(0.5, 1.5, size=3).astype(np.float32).tolist()}
+
+
+def port_model(start):
+    model = DosePyfer(img_size=32, device="cpu", **TINY)
+    model.load_state_dict(weights.jax_to_torch(start, model), strict=True)
+    return model
+
+
+def port_seg_model(start):
+    model = TranSeg(img_size=CROP, device="cpu", **SEG_TINY)
+    model.load_state_dict(weights.jax_to_torch(start, model), strict=True)
+    return model
+
+
+def state_of(model):
+    return {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+
+
+@dataclasses.dataclass
+class Ref:
+    """A one-process fit of a global batch that a worker ran after the mesh
+    jobs: its step count, final state (numpy), metric records and, for
+    adam8bit, its moments."""
+
+    step: int
+    final: dict
+    recs: dict
+    moments: dict = None
+
+
+def ref_jobs(root, common, tag, batch, optimizer="adamw", noise=(0, 1)):
+    """The one-process fit of ``tag``'s global batch and its noise runs
+    (seeds ``noise``), as worker jobs."""
+    return [{"job": "ref_fit", "tag": f"{tag}_{name}", **common, "batch": batch,
+             "optimizer": optimizer, "seed": seed, "no_val": NO_VAL,
+             "amplitude": str(root / "amplitude.json"), "out": str(root / f"{tag}_{name}.pt"),
+             "ckpt": str(root / f"{tag}_{name}_ck"), "log": str(root / f"{tag}_{name}_log")}
+            for name, seed in [("one", None)] + [(f"noise{s}", s) for s in noise]]
+
+
+def load_ref(root, tag, name) -> Ref:
+    out = torch.load(root / f"{tag}_{name}.pt", weights_only=True)
+    return Ref(out["step"], {k: v.numpy() for k, v in out["model"].items()},
+               records(root / f"{tag}_{name}_log"), out.get("moments"))
+
+
+def fit_jobs(root, pattern, tags):
+    """The PyferTrainer jobs by tag: (mesh, global batch, optimizer, epochs)."""
+    return [{"job": "fit", "tag": tag, "pattern": pattern, "init": str(root / "init.pt"),
+             "tiny": TINY, "mesh": mesh, "batch": batch, "optimizer": opt, "epochs": epochs,
+             "ckpt": str(root / f"{tag}_mesh_ck"), "log": str(root / f"{tag}_mesh_log")}
+            for tag, (mesh, batch, opt, epochs) in tags.items()]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The two-process jobs, then the one-process references, in one worker
+    pair started first; while it runs, the JAX package's trainers (whose
+    initial weights the workers wait for), fits, forward gaps and sharded
+    window in this process; then the four-process job."""
+    root = tmp_path_factory.mktemp("mesh")
+    ds, jds = make_cohort(root / "cohort", 32)
+    volume = np.random.default_rng(11).standard_normal(WINDOW_VOLUME).astype(np.float32)
+    np.save(root / "volume.npy", volume)
+    pattern = str(root / "cohort" / "pt_*")
+    pyfer = {"model": "pyfer", "pattern": pattern, "init": str(root / "init.pt"), "tiny": TINY,
+             "fit_kw": {}, "validate_kw": {}}
+    seg = {"model": "seg", "pattern": pattern,
+           "init": str(root / "seg_init.pt"), "seg_tiny": SEG_TINY, "crop": CROP,
+           "fit_kw": {"num_samples": SEG_SAMPLES}, "validate_kw": {"sw_batch_size": 2}}
+    jobs = {"dp": ({"data": 2}, 2, "adamw"), "tp": ({"model": 2}, 1, "adamw"),
+            "tp8": ({"model": 2}, 1, "adam8bit")}
+    seg_jobs = {"seg_dp": ({"data": 2}, 2), "seg_tp": ({"model": 2}, 1)}
+    # the references split between the ranks, about 30 s each alone
+    refs = [[{"job": "ref_validate", "tag": "validate", **pyfer, "batch": 1,
+              "ckpt": str(root / "probe_ck"), "log": str(root / "probe_log")},
+             *ref_jobs(root, pyfer, "dp", 2),
+             *ref_jobs(root, pyfer, "tp8", 1, "adam8bit", noise=()),
+             *ref_jobs(root, seg, "seg_dp", seg_jobs["seg_dp"][1])],
+            [*ref_jobs(root, pyfer, "tp", 1),
+             {"job": "ref_validate", "tag": "seg_validate", **seg, "batch": 1,
+              "ckpt": str(root / "seg_probe_ck"), "log": str(root / "seg_probe_log")},
+             *ref_jobs(root, seg, "seg_tp", seg_jobs["seg_tp"][1])]]
+    pair = launch(
+        [{"job": "toy", "tag": "toy", **toy_inputs()}, {"job": "bn", "tag": "bn", **bn_inputs()},
+         *fit_jobs(root, pattern, {tag: (*job, 2) for tag, job in jobs.items()}),
+         {"job": "seg_window", "tag": "seg_window", "volume": str(root / "volume.npy"),
+          "out": str(root / "window"), **seg},
+         *[{"job": "seg_fit", "tag": tag, **seg, "mesh": mesh, "batch": batch,
+            "samples": SEG_SAMPLES, "ckpt": str(root / f"{tag}_mesh_ck"),
+            "log": str(root / f"{tag}_mesh_log")} for tag, (mesh, batch) in seg_jobs.items()],
+         {"job": "leave", "tag": "leave"},
+         *[{**job, "on_rank": rank} for rank, rank_jobs in enumerate(refs) for job in rank_jobs]],
+        root, 2)
+    quad = []
+
+    def quad_after_pair():
+        # the four-process job once the pair has exited: four workers at most
+        if not quad and all(p.poll() is not None for p, _ in pair):
+            quad.extend(launch(fit_jobs(root, pattern,
+                                        {"dptp": ({"data": 2, "model": 2}, 2, "adamw", 1)}),
+                               root, 4))
+
+    try:
+        # the workers' jobs that need them wait for init.pt and seg_init.pt
+        jcfg = JT.TrainConfig(max_epochs=2, check_val=NO_VAL, batch_size=2, seed=0,
+                              ckpt_dir=str(root / "jax_ck"), log_dir=str(root / "jax_log"))
+        jtr = JT.PyferTrainer(jcfg, model=JDosePyfer(**TINY), example_shape=SHAPE)
+        start = variables_of(jtr.state)
+        torch.save(port_model(start).state_dict(), root / "init.pt.tmp")
+        (root / "init.pt.tmp").rename(root / "init.pt")
+        sjcfg = JT.TrainConfig(max_epochs=2, check_val=NO_VAL, batch_size=2, seed=0,
+                               ckpt_dir=str(root / "seg_jax_ck"),
+                               log_dir=str(root / "seg_jax_log"))
+        sjtr = JT.TranSegTrainer(sjcfg, model=JCLI.default_seg_model(small=True), crop=CROP)
+        seg_start = variables_of(sjtr.state)
+        seg_model = port_seg_model(seg_start)
+        torch.save(seg_model.state_dict(), root / "seg_init.pt.tmp")
+        (root / "seg_init.pt.tmp").rename(root / "seg_init.pt")
+        # the packages' forward gaps size the noise runs
+        from dose_prediction_tpu.data.pipeline import dose_batches
+
+        first = next(dose_batches(jds, batch_size=1, shuffle=False, augment=False))
+        tr0 = T.PyferTrainer(T.TrainConfig(device="cpu", log_dir=str(root / "gap_log"),
+                                           ckpt_dir=str(root / "gap_ck")),
+                             model=port_model(start), example_shape=SHAPE)
+        gaps = {"pyfer": noise_amplitude(
+            tr0.eval_step({k: torch.from_numpy(np.asarray(v)) for k, v in first.items()})
+            ["prediction"], jtr.eval_step(jtr.state, first)["prediction"])}
+        ct = jds.patients[0].ct[None, ..., None]
+        with torch.no_grad():
+            port_logits = seg_model.eval()(torch.from_numpy(np.ascontiguousarray(
+                ct.transpose(0, 4, 1, 2, 3)))).numpy()
+        jax_logits = np.asarray(sjtr.model.apply(seg_start, ct, train=False,
+                                                 mutable=["batch_stats"])[0])
+        jax_logits = jax_logits.transpose(0, 4, 1, 2, 3)
+        gaps["seg"] = noise_amplitude(port_logits, jax_logits)
+        (root / "amplitude.json.tmp").write_text(json.dumps(gaps))
+        (root / "amplitude.json.tmp").rename(root / "amplitude.json")
+        one = {"start": start, "seg_start": seg_start,
+               "seg_forward_gap": float(np.abs(port_logits - jax_logits).max())}
+        # the window: the port in one process at sw batch 5 (the ranks'
+        # batches), and the JAX package sharded on two virtual devices
+        with torch.no_grad():
+            one["port_window"] = sliding_window_inference(
+                torch.from_numpy(volume[:, :1]), seg_model, roi_size=CROP, sw_batch_size=5,
+                out_channels=8).numpy()
+        jmesh = JPM.create_mesh({"data": 2}, devices=jax.devices()[:2])
+        vol = np.ascontiguousarray(volume.transpose(0, 2, 3, 4, 1))
+
+        def jax_predictor(windows, variables):
+            return sjtr.model.apply(variables, windows, train=False, mutable=["batch_stats"])[0]
+
+        one["jax_window"] = {
+            "affine": np.asarray(jax_sharded_window(jnp.asarray(vol), lambda w: w * 2.0 + 1.0,
+                                                    jmesh, roi_size=CROP)),
+            "logits": np.asarray(jax_sharded_window(jnp.asarray(vol[..., :1]), jax_predictor,
+                                                    jmesh, roi_size=CROP, out_channels=8,
+                                                    predictor_args=(seg_start,)))}
+        quad_after_pair()
+        jtr.fit(jds, jds, resume=False)
+        one["jax"] = (jtr, records(jcfg.log_dir))
+        quad_after_pair()
+        sjtr.fit(jds, jds, num_samples=SEG_SAMPLES, resume=False)
+        one["seg_jax"] = (sjtr, records(sjcfg.log_dir))
+        mesh = results(pair)
+        quad_after_pair()
+        mesh.update(results(quad))
+    finally:
+        kill(pair + quad)
+    one["validate"] = mesh["validate"][0]["validate"]
+    one["seg_validate"] = mesh["seg_validate"][0]["validate"]
+    for tag in (*jobs, *seg_jobs):
+        one[tag] = load_ref(root, tag, "one")
+        if tag != "tp8":
+            one[tag + "_noise"] = [(r.final, r.recs) for r in (load_ref(root, tag, f"noise{s}")
+                                                               for s in (0, 1))]
+    return root, ds, one, mesh
+
+
+LR = T.TrainConfig().learning_rate      # every fit's
+
+
+def mesh_final(root, tag, model):
+    """The mesh run's final whole leaves (rank 0's 'last' slot) as numpy."""
+    slot = torch.load(root / f"{tag}_mesh_ck" / "last.pt", weights_only=True)
+    assert set(slot["model"]) == set(model.state_dict())
+    return {k: v.numpy() for k, v in slot["model"].items()}, slot
+
+
+def hold(init, one_final, noisy, mesh_state, updates):
+    assert_params_by_noise_rule(init, one_final, [r for r, _ in noisy], mesh_state,
+                                ZERO_GRAD_CONV31, LR, updates, exclude=EXCLUDE)
+
+
+def test_batchnorm_takes_the_global_batch_statistics(runs):
     """DOSE-PYFER's decoders hold BatchNorm3d: on {'data': 2} it is recast as
     DataBatchNorm3d, whose forward, input gradient, summed affine gradients
     and running statistics are the one-process BatchNorm3d's over the
     global batch (rows of unequal spread on the two ranks)."""
     from dose_prediction_tpu_torch.nn.layers import BatchNorm3d
 
-    rng = np.random.default_rng(5)
-    x = rng.normal(size=(4, 3, 2, 3, 2)).astype(np.float32)
-    x[2:] = 3 * x[2:] + 1           # rank 1's rows: another mean and spread
-    inp = {"x": x.tolist(), "w": rng.normal(size=x.shape).astype(np.float32).tolist(),
-           "gamma": rng.uniform(0.5, 1.5, size=3).astype(np.float32).tolist()}
-    got = results(launch({"job": "bn", **inp}, tmp_path))
+    got = runs[3]["bn"]
+    inp = bn_inputs()
     bn = BatchNorm3d(3)
     with torch.no_grad():
         bn.weight.copy_(torch.tensor(inp["gamma"]))
-    xt = torch.tensor(x, requires_grad=True)
+    xt = torch.tensor(inp["x"], requires_grad=True)
     y = bn(xt)
     (y * torch.tensor(inp["w"])).sum().backward()
     close = dict(rtol=1e-5, atol=1e-6)
@@ -271,9 +668,9 @@ def test_batchnorm_takes_the_global_batch_statistics(tmp_path):
         assert np.allclose(g["running"][1], bn.running_var.numpy(), **close)
 
 
-def test_toy_step_and_clip_match_one_process(tmp_path):
+def test_toy_step_and_clip_match_one_process(runs):
     inp = toy_inputs()
-    got = results(launch({"job": "toy", **inp}, tmp_path))
+    got = runs[3]["toy"]
     assert got[0]["grad"] == got[1]["grad"] and got[0]["w"] == got[1]["w"]
     x, y, m = (np.asarray(inp[k], np.float64) for k in ("x", "y", "mask"))
     r = x @ np.full(3, 0.1) - y
@@ -313,108 +710,20 @@ def test_toy_step_and_clip_match_one_process(tmp_path):
         assert g["rep"] == rep.tolist()
 
 
-def port_model(start):
-    model = DosePyfer(img_size=32, device="cpu", **TINY)
-    model.load_state_dict(weights.jax_to_torch(start, model), strict=True)
-    return model
-
-
-def state_of(model):
-    return {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
-
-
-def one_process(root, tag, start, ds, batch, optimizer, amplitude=None, seed=None):
-    """The port's fit of the same global batch in this process: (trainer,
-    final state, records); with ``amplitude``, a noise run of ``seed``."""
-    cfg = T.TrainConfig(max_epochs=2, check_val=NO_VAL, batch_size=batch, device="cpu",
-                        optimizer=optimizer, ckpt_dir=str(root / f"{tag}_ck"),
-                        log_dir=str(root / f"{tag}_log"))
-    tr = T.PyferTrainer(cfg, model=port_model(start), example_shape=SHAPE)
-    if amplitude is None:
-        tr.fit(ds, ds, resume=False)
-    else:
-        with noisy_outputs(seed, amplitude):
-            tr.fit(ds, ds, resume=False)
-    return tr, state_of(tr.model), records(cfg.log_dir)
-
-
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The mesh runs in worker pairs, and, while they run, the one-process
-    fits, their noise runs and the JAX fit."""
-    root = tmp_path_factory.mktemp("mesh")
-    ds, jds = make_cohort(root / "cohort", 32)
-    jcfg = JT.TrainConfig(max_epochs=2, check_val=NO_VAL, batch_size=2, seed=0,
-                          ckpt_dir=str(root / "jax_ck"), log_dir=str(root / "jax_log"))
-    jtr = JT.PyferTrainer(jcfg, model=JDosePyfer(**TINY), example_shape=SHAPE)
-    start = variables_of(jtr.state)
-    torch.save(port_model(start).state_dict(), root / "init.pt")
-    jobs = {"dp": ({"data": 2}, 2, "adamw"), "tp": ({"model": 2}, 1, "adamw"),
-            "tp8": ({"model": 2}, 1, "adam8bit")}
-    # (mesh, global batch, optimizer, epochs) by tag; 'dptp', four
-    # processes, one epoch of one step
-    runs_on = {**{tag: (*job, 2) for tag, job in jobs.items()},
-               "dptp": ({"data": 2, "model": 2}, 2, "adamw", 1)}
-    procs = {tag: launch({"job": "fit", "pattern": str(root / "cohort" / "pt_*"),
-                          "init": str(root / "init.pt"), "tiny": TINY, "mesh": mesh,
-                          "batch": batch, "optimizer": opt, "epochs": epochs,
-                          "ckpt": str(root / f"{tag}_mesh_ck"),
-                          "log": str(root / f"{tag}_mesh_log")}, root, math.prod(mesh.values()))
-             for tag, (mesh, batch, opt, epochs) in runs_on.items()}
-    try:
-        from dose_prediction_tpu.data.pipeline import dose_batches
-
-        first = next(dose_batches(jds, batch_size=1, shuffle=False, augment=False))
-        probe = port_model(start)
-        tr0 = T.PyferTrainer(T.TrainConfig(device="cpu", log_dir=str(root / "probe_log"),
-                                           ckpt_dir=str(root / "probe_ck")),
-                             model=probe, example_shape=SHAPE)
-        amplitude = noise_amplitude(
-            tr0.eval_step({k: torch.from_numpy(np.asarray(v)) for k, v in first.items()})
-            ["prediction"], jtr.eval_step(jtr.state, first)["prediction"])
-        one = {"validate": tr0.validate(ds), "amplitude": amplitude, "start": start}
-        for tag, (_, batch, opt) in jobs.items():
-            one[tag] = one_process(root, f"{tag}_one", start, ds, batch, opt)
-            if opt == "adamw":
-                one[tag + "_noise"] = [one_process(root, f"{tag}_noise{s}", start, ds, batch,
-                                                   opt, amplitude, s)[1:] for s in (0, 1)]
-        jtr.fit(jds, jds, resume=False)
-        one["jax"] = (jtr, records(jcfg.log_dir))
-        mesh = {tag: results(p) for tag, p in procs.items()}
-    finally:
-        for p in (q for pair in procs.values() for q in pair):
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    return root, ds, one, mesh
-
-
-def mesh_final(root, tag, model):
-    """The mesh run's final whole leaves (rank 0's 'last' slot) as numpy."""
-    slot = torch.load(root / f"{tag}_mesh_ck" / "last.pt", weights_only=True)
-    assert set(slot["model"]) == set(model.state_dict())
-    return {k: v.numpy() for k, v in slot["model"].items()}, slot
-
-
-def hold(init, one_final, noisy, mesh_state, lr, updates):
-    assert_params_by_noise_rule(init, one_final, [r for r, _ in noisy], mesh_state,
-                                ZERO_GRAD_CONV31, lr, updates, exclude=EXCLUDE)
-
-
 @pytest.mark.parametrize("tag", ["dp", "tp"])
 def test_mesh_fit_matches_one_process(runs, tag):
     root, _, one, mesh = runs
-    tr, final, recs = one[tag]
+    ref = one[tag]
     ranks = mesh[tag]
     assert ranks[0]["moving_loss"] == ranks[1]["moving_loss"]     # replicas in lockstep
-    assert ranks[0]["step"] == tr.state.step == (2 if tag == "dp" else 4)
-    got, slot = mesh_final(root, tag, tr.model)
-    assert slot["step"] == tr.state.step
+    assert ranks[0]["step"] == ref.step == (2 if tag == "dp" else 4)
+    model = port_model(one["start"])
+    got, slot = mesh_final(root, tag, model)
+    assert slot["step"] == ref.step
     mrec = records(root / f"{tag}_mesh_log")
     assert (root / f"{tag}_mesh_log" / "metrics.p1.jsonl").exists()
-    check_epochs(recs, mrec, one[tag + "_noise"], "train_mean_loss", ())
-    init = {k: v.numpy() for k, v in port_model(one["start"]).state_dict().items()}
-    hold(init, final, one[tag + "_noise"], got, tr.cfg.learning_rate, tr.state.step)
+    check_epochs(ref.recs, mrec, one[tag + "_noise"], "train_mean_loss", ())
+    hold(state_of(model), ref.final, one[tag + "_noise"], got, ref.step)
     # before any update the mesh validates as the batch-1 sweep
     for k in ("mean_dose_score", "val_loss"):
         assert abs(ranks[0]["validate"][k] - one["validate"][k]) <= \
@@ -424,15 +733,14 @@ def test_mesh_fit_matches_one_process(runs, tag):
 def test_dp_mesh_matches_jax(runs):
     root, ds, one, _ = runs
     jtr, jrec = one["jax"]
-    tr, _, _ = one["dp"]
-    got, _ = mesh_final(root, "dp", tr.model)
+    model = port_model(one["start"])
+    got, _ = mesh_final(root, "dp", model)
     mrec = records(root / "dp_mesh_log")
     check_epochs(mrec, jrec, one["dp_noise"], "train_mean_loss", ())
-    init = {k: v.numpy() for k, v in port_model(one["start"]).state_dict().items()}
     jax_final = {k: v.numpy()
-                 for k, v in weights.jax_to_torch(variables_of(jtr.state), tr.model).items()}
+                 for k, v in weights.jax_to_torch(variables_of(jtr.state), model).items()}
     assert int(jtr.state.step) == 2
-    hold(init, got, one["dp_noise"], jax_final, tr.cfg.learning_rate, 2)
+    hold(state_of(model), got, one["dp_noise"], jax_final, 2)
 
 
 def test_tp_adam8bit_matches_one_process(runs):
@@ -440,14 +748,15 @@ def test_tp_adam8bit_matches_one_process(runs):
     blocks, by tests/test_torch_port_trainers.py's adam8bit bars (its codes
     may differ by a step where rounding differs)."""
     root, _, one, _ = runs
-    tr, _, recs = one["tp8"]
-    _, slot = mesh_final(root, "tp8", tr.model)
+    ref = one["tp8"]
+    recs = ref.recs
+    _, slot = mesh_final(root, "tp8", port_model(one["start"]))
     mrec = records(root / "tp8_mesh_log")
     assert abs(mrec["train_mean_loss"][0] - recs["train_mean_loss"][0]) <= \
         REL_EPOCH * abs(recs["train_mean_loss"][0])
     assert abs(mrec["train_mean_loss"][1] - recs["train_mean_loss"][1]) <= \
         2e-3 * abs(recs["train_mean_loss"][1])
-    mine, theirs = slot["optimizer"]["moments"], tr.state.optimizer.state_dict()["moments"]
+    mine, theirs = slot["optimizer"]["moments"], ref.moments
     assert mine["quant"] == theirs["quant"] and mine["small"] == theirs["small"]
     for k in ("mu", "nu"):
         for f, v in theirs[k].items():
@@ -459,7 +768,6 @@ def test_mesh_slot_resumes_in_one_process(runs, tmp_path):
     leaves) resumes in one process; its second epoch ends where the mesh's
     did, by the noise-run rule."""
     root, ds, one, _ = runs
-    tr, _, _ = one["tp"]
     ck = tmp_path / "ck"
     ck.mkdir()
     shutil.copy(root / "tp_mesh_ck" / "iter_2.pt", ck / "last.pt")
@@ -470,9 +778,9 @@ def test_mesh_slot_resumes_in_one_process(runs, tmp_path):
                              example_shape=SHAPE)
     resumed.fit(ds, ds, resume=True)
     assert resumed.state.step == 4 and len(records(cfg.log_dir)["train_mean_loss"]) == 1
-    got, _ = mesh_final(root, "tp", tr.model)
-    init = {k: v.numpy() for k, v in port_model(one["start"]).state_dict().items()}
-    hold(init, state_of(resumed.model), one["tp_noise"], got, tr.cfg.learning_rate, 4)
+    model = port_model(one["start"])
+    got, _ = mesh_final(root, "tp", model)
+    hold(state_of(model), state_of(resumed.model), one["tp_noise"], got, 4)
     # the second epoch's loss by check_epochs' noise rule
     one_rec, mrec = records(cfg.log_dir), records(root / "tp_mesh_log")
     check_epochs({"loss": [mrec["train_mean_loss"][0]] + one_rec["train_mean_loss"]},
@@ -487,10 +795,118 @@ def test_dp_tp_mesh_trains_in_four_processes(runs):
     rel 1e-5 of the one-process batch of 2."""
     root, _, one, mesh = runs
     ranks = mesh["dptp"]
+    assert len(ranks) == 4
     assert len({r["moving_loss"] for r in ranks}) == 1 and {r["step"] for r in ranks} == {1}
     got = records(root / "dptp_mesh_log")["train_mean_loss"][0]
-    want = one["dp"][2]["train_mean_loss"][0]
+    want = one["dp"].recs["train_mean_loss"][0]
     assert abs(got - want) <= REL_EPOCH * abs(want), (got, want)
     for k in ("mean_dose_score", "val_loss"):
         assert abs(ranks[0]["validate"][k] - one["validate"][k]) <= \
             REL_EPOCH * abs(one["validate"][k])
+
+
+@pytest.mark.parametrize("predictor", ["affine", "logits"])
+def test_sharded_window_matches_jax(runs, predictor):
+    """{'data': 2}: 9 windows padded to 10, 5 a rank in one predictor call;
+    both ranks' blends equal, within rel/abs 1e-5 of the JAX package's
+    sharded window on two devices. With TranSeg the two packages' forwards
+    themselves differ: its blend is held within rel/abs 1e-5 of the port's
+    one-process sweep of the same 10 windows (sw batch 5, the batches the
+    ranks run), and of the JAX package's plus twice the packages' largest
+    forward gap on one 32³ crop (a blend is a mean of window predictions,
+    so it departs by no more than they do)."""
+    root, _, one, mesh = runs
+    assert [r["calls"] for r in mesh["seg_window"]] == [[5, 5]] * 2
+    ranks = [np.load(root / f"window_{predictor}_{rank}.npy") for rank in (0, 1)]
+    assert np.array_equal(ranks[0], ranks[1])
+    want = one["jax_window"][predictor].transpose(0, 4, 1, 2, 3)
+    assert ranks[0].shape == want.shape == \
+        (1, 2 if predictor == "affine" else 8) + WINDOW_VOLUME[2:]
+    gap = 0.0
+    if predictor == "logits":
+        np.testing.assert_allclose(ranks[0], one["port_window"], rtol=1e-5, atol=1e-5)
+        gap = 2 * one["seg_forward_gap"]
+    np.testing.assert_allclose(ranks[0], want, rtol=1e-5, atol=1e-5 + gap)
+
+
+def test_sharded_window_refuses_a_batch():
+    with pytest.raises(ValueError, match="expects batch size 1"):
+        sliding_window_inference_sharded(torch.zeros((2, 1) + CROP), lambda w: w, None,
+                                         roi_size=CROP)
+
+
+def assert_seg_validation(got, want):
+    """Dice, HD95 and the val loss within rel 1e-4 (a NaN where the other is
+    NaN), as tests/test_mesh_val.py holds the JAX package's."""
+    for a, b in zip(got, want):
+        if np.isnan(b):
+            assert np.isnan(a)
+        else:
+            assert abs(a - b) <= REL_SEG_VAL * abs(b) + 1e-6, (got, want)
+
+
+@pytest.mark.parametrize("tag", ["seg_dp", "seg_tp"])
+def test_seg_mesh_fit_matches_one_process(runs, tag):
+    """TranSegTrainer on {'data': 2} (batch 2: BatchNorm over the global
+    batch, the window batch split over the ranks) and {'model': 2} (batch
+    1: the ViT's two heads one a rank, decoder4's convs by output channel)
+    against the one-process fit of the same global batch; its validation at
+    the initial weights against the one-process sweep."""
+    root, _, one, mesh = runs
+    ref = one[tag]
+    ranks = mesh[tag]
+    assert ranks[0]["moving_loss"] == ranks[1]["moving_loss"]
+    assert ranks[0]["step"] == ref.step == (4 if tag == "seg_dp" else 8)
+    split = ranks[0]["split_leaves"]
+    if tag == "seg_tp":     # five ViT leaves a layer and decoder4's six convs
+        assert len(split) == 5 * SEG_TINY["num_layers"] + 6 and \
+            sum(n.startswith("decoder4.") for n in split) == 6
+    else:
+        assert split == []
+    model = port_seg_model(one["seg_start"])
+    got, slot = mesh_final(root, tag, model)
+    assert slot["step"] == ref.step
+    mrec = records(root / f"{tag}_mesh_log")
+    check_epochs(ref.recs, mrec, one[tag + "_noise"], "train_loss", ())
+    hold(state_of(model), ref.final, one[tag + "_noise"], got, ref.step)
+    for r in ranks:
+        assert_seg_validation(r["validate"], one["seg_validate"])
+    # the validation inside the fit, at epoch 2
+    assert len(mrec["val_loss"]) == 1 and {"dice_metric", "hd95_metric"} <= mrec.keys()
+
+
+def test_seg_dp_mesh_matches_jax(runs):
+    root, _, one, _ = runs
+    jtr, jrec = one["seg_jax"]
+    model = port_seg_model(one["seg_start"])
+    got, _ = mesh_final(root, "seg_dp", model)
+    mrec = records(root / "seg_dp_mesh_log")
+    check_epochs(mrec, jrec, one["seg_dp_noise"], "train_loss", ())
+    jax_final = {k: v.numpy()
+                 for k, v in weights.jax_to_torch(variables_of(jtr.state), model).items()}
+    assert int(jtr.state.step) == 4
+    hold(state_of(model), got, one["seg_dp_noise"], jax_final, 4)
+
+
+def test_seg_mesh_slot_resumes_in_one_process(runs, tmp_path):
+    """The TranSeg {'model': 2} slot after its first epoch (iter_4, whole
+    leaves) resumes in one process, whose second epoch ends where the
+    mesh's did, by the noise-run rule."""
+    root, ds, one, _ = runs
+    ck = tmp_path / "ck"
+    ck.mkdir()
+    shutil.copy(root / "seg_tp_mesh_ck" / "iter_4.pt", ck / "last.pt")
+    cfg = T.TrainConfig(max_epochs=2, check_val=NO_VAL, batch_size=1, device="cpu",
+                        ckpt_dir=str(ck), log_dir=str(tmp_path / "log"))
+    resumed = T.TranSegTrainer(cfg, model=T.seeded(5, lambda: TranSeg(
+        img_size=CROP, device="cpu", **SEG_TINY)), crop=CROP)
+    resumed.fit(ds, ds, num_samples=SEG_SAMPLES, resume=True)
+    assert resumed.state.step == 8 and len(records(cfg.log_dir)["train_loss"]) == 1
+    model = port_seg_model(one["seg_start"])
+    got, _ = mesh_final(root, "seg_tp", model)
+    hold(state_of(model), state_of(resumed.model), one["seg_tp_noise"], got, 8)
+    one_rec, mrec = records(cfg.log_dir), records(root / "seg_tp_mesh_log")
+    check_epochs({"loss": [mrec["train_loss"][0]] + one_rec["train_loss"]},
+                 {"loss": mrec["train_loss"]},
+                 [(None, {"loss": r["train_loss"]}) for _, r in one["seg_tp_noise"]],
+                 "loss", ())
