@@ -3852,17 +3852,7 @@ def mesh_feed_steps(tr, ds, n, reverse_rows=False) -> list:
     the first step also forward_probe's output before it and the gradients
     of the whole leaves after it (summed over a 'data' axis, gathered over
     'model'; a collective on a mesh)."""
-    from dose_prediction_tpu_torch.data.pipeline import device_prefetch
-    from dose_prediction_tpu_torch.train import trainers as T
-
-    if isinstance(tr, T.TranSegTrainer):
-        feed = tr.batches(ds, 0)
-    else:
-        rows = T._feed_rows(tr.batch_sharding)
-        feed = device_prefetch(T._train_batches(tr.cfg, ds, 0, drop_last=tr.mesh is not None,
-                                                process_rows=rows),
-                               device=tr.device, sharding=tr.batch_sharding,
-                               local_rows=rows is not None)
+    feed = tr.batches(ds, 0)
     out, probe = [], None
     with contextlib.closing(feed):
         for _, batch in zip(range(n), feed):

@@ -359,8 +359,14 @@ class LazyTrainStage:
         # thread_local: concurrent trials on one card (train/tune.py) launch
         # from their own threads while this one captures. One capture at a
         # time: entering one synchronizes the device and empties the
-        # allocator's cache, which invalidates another thread's capture in
-        # flight (seen as cudaErrorStreamCaptureInvalidated at its first op)
+        # allocator's cache. The likely cause, not shown, of the one
+        # cudaErrorStreamCaptureInvalidated seen at a trial's first captured
+        # op is that sync reaching another thread's capture in flight; the
+        # train path calls no other synchronize or empty_cache
+        # (tests/test_torch_port_cuda.py::test_concurrent_trial_captures_on_card).
+        # Not covered: a draw from the default CUDA generator in another
+        # thread during a capture raises (the generator is in capture mode
+        # for the whole process)
         with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._pool.handle(device),
                                              stream=stream, capture_error_mode="thread_local"):
             out = fn()

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -111,10 +112,17 @@ def build() -> Path:
     return out
 
 
+# one build at a time in a process: its threads share the pid that names
+# build()'s object and temporary files (concurrent trials, train/tune.py)
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
-    lib = ctypes.CDLL(str(build()))
+    with _BUILD_LOCK:
+        path = build()
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

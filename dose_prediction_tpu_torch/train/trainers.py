@@ -531,6 +531,15 @@ class PyferTrainer:
                                      self.device)
         return _full_volume_validation(self.eval_step, val_ds, self.device)
 
+    def batches(self, train_ds: OpenKBPDataset, epoch: int):
+        """Epoch ``epoch``'s batches on the device; on a mesh, this process's
+        rows of each global batch, a short last batch dropped."""
+        rows = _feed_rows(self.batch_sharding)
+        return device_prefetch(
+            _train_batches(self.cfg, train_ds, epoch, drop_last=self.mesh is not None,
+                           process_rows=rows),
+            device=self.device, sharding=self.batch_sharding, local_rows=rows is not None)
+
     @_drains_checkpoints
     def fit(self, train_ds: OpenKBPDataset, val_ds: Optional[OpenKBPDataset] = None, *,
             resume: bool = True,
@@ -548,14 +557,10 @@ class PyferTrainer:
                 self.logger.log_text(f"resumed from epoch {start_epoch - 1}")
         timer = EpochTimer()
         global_step = int(self.state.step)
-        rows = _feed_rows(self.batch_sharding)
         for epoch in range(start_epoch, cfg.max_epochs):
             timer.reset()
             epoch_losses: List[torch.Tensor] = []
-            feed = device_prefetch(
-                _train_batches(cfg, train_ds, epoch, drop_last=self.mesh is not None,
-                               process_rows=rows),
-                device=self.device, sharding=self.batch_sharding, local_rows=rows is not None)
+            feed = self.batches(train_ds, epoch)
             with trace(cfg.profile_dir if epoch == start_epoch else None), contextlib.closing(feed):
                 for batch in _timed_batches(feed, timer):
                     timer.tick()

@@ -914,6 +914,51 @@ def test_captured_train_step_recaptures_after_restore_on_card(card, monkeypatch,
 
 
 @pytest.mark.cuda
+def test_concurrent_trial_captures_on_card(card, monkeypatch):
+    """Two threads on one card, as run_search's concurrent trials: each
+    round both take a fresh captured TranSeg step, meet at a barrier, and
+    call it three times (a capture, then replays); every call succeeds and
+    every loss is finite. Entering a capture synchronizes the device and
+    empties the allocator's cache; LazyTrainStage's lock keeps that out of
+    the other thread's capture in flight. The first round also loads the
+    kernel library from both threads at once (built first where it is not,
+    one build at a time). The models are built before the threads start: a draw from the default CUDA generator in one thread
+    while another captures raises "Offset increment outside graph capture"
+    (the generator is in capture mode for the whole process), which the
+    lock does not cover."""
+    import threading
+
+    from dose_prediction_tpu_torch.infer.aot import LazyTrainStage
+
+    monkeypatch.delenv("DPT_NO_AOT", raising=False)
+    rounds, barrier, failures = 8, threading.Barrier(2, timeout=120), []
+    batches = small_train_batches(card, "transeg")
+    built = [[small_train_step(card, "transeg", "adamw")[1:] for _ in range(rounds)]
+             for _ in range(2)]
+
+    def trial(t):
+        for r, (step, state) in enumerate(built[t]):
+            stage = LazyTrainStage(f"train:trial{t}", step)
+            try:
+                barrier.wait()
+                for i in range(3):
+                    state, loss = stage(state, batches[i % len(batches)])
+                    assert math.isfinite(float(loss))
+            except Exception as e:     # noqa: BLE001 - the other thread is released
+                failures.append((t, r, f"{type(e).__name__}: {e}"[:300]))
+                barrier.abort()
+                return
+
+    threads = [threading.Thread(target=trial, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    print(f"{len(failures)} of {2 * rounds} trial rounds failed: {failures}")
+    assert failures == []
+
+
+@pytest.mark.cuda
 def test_captured_train_step_refusals_on_card(card, monkeypatch):
     """A step that reads its loss on the host cannot be captured: the call
     raises, naming the stage. DPT_NO_AOT=1 runs the eager step."""

@@ -2,17 +2,18 @@
 tests/test_multihost.py, tests/test_multihost_trainer.py and
 tests/test_multihost_seg.py).
 
-Worker processes import torch and the port only. One pair of them joins a
-world of two through parallel/multihost.py::initialize on a free port (from
-a socket bound to port 0: ``--dist loadfile`` runs test files side by side),
-runs every two-process job of this file in turn in that one world, leaves
-it, and then runs the one-process references, split between the two. Four
-more join a world of four for the {'data': 2, 'model': 2} job once the pair
-has exited: no more than four worker processes run at once. Each world is
-waited for with its own timeout and killed on expiry; a worker writes its
-output to a file (a pipe nobody reads would stop it mid-job). While the
-pair runs, this process runs the JAX package: its fits, the packages'
-forward gaps that size the noise runs, its sharded window.
+Worker processes import torch and the port only. This file starts four,
+once: they join a world of four through parallel/multihost.py::initialize
+on a free port (from a socket bound to port 0: ``--dist loadfile`` runs
+test files side by side) for the {'data': 2, 'model': 2} job and leave it;
+then ranks 0 and 1 join a world of two and run every two-process job in
+turn, while ranks 2 and 3 run the one-process references, each alone. The
+workers are waited for with one timeout and killed on expiry; a worker
+writes its output to a file (a pipe nobody reads would stop it mid-job).
+Every run starts from the port's seeded weights, which the JAX trainers
+import (no JAX init is compiled). While the workers run, this process runs
+the JAX package, one program at a time: the packages' forward gaps that
+size the noise runs, its windows, its fits.
 
 - The toy step: a data-parallel step of a linear model on {'data': 2},
   whose masked mean divides by the global mask count with one rank's mask
@@ -49,14 +50,18 @@ forward gaps that size the noise runs, its sharded window.
   tests/test_torch_port_trainers_seg_c3d.py trains it. At 16³ a window is
   one ViT token, whose softmax is exactly 1: q and k would get no
   gradient, and the {'model': 2} split of attention would be held through
-  v alone; here each window is 2³ tokens. The JAX programs are then that
-  file's too, which the persistent compile cache keeps once.
+  v alone; here each window is 2³ tokens. With two ViT layers (the JAX
+  seg tests' widths) the {'model': 2} fit's second-epoch loss departs from
+  one process by more than twice its two noise runs do, though less than
+  other noise seeds' runs depart: two seeds then size the bar too tightly.
 - The sharded sliding window (infer/sliding_window.py) on {'data': 2}: a
   72 × 72 × 32 volume in 32³ windows, whose 9 windows become 10, against the JAX
   package's sliding_window_inference_sharded on a two-device JAX mesh at
   rel/abs 1e-5 (tests/test_parallel.py:77-95's bar), with that test's
-  affine predictor and with the TranSeg carried across by weights.py;
-  each rank predicts its 5 windows in one call, and both blend alike.
+  affine predictor; with the TranSeg, whose forwards differ between the
+  packages, within 1e-5 beyond their forward gap on that volume's
+  windows; each rank predicts its 5 windows in one call, and both blend
+  alike.
 - ``TranSegTrainer.fit``, two epochs of two crops a patient, AdamW, as
   PyferTrainer's: {'data': 2} with batch 2 and {'model': 2} with batch 1
   against the one-process fit of the same global batch, {'data': 2} also
@@ -86,11 +91,12 @@ torch = pytest.importorskip("torch")
 
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
+from dose_prediction_tpu.core import torch_import as TI  # noqa: E402
 from dose_prediction_tpu.infer.sliding_window import (  # noqa: E402
     sliding_window_inference_sharded as jax_sharded_window,
 )
 from dose_prediction_tpu.models import DosePyfer as JDosePyfer  # noqa: E402
-from dose_prediction_tpu.cli import main as JCLI  # noqa: E402
+from dose_prediction_tpu.models import TranSeg as JTranSeg  # noqa: E402
 from dose_prediction_tpu.parallel import mesh as JPM  # noqa: E402
 from dose_prediction_tpu.train import trainers as JT  # noqa: E402
 
@@ -98,6 +104,7 @@ from dose_prediction_tpu_torch import weights  # noqa: E402
 from dose_prediction_tpu_torch.infer.sliding_window import (  # noqa: E402
     sliding_window_inference,
     sliding_window_inference_sharded,
+    window_grid,
 )
 from dose_prediction_tpu_torch.models import DosePyfer, TranSeg  # noqa: E402
 from dose_prediction_tpu_torch.train import losses as L  # noqa: E402
@@ -116,6 +123,8 @@ from test_torch_port_trainers import (  # noqa: E402,F401
     records,
     variables_of,
 )
+from test_torch_port_models import to_jax  # noqa: E402
+from test_torch_port_zoo_train import initialized  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(out_ch=1, list_ch_A=(-1, 4, 8, 16, 32, 64), feature_size=4, hidden_size=48,
@@ -224,7 +233,6 @@ WORKER = textwrap.dedent("""
 
 
     def fit(a):
-        wait(a["init"])
         from dose_prediction_tpu_torch.data.openkbp import OpenKBPDataset
         from dose_prediction_tpu_torch.models import DosePyfer
         from dose_prediction_tpu_torch.train import trainers as T
@@ -251,7 +259,7 @@ WORKER = textwrap.dedent("""
 
 
     def wait(path):
-        # path, once the test process has written it
+        # path, once the test process has written it (the noise runs' amplitude)
         import os, time
         deadline = time.monotonic() + a["timeout"]
         while not os.path.exists(path):
@@ -323,10 +331,16 @@ WORKER = textwrap.dedent("""
         return {{}}
 
 
+    def join(a):
+        # a new world of the ranks a["ranks"], on a["port"]
+        MH.initialize("127.0.0.1:%d" % a["port"], len(a["ranks"]), a["ranks"].index(RANK),
+                      device="cpu")
+        return {{}}
+
+
     def seg_window(a):
         from dose_prediction_tpu_torch.infer.sliding_window import (
             sliding_window_inference_sharded)
-        wait(a["init"])
         mesh = PM.create_mesh({{"data": 2}})
         vol = torch.from_numpy(np.load(a["volume"]))
         model = seg_model(a).eval()
@@ -349,7 +363,6 @@ WORKER = textwrap.dedent("""
 
 
     def seg_fit(a):
-        wait(a["init"])
         ds, tr = one_trainer(a, a["mesh"], check_val=2, save_per_epoch=1)
         out = {{"validate": tr.validate(ds, sw_batch_size=2),
                "split_leaves": sorted(tr.state.plan.shards)}}
@@ -360,10 +373,10 @@ WORKER = textwrap.dedent("""
 
 
     for job in a["jobs"]:
-        if job.get("on_rank", RANK) != RANK:
+        if RANK not in job.get("on", [RANK]):
             continue
         out = {{"toy": toy, "bn": bn, "fit": fit, "seg_window": seg_window,
-               "seg_fit": seg_fit, "leave": leave, "ref_validate": ref_validate,
+               "seg_fit": seg_fit, "leave": leave, "join": join, "ref_validate": ref_validate,
                "ref_fit": ref_fit}}[job["job"]](job)
         print("RESULT " + json.dumps({{"tag": job["tag"], **out}}), flush=True)
 """).format(repo=str(REPO))
@@ -502,15 +515,25 @@ def fit_jobs(root, pattern, tags):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The two-process jobs, then the one-process references, in one worker
-    pair started first; while it runs, the JAX package's trainers (whose
-    initial weights the workers wait for), fits, forward gaps and sharded
-    window in this process; then the four-process job."""
+    """Four worker processes, all this file starts: in a world of four they
+    run the {'data': 2, 'model': 2} job and leave it; then ranks 0 and 1
+    join a world of two for the two-process jobs, while ranks 2 and 3 run
+    the one-process references, each alone. The initial weights are the
+    port's, seeded and written before the workers start; the JAX trainers
+    start from them through their import
+    (tests/test_torch_port_zoo_train.py::initialized: no JAX init is
+    compiled). Meanwhile this process runs the JAX package, one program at a
+    time: the forward gaps that size the noise runs, its windows, its two
+    fits."""
     root = tmp_path_factory.mktemp("mesh")
     ds, jds = make_cohort(root / "cohort", 32)
     volume = np.random.default_rng(11).standard_normal(WINDOW_VOLUME).astype(np.float32)
     np.save(root / "volume.npy", volume)
     pattern = str(root / "cohort" / "pt_*")
+    seeded = T.seeded(0, lambda: DosePyfer(img_size=32, device="cpu", **TINY))
+    seg_seeded = T.seeded(1, lambda: TranSeg(img_size=CROP, device="cpu", **SEG_TINY))
+    torch.save(seeded.state_dict(), root / "init.pt")
+    torch.save(seg_seeded.state_dict(), root / "seg_init.pt")
     pyfer = {"model": "pyfer", "pattern": pattern, "init": str(root / "init.pt"), "tiny": TINY,
              "fit_kw": {}, "validate_kw": {}}
     seg = {"model": "seg", "pattern": pattern,
@@ -519,52 +542,48 @@ def runs(tmp_path_factory):
     jobs = {"dp": ({"data": 2}, 2, "adamw"), "tp": ({"model": 2}, 1, "adamw"),
             "tp8": ({"model": 2}, 1, "adam8bit")}
     seg_jobs = {"seg_dp": ({"data": 2}, 2), "seg_tp": ({"model": 2}, 1)}
-    # the references split between the ranks, about 30 s each alone
+    pair = [{"job": "join", "tag": "join", "ranks": [0, 1], "port": free_port()},
+            {"job": "toy", "tag": "toy", **toy_inputs()},
+            {"job": "bn", "tag": "bn", **bn_inputs()},
+            *fit_jobs(root, pattern, {tag: (*job, 2) for tag, job in jobs.items()}),
+            {"job": "seg_window", "tag": "seg_window", "volume": str(root / "volume.npy"),
+             "out": str(root / "window"), **seg},
+            *[{"job": "seg_fit", "tag": tag, **seg, "mesh": mesh, "batch": batch,
+               "samples": SEG_SAMPLES, "ckpt": str(root / f"{tag}_mesh_ck"),
+               "log": str(root / f"{tag}_mesh_log")} for tag, (mesh, batch) in seg_jobs.items()]]
+    # the references, about 35 s a rank; the noise runs last, as they wait
+    # for the forward gaps
     refs = [[{"job": "ref_validate", "tag": "validate", **pyfer, "batch": 1,
               "ckpt": str(root / "probe_ck"), "log": str(root / "probe_log")},
-             *ref_jobs(root, pyfer, "dp", 2),
              *ref_jobs(root, pyfer, "tp8", 1, "adam8bit", noise=()),
-             *ref_jobs(root, seg, "seg_dp", seg_jobs["seg_dp"][1])],
-            [*ref_jobs(root, pyfer, "tp", 1),
-             {"job": "ref_validate", "tag": "seg_validate", **seg, "batch": 1,
+             *ref_jobs(root, pyfer, "dp", 2), *ref_jobs(root, seg, "seg_dp", 2)],
+            [{"job": "ref_validate", "tag": "seg_validate", **seg, "batch": 1,
               "ckpt": str(root / "seg_probe_ck"), "log": str(root / "seg_probe_log")},
-             *ref_jobs(root, seg, "seg_tp", seg_jobs["seg_tp"][1])]]
-    pair = launch(
-        [{"job": "toy", "tag": "toy", **toy_inputs()}, {"job": "bn", "tag": "bn", **bn_inputs()},
-         *fit_jobs(root, pattern, {tag: (*job, 2) for tag, job in jobs.items()}),
-         {"job": "seg_window", "tag": "seg_window", "volume": str(root / "volume.npy"),
-          "out": str(root / "window"), **seg},
-         *[{"job": "seg_fit", "tag": tag, **seg, "mesh": mesh, "batch": batch,
-            "samples": SEG_SAMPLES, "ckpt": str(root / f"{tag}_mesh_ck"),
-            "log": str(root / f"{tag}_mesh_log")} for tag, (mesh, batch) in seg_jobs.items()],
+             *ref_jobs(root, pyfer, "tp", 1), *ref_jobs(root, seg, "seg_tp", 1)]]
+    workers = launch(
+        [*fit_jobs(root, pattern, {"dptp": ({"data": 2, "model": 2}, 2, "adamw", 1)}),
          {"job": "leave", "tag": "leave"},
-         *[{**job, "on_rank": rank} for rank, rank_jobs in enumerate(refs) for job in rank_jobs]],
-        root, 2)
-    quad = []
-
-    def quad_after_pair():
-        # the four-process job once the pair has exited: four workers at most
-        if not quad and all(p.poll() is not None for p, _ in pair):
-            quad.extend(launch(fit_jobs(root, pattern,
-                                        {"dptp": ({"data": 2, "model": 2}, 2, "adamw", 1)}),
-                               root, 4))
-
+         *[{**job, "on": [0, 1]} for job in pair],
+         *[{**job, "on": [2 + rank]} for rank, rank_jobs in enumerate(refs) for job in rank_jobs]],
+        root, 4)
     try:
-        # the workers' jobs that need them wait for init.pt and seg_init.pt
-        jcfg = JT.TrainConfig(max_epochs=2, check_val=NO_VAL, batch_size=2, seed=0,
-                              ckpt_dir=str(root / "jax_ck"), log_dir=str(root / "jax_log"))
-        jtr = JT.PyferTrainer(jcfg, model=JDosePyfer(**TINY), example_shape=SHAPE)
-        start = variables_of(jtr.state)
-        torch.save(port_model(start).state_dict(), root / "init.pt.tmp")
-        (root / "init.pt.tmp").rename(root / "init.pt")
-        sjcfg = JT.TrainConfig(max_epochs=2, check_val=NO_VAL, batch_size=2, seed=0,
-                               ckpt_dir=str(root / "seg_jax_ck"),
-                               log_dir=str(root / "seg_jax_log"))
-        sjtr = JT.TranSegTrainer(sjcfg, model=JCLI.default_seg_model(small=True), crop=CROP)
-        seg_start = variables_of(sjtr.state)
-        seg_model = port_seg_model(seg_start)
-        torch.save(seg_model.state_dict(), root / "seg_init.pt.tmp")
-        (root / "seg_init.pt.tmp").rename(root / "seg_init.pt")
+        def jax_trainer(model, port, importer, shape, tag, cls, **kw):
+            variables, _ = to_jax(port, model, importer, shape)
+            cfg = JT.TrainConfig(max_epochs=2, check_val=NO_VAL, batch_size=2, seed=0,
+                                 ckpt_dir=str(root / f"{tag}_ck"), log_dir=str(root / f"{tag}_log"))
+            fields = {f.name: getattr(model, f.name) for f in dataclasses.fields(model)
+                      if f.init and f.name not in ("parent", "name")}
+            tr = cls(cfg, model=initialized(type(model), variables, **fields), **kw)
+            start = variables_of(tr.state)
+            # the JAX start carried back is the workers' start, bit for bit
+            for k, v in weights.jax_to_torch(start, port).items():
+                assert torch.equal(v, port.state_dict()[k]), k
+            return tr, start
+
+        jtr, start = jax_trainer(JDosePyfer(**TINY), seeded, TI.import_pyfer, SHAPE, "jax",
+                                 JT.PyferTrainer, example_shape=SHAPE)
+        sjtr, seg_start = jax_trainer(JTranSeg(**SEG_TINY), seg_seeded, TI.import_transeg,
+                                      (1, *CROP, 1), "seg_jax", JT.TranSegTrainer, crop=CROP)
         # the packages' forward gaps size the noise runs
         from dose_prediction_tpu.data.pipeline import dose_batches
 
@@ -575,47 +594,46 @@ def runs(tmp_path_factory):
         gaps = {"pyfer": noise_amplitude(
             tr0.eval_step({k: torch.from_numpy(np.asarray(v)) for k, v in first.items()})
             ["prediction"], jtr.eval_step(jtr.state, first)["prediction"])}
+        seg_apply = jax.jit(lambda x, variables: sjtr.model.apply(
+            variables, x, train=False, mutable=["batch_stats"])[0])
         ct = jds.patients[0].ct[None, ..., None]
         with torch.no_grad():
-            port_logits = seg_model.eval()(torch.from_numpy(np.ascontiguousarray(
+            port_logits = seg_seeded.eval()(torch.from_numpy(np.ascontiguousarray(
                 ct.transpose(0, 4, 1, 2, 3)))).numpy()
-        jax_logits = np.asarray(sjtr.model.apply(seg_start, ct, train=False,
-                                                 mutable=["batch_stats"])[0])
-        jax_logits = jax_logits.transpose(0, 4, 1, 2, 3)
-        gaps["seg"] = noise_amplitude(port_logits, jax_logits)
+        gaps["seg"] = noise_amplitude(
+            port_logits, np.asarray(seg_apply(ct, seg_start)).transpose(0, 4, 1, 2, 3))
         (root / "amplitude.json.tmp").write_text(json.dumps(gaps))
         (root / "amplitude.json.tmp").rename(root / "amplitude.json")
-        one = {"start": start, "seg_start": seg_start,
-               "seg_forward_gap": float(np.abs(port_logits - jax_logits).max())}
-        # the window: the port in one process at sw batch 5 (the ranks'
-        # batches), and the JAX package sharded on two virtual devices
+        one = {"start": start, "seg_start": seg_start}
+        # the window: the port's one-process sweep at sw batch 5 (the ranks'
+        # batches), the packages' forward gap on each of the volume's
+        # windows (the gap's program), the JAX package's sharded window on
+        # two virtual devices
         with torch.no_grad():
             one["port_window"] = sliding_window_inference(
-                torch.from_numpy(volume[:, :1]), seg_model, roi_size=CROP, sw_batch_size=5,
+                torch.from_numpy(volume[:, :1]), seg_seeded, roi_size=CROP, sw_batch_size=5,
                 out_channels=8).numpy()
+            window_gaps = []
+            for z, y, x in window_grid(WINDOW_VOLUME[2:], CROP):
+                w = np.ascontiguousarray(volume[:, :1, z:z + CROP[0], y:y + CROP[1], x:x + CROP[2]])
+                jax_w = np.asarray(seg_apply(np.ascontiguousarray(w.transpose(0, 2, 3, 4, 1)),
+                                             seg_start)).transpose(0, 4, 1, 2, 3)
+                window_gaps.append(np.abs(seg_seeded(torch.from_numpy(w)).numpy() - jax_w).max())
+            one["window_gap"] = float(max(window_gaps))
+        vol = jnp.asarray(volume.transpose(0, 2, 3, 4, 1))
         jmesh = JPM.create_mesh({"data": 2}, devices=jax.devices()[:2])
-        vol = np.ascontiguousarray(volume.transpose(0, 2, 3, 4, 1))
-
-        def jax_predictor(windows, variables):
-            return sjtr.model.apply(variables, windows, train=False, mutable=["batch_stats"])[0]
-
         one["jax_window"] = {
-            "affine": np.asarray(jax_sharded_window(jnp.asarray(vol), lambda w: w * 2.0 + 1.0,
-                                                    jmesh, roi_size=CROP)),
-            "logits": np.asarray(jax_sharded_window(jnp.asarray(vol[..., :1]), jax_predictor,
-                                                    jmesh, roi_size=CROP, out_channels=8,
-                                                    predictor_args=(seg_start,)))}
-        quad_after_pair()
+            "affine": np.asarray(jax_sharded_window(vol, lambda w: w * 2.0 + 1.0, jmesh,
+                                                    roi_size=CROP)),
+            "logits": np.asarray(jax_sharded_window(vol[..., :1], seg_apply, jmesh, roi_size=CROP,
+                                                    out_channels=8, predictor_args=(seg_start,)))}
         jtr.fit(jds, jds, resume=False)
-        one["jax"] = (jtr, records(jcfg.log_dir))
-        quad_after_pair()
         sjtr.fit(jds, jds, num_samples=SEG_SAMPLES, resume=False)
-        one["seg_jax"] = (sjtr, records(sjcfg.log_dir))
-        mesh = results(pair)
-        quad_after_pair()
-        mesh.update(results(quad))
+        one["jax"] = (jtr, records(root / "jax_log"))
+        one["seg_jax"] = (sjtr, records(root / "seg_jax_log"))
+        mesh = results(workers)
     finally:
-        kill(pair + quad)
+        kill(workers)
     one["validate"] = mesh["validate"][0]["validate"]
     one["seg_validate"] = mesh["seg_validate"][0]["validate"]
     for tag in (*jobs, *seg_jobs):
@@ -811,10 +829,11 @@ def test_sharded_window_matches_jax(runs, predictor):
     both ranks' blends equal, within rel/abs 1e-5 of the JAX package's
     sharded window on two devices. With TranSeg the two packages' forwards
     themselves differ: its blend is held within rel/abs 1e-5 of the port's
-    one-process sweep of the same 10 windows (sw batch 5, the batches the
-    ranks run), and of the JAX package's plus twice the packages' largest
-    forward gap on one 32³ crop (a blend is a mean of window predictions,
-    so it departs by no more than they do)."""
+    one-process sweep of the same volume (sw batch 5, the batches the ranks
+    run), and departs from the JAX package's sharded blend by no more than
+    1e-5 beyond the packages' largest forward gap on that volume's windows
+    (a blend is a mean of window predictions, so it departs by no more than
+    they do)."""
     root, _, one, mesh = runs
     assert [r["calls"] for r in mesh["seg_window"]] == [[5, 5]] * 2
     ranks = [np.load(root / f"window_{predictor}_{rank}.npy") for rank in (0, 1)]
@@ -822,11 +841,13 @@ def test_sharded_window_matches_jax(runs, predictor):
     want = one["jax_window"][predictor].transpose(0, 4, 1, 2, 3)
     assert ranks[0].shape == want.shape == \
         (1, 2 if predictor == "affine" else 8) + WINDOW_VOLUME[2:]
-    gap = 0.0
-    if predictor == "logits":
-        np.testing.assert_allclose(ranks[0], one["port_window"], rtol=1e-5, atol=1e-5)
-        gap = 2 * one["seg_forward_gap"]
-    np.testing.assert_allclose(ranks[0], want, rtol=1e-5, atol=1e-5 + gap)
+    if predictor == "affine":
+        np.testing.assert_allclose(ranks[0], want, rtol=1e-5, atol=1e-5)
+        return
+    np.testing.assert_allclose(ranks[0], one["port_window"], rtol=1e-5, atol=1e-5)
+    print(f"sharded gap {np.abs(ranks[0] - want).max():.3g}, "
+          f"windows' gap {one['window_gap']:.3g}")
+    assert np.abs(ranks[0] - want).max() <= one["window_gap"] + 1e-5
 
 
 def test_sharded_window_refuses_a_batch():
